@@ -13,7 +13,7 @@ import json
 from typing import Optional, Tuple
 
 PRECISIONS = ("exact", "fast", "f32", "bf16", "int8", "mixed")
-#: Precisions that need the calibrated quantize pass (ROADMAP A.5).
+#: Precisions that go through the calibrated quantize pass.
 QUANT_PRECISIONS = ("f32", "bf16", "int8", "mixed")
 AUTOTUNE_MODES = ("off", "cached", "full")
 
@@ -35,9 +35,14 @@ class CompileOptions:
     target:        ``"interpret"`` (SimpleNN oracle), ``"jit"`` (pass
                    pipeline + generic ATen rules), ``"cuda"`` (``jit`` plus
                    the hand-written CUDA kernels; CPU or a Hopper card).
-    precision:     ``"exact"`` (default) or ``"fast"`` (paper §3.4
-                   approximate activations).  The low-precision family
-                   (``f32``/``bf16``/``int8``/``mixed``) is ROADMAP A.5.
+    precision:     ``"exact"`` (default) and ``"fast"`` (paper §3.4
+                   approximate activations) are the f32 pipelines.  The
+                   low-precision family routes through the calibrated
+                   quantize pass: ``"f32"`` (bit-identical to
+                   ``"exact"``), ``"bf16"`` (operands rounded to bfloat16,
+                   f32 accumulation) and ``"int8"`` (calibrated symmetric
+                   int8 dense sites, exact int32 sums, f32 dequant).
+                   ``"mixed"`` (per-site measured choice) is ROADMAP A.8.
     device:        where the program runs: ``"cuda"`` (default; compiling
                    raises when ``torch.cuda.is_available()`` is false) or
                    ``"cpu"``, where every kernel wrapper runs its plain
@@ -48,8 +53,12 @@ class CompileOptions:
     donate_inputs: kept for the reference's surface; no effect in eager
                    torch, which never frees a caller's tensor.
     dump_ir:       dump the IR between passes: a directory or ``"-"``.
-    calibrate, precision_budget, autotune_budget_ms: read only by the
-                   unported quantize pass and autotuner.
+    calibrate:     seeded sample batches of the quantize pass's
+                   calibration walk; ``None`` = 4 under a quantizing
+                   precision, ignored otherwise.
+    precision_budget: the accuracy budget of ``"mixed"``: validated, and
+                   read by nothing until A.8.
+    autotune_budget_ms: read only by the unported autotuner.
     autotune:      only ``"off"`` (ROADMAP A.8: autotune).
     batch_buckets, buckets, cache_dir, capture, mesh, sharding_rules:
                    must stay unset (ROADMAP A.11, A.7, A.10, A.14); the
@@ -78,10 +87,18 @@ class CompileOptions:
         if self.precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {self.precision!r}")
-        if self.precision in QUANT_PRECISIONS:
+        if self.precision == "mixed":
             raise NotImplementedError(
-                f"precision={self.precision!r} is not ported yet "
-                f"(ROADMAP A.5: precision modes)")
+                "precision='mixed' is not ported yet (ROADMAP A.8: "
+                "autotune; its per-site choice is measured)")
+        if self.calibrate is not None and int(self.calibrate) <= 0:
+            raise ValueError(
+                f"calibrate must be a positive batch count or None, "
+                f"got {self.calibrate!r}")
+        if self.precision_budget is not None and self.precision_budget <= 0:
+            raise ValueError(
+                f"precision_budget must be a positive max_abs_err or "
+                f"None, got {self.precision_budget!r}")
         if self.autotune not in AUTOTUNE_MODES:
             raise ValueError(f"autotune must be one of {AUTOTUNE_MODES}, "
                              f"got {self.autotune!r}")

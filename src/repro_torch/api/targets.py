@@ -6,10 +6,12 @@ built-ins mirror the reference's cast:
     "interpret"  SimpleNN semantics — node-by-node eager oracle.
     "jit"        the optimized path: pass pipeline + generic ATen rules,
                  one prepared program per batch size.
-    "cuda"       ``jit`` with the hand-written CUDA kernels (every dense
-                 node through ``fused_matmul``; every fast exp/tanh/sigmoid
-                 through ``fast_act``) — the reference's ``"pallas"``
-                 twin.  It compiles for the CPU, where the kernels'
+    "cuda"       ``jit`` with the hand-written CUDA kernels (every int8
+                 dense node through ``fused_matmul_q8``, every other dense
+                 node through ``fused_matmul``; every ``decode_attention``
+                 node through ``decode_attention``; every fast
+                 exp/tanh/sigmoid through ``fast_act``) — the reference's
+                 ``"pallas"`` twin.  It compiles for the CPU, where the kernels'
                  wrappers run their plain versions, or a Hopper card.
 
 Every target converts the weights to tensors on ``options.device`` once,
@@ -28,12 +30,25 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..core.graph import Graph
-from ..core.lowering import LoweredGraph, LoweringContext, device_params
+from ..core.lowering import (LoweredGraph, LoweringContext, device_params,
+                             quant_params, resolve_device)
 from ..core.passes import run_pipeline
 from ..core.selection import KernelChoice, check_kernel_device, select_kernels
 from ..core.simple import SimpleNN
 from .executable import Executable
-from .options import CompileOptions
+from .options import QUANT_PRECISIONS, CompileOptions
+
+def _quant_request(options: CompileOptions) -> Optional[dict]:
+    """The quantization request a target rides on ``graph.quant`` for the
+    quantize pass; None when ``options.precision`` does not quantize
+    (``"f32"`` quantizes nothing).  The reference's budget, ``measure``
+    flag and tactic cache serve ``"mixed"`` only, which is ROADMAP A.8."""
+    if options.precision not in QUANT_PRECISIONS \
+            or options.precision == "f32":
+        return None
+    req = {"mode": options.precision, "calibrate": options.calibrate}
+    return {k: v for k, v in req.items() if v is not None}
+
 
 TargetFactory = Callable[[Graph, CompileOptions], Executable]
 
@@ -63,19 +78,6 @@ def get_target(name: str) -> TargetFactory:
 def available_targets() -> Tuple[str, ...]:
     """Sorted names of every registered compile target."""
     return tuple(sorted(_TARGETS))
-
-
-def resolve_device(name: str) -> torch.device:
-    """``options.device`` as a ``torch.device``; a CUDA device without
-    CUDA raises — there is no silent fallback to the CPU."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={name!r} but torch.cuda.is_available() is False; pass "
-            f"CompileOptions(device='cpu') to run on the CPU")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {name!r}; use 'cuda' or 'cpu'")
-    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +129,15 @@ class InterpretExecutable(GraphExecutable):
     def __init__(self, graph: Graph, options: CompileOptions) -> None:
         super().__init__(graph, options)
         t0 = time.perf_counter()
-        self._nn = SimpleNN(graph, device=self.device)
+        # Low precision changes the semantics, so even the oracle honours
+        # it: the quantize pass alone (no fusion or layout) on a copy.
+        nn_graph = graph
+        req = _quant_request(options)
+        if req is not None:
+            nn_graph = graph.copy()
+            nn_graph.quant = req
+            nn_graph, _ = run_pipeline(nn_graph, ("quantize",))
+        self._nn = SimpleNN(nn_graph, device=self.device)
         self.compile_time = time.perf_counter() - t0
 
     def __call__(self, *pos, **inputs):
@@ -136,8 +146,9 @@ class InterpretExecutable(GraphExecutable):
             self._nn(**dict(zip(self.source.inputs, args))))
 
     def cost_summary(self):
-        """Source-graph counts only — the interpreter runs no passes."""
-        return {
+        """Source-graph counts only — the interpreter runs no passes but
+        the quantize pass, whose record it adds under low precision."""
+        out = {
             "target": self.options.target,
             "device": str(self.device),
             "nodes": len(self.source.nodes),
@@ -145,6 +156,9 @@ class InterpretExecutable(GraphExecutable):
             "param_bytes": int(sum(v.nbytes
                                    for v in self.source.params.values())),
         }
+        if self._nn.graph.quant:
+            out["quant"] = dict(self._nn.graph.quant)
+        return out
 
 
 class JitExecutable(GraphExecutable):
@@ -162,9 +176,17 @@ class JitExecutable(GraphExecutable):
         if lowering_target == "cuda":
             check_kernel_device(self.device)
         t0 = time.perf_counter()
+        # The quantize request rides on a copy (self.source stays the
+        # input graph); the pass leaves only the semantic record, the
+        # mode and the quant.* node attrs, which structure_hash() reads.
+        req = _quant_request(options)
+        if req is not None:
+            graph = graph.copy()
+            graph.quant = req
         self.graph, self.report = run_pipeline(
             graph, options.passes, dump_ir=options.dump_ir)
         self.params = device_params(self.graph, self.device)
+        self.params.update(quant_params(self.graph, self.params))
         self._programs: Dict[int, LoweredGraph] = {}
         self._selections: Dict[int, Dict[str, KernelChoice]] = {}
         self.compile_time = time.perf_counter() - t0
@@ -216,6 +238,9 @@ class JitExecutable(GraphExecutable):
                 batch: [c.to_dict() for c in sel.values()]
                 for batch, sel in sorted(self._selections.items())
             }
+        if self.graph.quant:
+            # The quantize pass's record: the mode and per-mode site counts.
+            out["quant"] = dict(self.graph.quant)
         return out
 
 

@@ -13,12 +13,15 @@ Ops lower through registered rules::
 
 A rule may be target-specific: ``register_lowering("dense",
 target="cuda")`` shadows the generic rule only on the ``"cuda"``
-target, which is how the ``fused_matmul`` kernel plugs in.  The
-``fast_act`` kernel plugs in through :meth:`LoweringContext.act`, which
-every rule's fast activations go through.
+target, which is how the ``fused_matmul``, ``fused_matmul_q8`` and
+``decode_attention`` kernels plug in.  The ``fast_act`` kernel plugs in
+through :meth:`LoweringContext.act`, which every rule's fast
+activations go through.
 
 Tensors are NHWC between ops; weights arrive as device tensors prepared
-once by :func:`device_params` (convolution kernels already OIHW).
+once by :func:`device_params` (convolution kernels already OIHW), and
+the low-precision dense operands by :func:`quant_params` (int8 weights
+and dequant vectors, bf16 weights), so no call quantizes a weight.
 """
 
 from __future__ import annotations
@@ -36,12 +39,12 @@ import torch.nn.functional as F
 from .graph import Graph, Node
 from .ops_common import (apply_activation, avgpool2d_nhwc, conv2d_nhwc,
                          fast_activation, maxpool2d_nhwc)
+from ..kernels import qmath
+from ..kernels.decode_attention import ref as attn_ref
+from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.fast_act import ops as fast_act_ops
 from ..kernels.fused_matmul import ref as fm_ref
-from ..kernels.fused_matmul.ops import fused_matmul
-
-#: Ops in the IR whose lowering is not ported yet -> the ROADMAP item.
-PENDING_OPS = {"decode_attention": "ROADMAP A.6"}
+from ..kernels.fused_matmul.ops import fused_matmul, fused_matmul_q8
 
 
 class UnsupportedOpError(NotImplementedError):
@@ -52,12 +55,10 @@ class UnsupportedOpError(NotImplementedError):
         self.op = op
         self.target = target
         ops = registered_ops(target)
-        pending = (f" The port has no {op!r} yet ({PENDING_OPS[op]})."
-                   if op in PENDING_OPS else "")
         super().__init__(
             f"no lowering rule for op {op!r}"
             + (f" (target {target!r})" if target else "")
-            + f"; registered ops: {', '.join(ops)}.{pending} "
+            + f"; registered ops: {', '.join(ops)}. "
             f"Add one with @register_lowering({op!r})"
             + (f" or @register_lowering({op!r}, target={target!r})"
                if target else "")
@@ -182,6 +183,19 @@ def lowering_fingerprint(target: Optional[str] = None) -> str:
     return h.hexdigest()
 
 
+def resolve_device(name: str) -> torch.device:
+    """A device name as a ``torch.device``; a CUDA device without CUDA
+    raises — there is no silent fallback to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={name!r} but torch.cuda.is_available() is False; pass "
+            f"device='cpu' to run on the CPU")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {name!r}; use 'cuda' or 'cpu'")
+    return dev
+
+
 def device_params(graph: Graph, device, names=None) -> Dict[str, torch.Tensor]:
     """The graph's weights as f32 tensors on ``device``, converted once.
 
@@ -206,6 +220,44 @@ def device_params(graph: Graph, device, names=None) -> Dict[str, torch.Tensor]:
             kh, kw, c, mult = t.shape
             t = t.reshape(kh, kw, 1, c * mult).permute(3, 2, 0, 1)
         out[name] = t.contiguous().to(device)
+    return out
+
+
+def quant_key(node: Node, what: str) -> str:
+    """Name of a low-precision operand :func:`quant_params` prepares."""
+    return f"{node.name}/quant.{what}"
+
+
+def quant_params(graph: Graph, params: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """The low-precision operands of the dense sites, made once from the
+    device weights ``params``, on their device:
+
+    * int8: ``wq`` (int8, the stored layout), ``deq`` (f32 ``s_x·s_w``)
+      and ``x_scale`` (0-dim f32, so the plain version divides by a
+      device tensor).  ``quant.w_scale`` covers the logical out channels
+      (the pass runs before layout); the layout pass may have padded the
+      kernel to a LANE multiple, whose zero channels take a scale of 1.0.
+    * bf16: ``w``, the kernel rounded to bfloat16.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for node in graph.nodes:
+        qm = node.attrs.get("quant.mode")
+        if node.op != "dense" or qm not in ("int8", "bf16"):
+            continue
+        w = params[node.params["kernel"]]
+        if qm == "bf16":
+            out[quant_key(node, "w")] = w.to(torch.bfloat16)
+            continue
+        layout = node.attrs.get("kernel_layout", "io")
+        ws = np.asarray(node.attrs["quant.w_scale"], dtype=np.float32)
+        pn = w.shape[1] if layout == "io" else w.shape[0]
+        ws = np.pad(ws, (0, pn - ws.shape[0]), constant_values=1.0)
+        xs = node.attrs["quant.x_scale"]
+        wq, deq = qmath.quantize_weight(w, xs, ws, layout)
+        out[quant_key(node, "wq")] = wq
+        out[quant_key(node, "deq")] = deq
+        out[quant_key(node, "x_scale")] = qmath.scale_tensor(xs, w.device)
     return out
 
 
@@ -238,6 +290,9 @@ def _lower_constant(node, ins, ctx):
 
 
 def _dense_impl(node, ins, ctx, use_kernel: bool):
+    """A dense node at its ``quant.mode``: on the kernel path every node
+    launches ``fused_matmul_q8`` (int8) or ``fused_matmul`` (f32, bf16
+    operands), elsewhere their plain versions run the same arithmetic."""
     w = ctx.params[node.params["kernel"]]
     b = ctx.params[node.params["bias"]] if "bias" in node.params else None
     layout = node.attrs.get("kernel_layout", "io")
@@ -247,16 +302,27 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
     fn = node.epilogue if node.epilogue not in (None, "linear") else None
     if fn == "softmax":
         fn = None  # handled below (two-pass, not fusable in-kernel)
+    kw = dict(fn=fn, fast=ctx.precision == "fast", w_layout=layout,
+              attrs=node.epilogue_attrs)
     x = ins[0]
-    if use_kernel:
-        y = fused_matmul(x.contiguous(), w, b, scale, offset, fn=fn,
-                         fast=ctx.precision == "fast", w_layout=layout,
-                         attrs=node.epilogue_attrs)
+    qm = node.attrs.get("quant.mode")
+    if qm == "int8":
+        wq = ctx.params[quant_key(node, "wq")]
+        deq = ctx.params[quant_key(node, "deq")]
+        if use_kernel:
+            y = fused_matmul_q8(x.contiguous(), wq, deq, b, scale, offset,
+                                x_scale=node.attrs["quant.x_scale"], **kw)
+        else:
+            xq = qmath.quantize_q8(x, ctx.params[quant_key(node, "x_scale")])
+            y = fm_ref.fused_matmul_q8_ref(xq, wq, deq, b, scale, offset, **kw)
     else:
-        y = fm_ref.fused_matmul_ref(x, w, b, scale, offset, fn=fn,
-                                    fast=ctx.precision == "fast",
-                                    w_layout=layout,
-                                    attrs=node.epilogue_attrs)
+        if qm == "bf16":
+            x, w = x.to(torch.bfloat16), ctx.params[quant_key(node, "w")]
+        if use_kernel:
+            y = fused_matmul(x.contiguous(), w, b, scale, offset, **kw)
+        else:
+            y = fm_ref.fused_matmul_ref(x.float(), w.float(), b, scale,
+                                        offset, **kw)
     if "orig_cout" in node.attrs:
         y = y[..., : node.attrs["orig_cout"]]
     if node.epilogue == "softmax":
@@ -271,9 +337,20 @@ def _lower_dense(node, ins, ctx):
 
 @register_lowering("conv2d")
 def _lower_conv2d(node, ins, ctx):
+    k = ctx.params[node.params["kernel"]]
     b = ctx.params[node.params["bias"]] if "bias" in node.params else None
-    y = conv2d_nhwc(ins[0], ctx.params[node.params["kernel"]],
-                    node.attrs["strides"], node.attrs["padding"], bias=b)
+    conv = dict(strides=node.attrs["strides"], padding=node.attrs["padding"])
+    qm = node.attrs.get("quant.mode")
+    if qm == "int8":
+        y = qmath.conv2d_q8(ins[0], k, node.attrs["quant.x_scale"],
+                            node.attrs["quant.w_scale"], **conv)
+    elif qm == "bf16":
+        y = qmath.conv2d_bf16(ins[0], k, **conv)
+    else:
+        return ctx.epilogue(node, conv2d_nhwc(
+            ins[0], k, conv["strides"], conv["padding"], bias=b))
+    if b is not None:
+        y = y + b
     return ctx.epilogue(node, y)
 
 
@@ -366,9 +443,29 @@ def _lower_softmax(node, ins, ctx):
     return ctx.epilogue(node, ctx.act("softmax", ins[0], node.attrs))
 
 
+@register_lowering("decode_attention")
+def _lower_decode_attention(node, ins, ctx):
+    """The one-pass form, as the reference's jit and interpret targets."""
+    lengths = ins[3] if len(ins) > 3 else None
+    return ctx.epilogue(node, attn_ref.decode_attention_ref(
+        ins[0], ins[1], ins[2], lengths, scale=node.attrs.get("scale"),
+        fast=ctx.precision == "fast"))
+
+
 # ---------------------------------------------------------------------------
-# CUDA-target override: every dense node runs the fused_matmul kernel.
+# CUDA-target overrides: every dense node runs the fused_matmul kernel
+# (fused_matmul_q8 for int8 sites), every decode_attention node the
+# decode_attention kernel.
 # ---------------------------------------------------------------------------
 @register_lowering("dense", target="cuda")
 def _lower_dense_cuda(node, ins, ctx):
     return _dense_impl(node, ins, ctx, use_kernel=True)
+
+
+@register_lowering("decode_attention", target="cuda")
+def _lower_decode_attention_cuda(node, ins, ctx):
+    q, k, v = (t.contiguous() for t in ins[:3])
+    lengths = ins[3].contiguous() if len(ins) > 3 else None
+    return ctx.epilogue(node, decode_attention(
+        q, k, v, lengths, scale=node.attrs.get("scale"),
+        fast=ctx.precision == "fast"))

@@ -48,7 +48,7 @@ def fold_constants(graph: Graph) -> Tuple[Graph, Dict]:
                 sub.nodes = [node]
                 sub.rebuild_index()
                 sub.set_outputs([node.output])
-                oracle = SimpleNN(sub)
+                oracle = SimpleNN(sub, device="cpu")
                 feeds = {
                     t: np.asarray(g.params[g.producer(t).params["value"]])[None]
                     for t in node.inputs

@@ -4,12 +4,20 @@ The port of ``repro.core.selection``: per node and before anything runs,
 record from the inferred shapes and the batch size how the ``cuda``
 target's kernels take the graph.
 
-* Every ``dense`` node runs the CUDA ``fused_matmul`` kernel.  The
-  kernel masks its loads, so it takes every shape, and the ``cuda``
-  target has no other dense path.  The choice records the reference's
-  facts: M/K/N, the block tile, its shared memory, and the tile padding
-  waste (padded over logical MACs: the share of the block's threads
-  that idle, not extra bytes moved).
+* Every ``dense`` node runs a CUDA kernel: ``fused_matmul_q8`` for an
+  int8 site (``quant.mode``), ``fused_matmul`` for every other (bf16
+  sites with bf16 operands).  The kernels mask their loads, so they take
+  every shape, and the ``cuda`` target has no other dense path.  The
+  choice records the reference's facts: M/K/N, the block tile, its
+  shared memory (and the int8 kernel's int32 accumulator, which lives in
+  registers), and the tile padding waste (padded over logical MACs: the
+  share of the block's threads that idle, not extra bytes moved).  The
+  reference's off-TPU prior that hands int8 sites to ``lax.dot`` has no
+  counterpart: the int8 kernel is this target's only int8 dense path.
+* Every ``decode_attention`` node runs the CUDA ``decode_attention``
+  kernel.  The reference's lane gate (``D % 128``) has none either: the
+  kernel takes any D up to 256 and G = H/Hkv up to 16, and its wrapper
+  raises beyond.
 * Under ``precision="fast"`` every fast exp/tanh/sigmoid runs in the
   ``fast_act`` kernel (:meth:`~repro_torch.core.lowering.LoweringContext.act`).
   The flat grid-stride kernel takes any shape, so it needs no per-node
@@ -32,7 +40,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .graph import Graph
-from ..kernels.tiles import CUDA_BLOCK, block_smem_bytes, ceil_to
+from ..kernels.decode_attention.ref import DEFAULT_BS
+from ..kernels.tiles import (CUDA_BLOCK, CUDA_Q8_BLOCK, block_smem_bytes,
+                             ceil_to, q8_block_bytes)
 
 #: The compute capability the kernels are built for (``sm_90a``).
 HOPPER = (9, 0)
@@ -47,7 +57,7 @@ class KernelChoice:
 
     node: str
     op: str
-    kernel: str   # "cuda.fused_matmul"
+    kernel: str   # "cuda.fused_matmul", "cuda.fused_matmul_q8", ...
     reason: str
     source: str = "heuristic"
     block: Optional[Tuple[int, ...]] = None
@@ -76,14 +86,34 @@ def _select_dense(node, in_spec, batch_size: int, n: int) -> KernelChoice:
     rows = max(1, in_spec.size // max(1, in_spec.shape[-1]))
     m = batch_size * rows
     k = in_spec.shape[-1]
-    bm, bk, bn = CUDA_BLOCK
-    smem = block_smem_bytes(bm, bk, bn)
+    qm = node.attrs.get("quant.mode")
+    if qm == "int8":
+        kernel, (bm, bk, bn) = "cuda.fused_matmul_q8", CUDA_Q8_BLOCK
+        smem, acc = q8_block_bytes(bm, bk, bn)
+        mem = (f"{smem / 1024:.1f} KiB SMEM + {acc / 1024:.1f} KiB int32 "
+               f"accumulator in registers")
+    else:
+        kernel, (bm, bk, bn) = "cuda.fused_matmul", CUDA_BLOCK
+        mem = f"{block_smem_bytes(bm, bk, bn) / 1024:.1f} KiB SMEM"
+        if qm == "bf16":
+            mem += ", bf16 operands"
     waste = (ceil_to(m, bm) * ceil_to(k, bk) * ceil_to(n, bn)) / float(m * k * n)
     return KernelChoice(
-        node.name, "dense", "cuda.fused_matmul",
-        f"M={m} K={k} N={n} tiles to ({bm},{bk},{bn}), "
-        f"{smem / 1024:.1f} KiB SMEM, {waste:.1f}x pad waste",
+        node.name, "dense", kernel,
+        f"M={m} K={k} N={n} tiles to ({bm},{bk},{bn}), {mem}, "
+        f"{waste:.1f}x pad waste",
         block=(bm, bk, bn))
+
+
+def _select_decode_attention(node, q_spec, kv_spec,
+                             batch_size: int) -> KernelChoice:
+    h, d = q_spec.shape
+    s, hkv, _ = kv_spec.shape
+    return KernelChoice(
+        node.name, "decode_attention", "cuda.decode_attention",
+        f"B={batch_size} H={h} Hkv={hkv} D={d} S={s}: one block per "
+        f"(batch, KV head) owns its {h // hkv} query heads, S in "
+        f"{DEFAULT_BS}-row tiles", block=(DEFAULT_BS,))
 
 
 def select_kernels(
@@ -107,4 +137,8 @@ def select_kernels(
             n = int(node.attrs.get("orig_cout", cout))
             choices[node.name] = _select_dense(
                 node, specs[node.inputs[0]], batch_size, n)
+        elif node.op == "decode_attention":
+            choices[node.name] = _select_decode_attention(
+                node, specs[node.inputs[0]], specs[node.inputs[1]],
+                batch_size)
     return choices

@@ -6,7 +6,13 @@ but slow implementation … as exact in its calculations as possible",
 ops — no fusion, no folding, no approximations.  Tensors are NHWC at
 every node boundary; convolutions run through ATen/cuDNN with TF32 off
 (``ops_common``).  Weights become tensors on ``device`` once, when the
-interpreter is built.
+interpreter is built.  ``device`` defaults to ``"cuda"``, as the
+reference's runs on JAX's default device; compile-time callers (constant
+folding, the calibration walk) pass ``device="cpu"``.
+
+``quant.*`` annotations change a node's semantics, so the oracle honours
+them with the plain forms of ``kernels/qmath.py`` and the int8 dense's
+plain version; it never launches a kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ import torch
 from .graph import Graph, Node
 from .ops_common import (apply_activation, avgpool2d_nhwc, conv2d_nhwc,
                          maxpool2d_nhwc)
+from ..kernels import qmath
+from ..kernels.decode_attention import ref as attn_ref
+from ..kernels.fused_matmul import ref as fm_ref
 
 
 class SimpleNN:
@@ -29,16 +38,16 @@ class SimpleNN:
     tensors on ``device``.
     """
 
-    def __init__(self, graph: Graph, device="cpu"):
+    def __init__(self, graph: Graph, device="cuda"):
+        # Local import: lowering imports the kernels, which import this
+        # module's siblings.
+        from .lowering import device_params, resolve_device
         self.graph = graph
         self.specs = graph.infer_shapes()
-        self.device = torch.device(device)
+        self.device = resolve_device(str(device))
         used = {p for n in graph.nodes for p in n.params.values()}
         for n in graph.nodes:
             used.update(n.epilogue_attrs.get("post_affine") or ())
-        # Local import: lowering imports the kernels, which import this
-        # module's siblings; the oracle itself only needs the helper.
-        from .lowering import device_params
         self.params = device_params(graph, self.device, names=used)
 
     def __call__(self, **inputs) -> Dict[str, torch.Tensor]:
@@ -75,17 +84,38 @@ class SimpleNN:
             v = p[node.params["value"]]
             return v.expand((batch,) + tuple(v.shape))
         if op in ("conv2d", "depthwise_conv2d"):
-            groups = ins[0].shape[-1] if op == "depthwise_conv2d" else 1
-            y = conv2d_nhwc(ins[0], p[node.params["kernel"]],
-                            node.attrs["strides"], node.attrs["padding"],
-                            groups=groups)
+            k = p[node.params["kernel"]]
+            conv = dict(strides=node.attrs["strides"],
+                        padding=node.attrs["padding"])
+            qm = node.attrs.get("quant.mode") if op == "conv2d" else None
+            if qm == "int8":
+                y = qmath.conv2d_q8(ins[0], k, node.attrs["quant.x_scale"],
+                                    node.attrs["quant.w_scale"], **conv)
+            elif qm == "bf16":
+                y = qmath.conv2d_bf16(ins[0], k, **conv)
+            else:
+                groups = ins[0].shape[-1] if op == "depthwise_conv2d" else 1
+                y = conv2d_nhwc(ins[0], k, conv["strides"], conv["padding"],
+                                groups=groups)
             if "bias" in node.params:
                 y = y + p[node.params["bias"]]
             return y
         if op == "dense":
-            y = ins[0] @ p[node.params["kernel"]]
-            if "bias" in node.params:
-                y = y + p[node.params["bias"]]
+            k = p[node.params["kernel"]]
+            b = p[node.params["bias"]] if "bias" in node.params else None
+            qm = node.attrs.get("quant.mode")
+            if qm == "int8":
+                wq, deq = qmath.quantize_weight(
+                    k, node.attrs["quant.x_scale"], node.attrs["quant.w_scale"])
+                xq = qmath.quantize_q8(ins[0], node.attrs["quant.x_scale"])
+                return fm_ref.fused_matmul_q8_ref(xq, wq, deq, b)
+            if qm == "bf16":
+                x, k = (t.float() for t in qmath.bf16_cast_pair(ins[0], k))
+            else:
+                x = ins[0]
+            y = x @ k
+            if b is not None:
+                y = y + b
             return y
         if op == "batchnorm":
             gamma = p[node.params["gamma"]]
@@ -125,6 +155,11 @@ class SimpleNN:
             return ins[0].reshape(ins[0].shape[0], -1)
         if op == "softmax":
             return torch.softmax(ins[0], dim=node.attrs["axis"])
+        if op == "decode_attention":
+            lengths = ins[3] if len(ins) > 3 else None
+            return attn_ref.decode_attention_ref(
+                ins[0], ins[1], ins[2], lengths,
+                scale=node.attrs.get("scale"))
         # Plug-in ops (register_op + @register_lowering) and ops not
         # ported yet: the generic lowering rule in exact precision, on an
         # epilogue-free view of the node (the loop above applies

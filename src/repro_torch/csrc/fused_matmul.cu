@@ -30,7 +30,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "fast_math.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -40,45 +40,9 @@ constexpr int TM = 4, TN = 4;
 constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
 constexpr int kTx = BN / TN;                     // 16 threads along N
 
-// Activation codes; repro_torch/kernels/fused_matmul/kernel.py::ACT_CODES.
-enum Act {
-  kNone = 0,
-  kRelu = 1,
-  kRelu6 = 2,
-  kLeakyRelu = 3,
-  kHardSigmoid = 4,
-  kElu = 5,
-  kTanh = 6,
-  kSigmoid = 7,
-};
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float activate(float y, int act, float alpha,
-                                          int fast) {
-  switch (act) {
-    case kRelu:
-      return y < 0.0f ? 0.0f : y;
-    case kRelu6:
-      return repro::clamp_f32(y, 0.0f, 6.0f);
-    case kLeakyRelu:
-      return y >= 0.0f ? y : __fmul_rn(alpha, y);
-    case kHardSigmoid:
-      return repro::clamp_f32(__fadd_rn(__fmul_rn(y, 0.2f), 0.5f), 0.0f,
-                              1.0f);
-    case kElu:  // exact expm1 even when fast, as the TPU kernel does
-      return y >= 0.0f ? y : expm1f(y);
-    case kTanh:
-      return fast ? repro::cf_tanh(y) : tanhf(y);
-    case kSigmoid:
-      return fast ? repro::cf_sigmoid(y)
-                  : __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
-    default:
-      return y;
-  }
 }
 
 template <typename T, bool OI>
@@ -144,8 +108,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // Epilogue in registers: bias -> activation -> folded-BN affine, then
-  // the single store.  Neighbouring threads store neighbouring columns.
+  // Epilogue in registers (epilogue.cuh): bias -> activation ->
+  // folded-BN affine, then the single store.  Neighbouring threads store neighbouring columns.
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + i * (BM / TM);
@@ -154,11 +118,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * kTx;
       if (gn >= N) continue;
-      float y = acc[i][j];
-      if (bias != nullptr) y = __fadd_rn(y, bias[gn]);
-      y = activate(y, act, alpha, fast);
-      if (scale != nullptr) y = __fadd_rn(__fmul_rn(y, scale[gn]), offset[gn]);
-      out[(size_t)gm * N + gn] = y;
+      out[(size_t)gm * N + gn] = repro::epilogue(
+          acc[i][j], gn, bias, scale, offset, act, alpha, fast);
     }
   }
 }
@@ -189,8 +150,8 @@ extern "C" int repro_fused_matmul(const void* x, const void* w,
                                   const float* offset, float* out, int M,
                                   int K, int N, int w_oi, int bf16, int act,
                                   float alpha, int fast, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || act < kNone || act > kSigmoid ||
-      (scale == nullptr) != (offset == nullptr))
+  if (M <= 0 || N <= 0 || K < 0 || act < repro::kNone ||
+      act > repro::kSigmoid || (scale == nullptr) != (offset == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {

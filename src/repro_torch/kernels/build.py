@@ -102,8 +102,15 @@ def load() -> ctypes.CDLL:
     lib.repro_fused_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                        ctypes.c_float, i, p]
     lib.repro_fused_matmul.restype = i
+    lib.repro_fused_matmul_q8.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                          ctypes.c_float, i, ctypes.c_float,
+                                          i, p]
+    lib.repro_fused_matmul_q8.restype = i
     lib.repro_fast_act.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.repro_fast_act.restype = i
+    lib.repro_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                           ctypes.c_float, i, p]
+    lib.repro_decode_attention.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

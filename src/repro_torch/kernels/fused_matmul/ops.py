@@ -1,31 +1,49 @@
-"""Public wrapper of the fused matmul kernel.
+"""Public wrappers of the fused matmul kernels.
 
-``fused_matmul`` runs the plain torch version (``ref.py``) for a tensor
-on the CPU and launches the CUDA kernel for a CUDA tensor, raising on
-anything the kernel does not take; there is no fallback between the
-two.  ``fused_matmul.launches`` counts kernel launches.
+``fused_matmul`` (f32/bf16) and ``fused_matmul_q8`` (int8) run their
+plain torch versions (``ref.py``) for a tensor on the CPU and launch
+their CUDA kernels for a CUDA tensor, raising on anything the kernel
+does not take; there is no fallback between the two.  Each keeps a
+``launches`` count of kernel launches.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import kernel, ref
+from .. import qmath
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_vec(name: str, v: Optional[torch.Tensor], n: int,
-               device: torch.device) -> None:
+               device: torch.device, what: str = "fused_matmul") -> None:
     if v is None:
         return
     if v.device != device or v.dtype != torch.float32 or v.shape != (n,) \
             or not v.is_contiguous():
         raise ValueError(
-            f"fused_matmul: {name} must be a contiguous f32 ({n},) tensor on "
+            f"{what}: {name} must be a contiguous f32 ({n},) tensor on "
             f"{device}, got {tuple(v.shape)} {v.dtype} on {v.device}")
+
+
+def _check_common(what: str, x, w, scale, offset, fn, w_layout) -> int:
+    """Checks both wrappers share; returns N."""
+    if w_layout not in ("io", "oi"):
+        raise ValueError(f"{what}: unknown w_layout {w_layout!r}")
+    if fn not in kernel.ACT_CODES:
+        raise NotImplementedError(f"{what}: activation {fn!r}")
+    if (scale is None) != (offset is None):
+        raise ValueError(f"{what}: scale and offset go together")
+    k = x.shape[-1]
+    if w.ndim != 2 or w.shape[0 if w_layout == "io" else 1] != k:
+        raise ValueError(f"{what}: x {tuple(x.shape)} does not contract "
+                         f"with W {tuple(w.shape)} ({w_layout})")
+    return w.shape[1] if w_layout == "io" else w.shape[0]
 
 
 def fused_matmul(
@@ -46,19 +64,10 @@ def fused_matmul(
     are f32 or bf16 (x and W alike), bias/scale/offset f32 (N,); the
     output is f32.
     """
-    if w_layout not in ("io", "oi"):
-        raise ValueError(f"fused_matmul: unknown w_layout {w_layout!r}")
-    if fn not in kernel.ACT_CODES:
-        raise NotImplementedError(f"fused_matmul: activation {fn!r}")
-    if (scale is None) != (offset is None):
-        raise ValueError("fused_matmul: scale and offset go together")
+    n = _check_common("fused_matmul", x, w, scale, offset, fn, w_layout)
     attrs = attrs or {}
     shape = x.shape
     k = shape[-1]
-    if w.ndim != 2 or w.shape[0 if w_layout == "io" else 1] != k:
-        raise ValueError(f"fused_matmul: x {tuple(shape)} does not contract "
-                         f"with W {tuple(w.shape)} ({w_layout})")
-    n = w.shape[1] if w_layout == "io" else w.shape[0]
     if x.device.type == "cpu":
         y = ref.fused_matmul_ref(
             x.reshape(-1, k).float(), w.float(), bias, scale, offset, fn=fn,
@@ -91,3 +100,73 @@ def fused_matmul(
 
 #: Kernel launches since the count was last set (chip_smoke.py resets it).
 fused_matmul.launches = 0
+
+
+def fused_matmul_q8(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    deq: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    *,
+    x_scale: float,
+    fn: Optional[str] = None,
+    fast: bool = False,
+    w_layout: str = "io",
+    attrs: Optional[dict] = None,
+) -> torch.Tensor:
+    """Int8 fused matmul: y = affine(act(deq * (q(x) @ Wq) + bias)) with
+    q(x) = ``qmath.quantize_q8(x, x_scale)`` and Wq int8 in 'io' (K,N) or
+    'oi' (N,K) (:func:`~repro_torch.kernels.qmath.quantize_weight`).
+
+    x is f32 of any rank (contracted over its last axis), ``x_scale`` a
+    float (rounded to f32, as the reference rounds it); deq/bias/scale/
+    offset f32 (N,); the output is f32.  The kernel quantizes x as it
+    loads it, so a CUDA call is one launch.
+    """
+    n = _check_common("fused_matmul_q8", x, wq, scale, offset, fn, w_layout)
+    attrs = attrs or {}
+    shape = x.shape
+    k = shape[-1]
+    if x.device.type == "cpu":
+        xq = qmath.quantize_q8(x.reshape(-1, k).float(), x_scale)
+        y = ref.fused_matmul_q8_ref(
+            xq, wq, deq, bias, scale, offset, fn=fn, fast=fast,
+            w_layout=w_layout, attrs=attrs)
+        return y.reshape(shape[:-1] + (n,))
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_matmul_q8: unsupported device {x.device}")
+    if x.dtype != torch.float32 or wq.dtype != torch.int8:
+        raise TypeError(f"fused_matmul_q8: x must be f32 and Wq int8, got "
+                        f"x {x.dtype}, Wq {wq.dtype}")
+    if wq.device != x.device:
+        raise ValueError(f"fused_matmul_q8: Wq on {wq.device}, x on {x.device}")
+    if not (x.is_contiguous() and wq.is_contiguous()):
+        raise ValueError("fused_matmul_q8: the CUDA kernel needs contiguous "
+                         "x and Wq")
+    if isinstance(x_scale, torch.Tensor):
+        raise TypeError("fused_matmul_q8: x_scale is a float (reading a "
+                        "device tensor would synchronise)")
+    if not float(x_scale) > 0.0:
+        raise ValueError(f"fused_matmul_q8: x_scale must be > 0, got {x_scale}")
+    _check_vec("deq", deq, n, x.device, "fused_matmul_q8")
+    for name, v in (("bias", bias), ("scale", scale), ("offset", offset)):
+        _check_vec(name, v, n, x.device, "fused_matmul_q8")
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    if m > kernel.MAX_M:
+        raise ValueError(f"fused_matmul_q8: M={m} exceeds the grid's "
+                         f"{kernel.MAX_M}")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m and n:
+        kernel.launch_q8(x2, wq, deq, bias, scale, offset, out,
+                         x_scale=float(np.float32(x_scale)), fn=fn,
+                         alpha=attrs.get("alpha", 0.01), fast=fast,
+                         w_layout=w_layout)
+        fused_matmul_q8.launches += 1
+    return out.reshape(shape[:-1] + (n,))
+
+
+#: Kernel launches since the count was last set (chip_smoke.py resets it).
+fused_matmul_q8.launches = 0

@@ -29,8 +29,15 @@ def fused_matmul_ref(
     """matmul + bias + activation + post-affine, each a separate op.
     ``elu`` is the exact ``expm1`` even when ``fast``, as in the
     reference's kernel epilogue."""
-    attrs = attrs or {}
     y = x @ (w.T if w_layout == "oi" else w)
+    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+
+
+def _epilogue_chain(y, bias, scale, offset, fn, fast, attrs):
+    """The f32 epilogue chain alone (bias → activation → affine), each a
+    separate op — shared by the int8 path, which produces ``y`` by
+    dequantizing an exact integer sum instead of an f32 matmul."""
+    attrs = attrs or {}
     if bias is not None:
         y = y + bias
     if fn and fn != "linear":
@@ -53,3 +60,30 @@ def fused_matmul_ref(
     if scale is not None:
         y = y * scale + offset
     return y
+
+
+def fused_matmul_q8_ref(
+    xq: torch.Tensor,
+    wq: torch.Tensor,
+    deq: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    *,
+    fn: Optional[str] = None,
+    fast: bool = False,
+    w_layout: str = "io",
+    attrs: Optional[dict] = None,
+) -> torch.Tensor:
+    """Int8 matmul of already quantized operands: an exact integer sum,
+    one f32 multiply by ``deq`` (per-channel ``s_x * s_w``), then the
+    f32 epilogue chain.
+
+    The sum runs in float64 on the int8 values, on either device (CUDA
+    has no integer matmul in ATen): each partial sum is an integer of
+    magnitude below 127² · K < 2^53, so it is exact in any order and
+    rounds to f32 as the reference's int32 sum does."""
+    wd = wq.double()
+    acc = xq.double() @ (wd.T if w_layout == "oi" else wd)
+    y = acc.float() * deq
+    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)

@@ -16,7 +16,6 @@ import repro
 from benchmarks.table1_models import SUITE as REF_SUITE
 
 import repro_torch
-from repro_torch.core.lowering import UnsupportedOpError
 from repro_torch.table1_models import SUITE as PORT_SUITE
 
 ATOL = 1e-5
@@ -155,10 +154,7 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("precision", "int8", "A.5"),
-    ("precision", "bf16", "A.5"),
-    ("precision", "f32", "A.5"),
-    ("precision", "mixed", "A.5"),
+    ("precision", "mixed", "A.8"),
     ("autotune", "cached", "A.8"),
     ("autotune", "full", "A.8"),
     ("mesh", "data=4", "A.14"),
@@ -173,16 +169,18 @@ def test_unported_options_raise(field, value, item):
         repro_torch.CompileOptions(**{field: value}, device="cpu")
 
 
-def test_decode_attention_not_ported_on_any_target():
-    mb = repro_torch.ModelBuilder()
-    q = mb.input((4, 8), name="q")
-    k = mb.input((16, 2, 8), name="k")
-    v = mb.input((16, 2, 8), name="v")
-    g = mb.build([mb.decode_attention(q, k, v)])
-    feeds = _inputs(g, batch=1)
-    for target in ("interpret", "jit", "cuda"):
-        with pytest.raises(UnsupportedOpError, match="A.6"):
-            repro_torch.compile(g, target=target, device="cpu")(**feeds)
+def test_simplenn_runs_on_the_card_unless_asked_for_the_cpu():
+    g = PORT_SUITE["C-HTWK"]()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.SimpleNN(g)
+    out = repro_torch.SimpleNN(g, device="cpu")(**_inputs(g))
+    want = repro.compile(REF_SUITE["C-HTWK"](),
+                         repro.CompileOptions(target="interpret"))(**_inputs(g))
+    for k, v in out.items():
+        assert v.device.type == "cpu"
+        np.testing.assert_allclose(v.numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=ATOL)
 
 
 def test_compile_rejects_a_reference_graph():
