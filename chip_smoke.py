@@ -85,7 +85,11 @@ DECODE_LENGTHS = {1: [31000],
 #: a head dim that is not a multiple of 4 (the kernel's scalar loads).
 DECODE_CHECK_MORE = [(2, 16, 1, 256, 4096, [4096, 1537]),
                      (2, 36, 36, 64, 4096, [3001, 4096]),
-                     (2, 6, 2, 100, 1500, [1500, 777])]
+                     (2, 6, 2, 100, 1500, [1500, 777]),
+                     # Two tiles a chunk (kernel.py::chunk_plan) over an S
+                     # that is no multiple of the chunk: lengths on a chunk
+                     # edge, inside the first tile, 1, and S.
+                     (4, 40, 8, 128, 9000, [2048, 300, 1, 9000])]
 KERNELS = ("fused_matmul", "fast_act", "fused_matmul_q8", "decode_attention")
 TIMED_RUNS = 25
 DEVICE = "cuda"
@@ -179,10 +183,9 @@ def queued_ms(fn, iters: int = 50, spin: int = 40_000_000) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time per call of ``fn()``: the sum of every CUDA kernel it
-    launched, from ``torch.profiler``, over ``iters`` calls; None when
-    the profiler recorded no device time."""
+def device_ms_by_kernel(fn, iters: int = 20):
+    """Device time per call of ``fn()`` of each CUDA kernel it launched,
+    by name, from ``torch.profiler`` over ``iters`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -191,13 +194,22 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    out = {}
     for evt in prof.key_averages():
         if "CUDA" not in str(getattr(evt, "device_type", "")):
             continue
         t = getattr(evt, "self_device_time_total", None)
-        total_us += t if t is not None else getattr(evt, "self_cuda_time_total", 0.0)
-    return total_us / iters / 1e3 if total_us else None
+        t = t if t is not None else getattr(evt, "self_cuda_time_total", 0.0)
+        if t:
+            out[evt.key] = out.get(evt.key, 0.0) + t / iters / 1e3
+    return out
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn()``: the sum of every CUDA kernel it
+    launched; None when the profiler recorded no device time."""
+    total = sum(device_ms_by_kernel(fn, iters).values())
+    return total or None
 
 
 def bound_ms(nbytes: float, flops: float, ops_per_s: float = F32_FLOPS_PER_S):
@@ -258,6 +270,13 @@ def phase_build():
 
 MAIN_DENSE_KN = [(128, 16), (16, 4), (256, 32), (32, 2), (256, 128),
                  (128, 128), (128, 10)]
+#: B1 shapes beside the main path's (which hold M 1 and 256 at K 256),
+#: each taking a path of its plan: the GEMV path's edge (M 16) and the
+#: tiled path's (M 17), a ragged one, and deep K split across blocks.
+#: Their tolerance is MATMUL_ATOL scaled by sqrt(K / 256): unit-normal
+#: sums of K terms in another order.
+DENSE_CHECK_MORE = [(16, 256, 128), (17, 256, 128), (300, 257, 130),
+                    (256, 2048, 128), (1, 2048, 96)]
 EPILOGUES = [  # (name, fn, fast, attrs, affine)
     ("none", None, False, {}, False),
     ("relu", "relu", False, {}, False),
@@ -274,15 +293,18 @@ EPILOGUES = [  # (name, fn, fast, attrs, affine)
 def phase_check(torch, np):
     from repro_torch.kernels.fast_act import ref as fa_ref
     from repro_torch.kernels.fast_act.ops import fast_act
+    from repro_torch.kernels.fused_matmul import kernel as fm_k
     from repro_torch.kernels.fused_matmul import ref as fm_ref
     from repro_torch.kernels.fused_matmul.ops import fused_matmul
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(11)
     shapes = [(m, k, n) for k, n in MAIN_DENSE_KN for m in BATCHES]
-    shapes.append((300, 257, 130))
-    worst, failures, cases = 0.0, [], 0
+    shapes += DENSE_CHECK_MORE
+    worst, failures, cases, plans = 0.0, [], 0, {}
+    split_worst, deterministic = 0.0, True
     for m, k, n in shapes:
+        atol = MATMUL_ATOL * max(1.0, (k / 256) ** 0.5)
         x32 = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32,
                            device=dev)
         wio = torch.tensor(rng.standard_normal((k, n)), dtype=torch.float32,
@@ -297,6 +319,9 @@ def phase_check(torch, np):
             x = x32.to(dtype)
             for layout in ("io", "oi"):
                 w = (wio if layout == "io" else wio.T.contiguous()).to(dtype)
+                p = fm_k.plan(m, k, n, w_layout=layout,
+                              itemsize=x.element_size())
+                plans[f"{m}x{k}x{n} {layout}"] = p.describe()
                 for name, fn, fast, attrs, affine in EPILOGUES:
                     s, o = (scale, offset) if affine else (None, None)
                     got = fused_matmul(x, w, bias, s, o, fn=fn, fast=fast,
@@ -307,13 +332,30 @@ def phase_check(torch, np):
                     err = float((got - want).abs().max())
                     cases += 1
                     worst = max(worst, err)
-                    if not err <= MATMUL_ATOL:
+                    ok = err <= atol
+                    if name == "relu_affine":
+                        # The split reduction: against its plain emulation,
+                        # and bit-equal from one call to the next.
+                        split = fm_ref.fused_matmul_split_ref(
+                            x.float(), w.float(), bias, s, o, fn=fn,
+                            w_layout=layout, splits=p.splits, ksplit=p.ksplit)
+                        split_worst = max(split_worst,
+                                          float((got - split).abs().max()))
+                        again = fused_matmul(x, w, bias, s, o, fn=fn,
+                                             w_layout=layout)
+                        same = bool(torch.equal(got, again))
+                        deterministic &= same
+                        ok &= same
+                    if not ok:
                         failures.append([m, k, n, str(dtype), layout, name, err])
     torch.cuda.synchronize()
     emit({"phase": "check", "kernel": "fused_matmul", "cases": cases,
           "max_abs_err": worst, "atol": MATMUL_ATOL,
+          "atol_deep_k": "MATMUL_ATOL * sqrt(K / 256) for K > 256",
+          "max_abs_err_vs_split_ref": split_worst,
+          "deterministic_two_calls": deterministic,
           "inputs": "unit-normal x and W, f32 accumulation, TF32 off",
-          "failures": failures[:20]})
+          "plans": plans, "failures": failures[:20]})
     fm_err = worst
 
     x = torch.tensor(rng.standard_normal((4097, 1000)) * 5.0,
@@ -435,10 +477,14 @@ def decode_inputs(torch, b, h, hkv, d, s, lengths, seed):
 
 
 def phase_check_decode(torch, np):
-    """decode_attention against its tiled plain form, exact and fast, and
-    against the one-pass form, exact: qwen2.5-14b's widths over the
-    32768-deep cache at batch 8, then the largest group (H 16, Hkv 1,
-    D 256) and no grouping at D 64 (H 36, Hkv 36) at S 4096."""
+    """decode_attention against its tiled plain form and its split
+    emulation (the kernels' own algorithm), exact and fast, and against
+    the one-pass form, exact: qwen2.5-14b's widths over the 32768-deep
+    cache at batch 8, then the largest group (H 16, Hkv 1, D 256), no
+    grouping at D 64 (H 36, Hkv 36), D 100 (scalar loads), and lengths
+    on the chunk plan's edges.  Two calls on the same inputs must be
+    bit-equal."""
+    from repro_torch.kernels.decode_attention import kernel as attn_k
     from repro_torch.kernels.decode_attention import ref as attn_ref
     from repro_torch.kernels.decode_attention.ops import decode_attention
 
@@ -447,12 +493,18 @@ def phase_check_decode(torch, np):
     worst, failures = 0.0, []
     for i, (b, h, hkv, d, s, lengths) in enumerate(shapes):
         q, k, v, lens = decode_inputs(torch, b, h, hkv, d, s, lengths, 20 + i)
-        errs = {}
+        tpc, chunks = attn_k.chunk_plan(b, hkv, s)
+        errs, deterministic = {}, True
         for fast in (False, True):
             got = decode_attention(q, k, v, lens, fast=fast)
+            deterministic &= bool(torch.equal(
+                got, decode_attention(q, k, v, lens, fast=fast)))
             want = attn_ref.decode_attention_tiled(q, k, v, lens, fast=fast)
-            errs["fast_vs_tiled" if fast else "exact_vs_tiled"] = float(
-                (got - want).abs().max())
+            tag = "fast" if fast else "exact"
+            errs[f"{tag}_vs_tiled"] = float((got - want).abs().max())
+            split = attn_ref.decode_attention_split(
+                q, k, v, lens, tiles_per_chunk=tpc, fast=fast)
+            errs[f"{tag}_vs_split"] = float((got - split).abs().max())
             if not fast:
                 one = attn_ref.decode_attention_ref(q, k, v, lens)
                 errs["exact_vs_one_pass"] = float((got - one).abs().max())
@@ -466,13 +518,18 @@ def phase_check_decode(torch, np):
                                         decode_attention(q, k, v, lens)))
         del k2, v2
         worst = max(worst, *errs.values())
-        ok = all(e <= DECODE_ATOL for e in errs.values()) and masked_equal
+        ok = (all(e <= DECODE_ATOL for e in errs.values()) and masked_equal
+              and deterministic)
         if not ok:
-            failures.append([b, h, hkv, d, s, errs, masked_equal])
+            failures.append([b, h, hkv, d, s, errs, masked_equal,
+                             deterministic])
         emit({"phase": "check", "kernel": "decode_attention",
               "shape": {"B": b, "H": h, "Hkv": hkv, "D": d, "S": s},
-              "lengths": lengths, "max_abs_err": errs, "atol": DECODE_ATOL,
-              "rows_past_length_ignored": masked_equal, "ok": ok})
+              "lengths": lengths, "plan": {"tiles_per_chunk": tpc,
+                                           "chunks": chunks},
+              "max_abs_err": errs, "atol": DECODE_ATOL,
+              "rows_past_length_ignored": masked_equal,
+              "deterministic_two_calls": deterministic, "ok": ok})
     problems = []
     if failures:
         problems.append(f"decode_attention checks failed: {failures}")
@@ -774,6 +831,7 @@ def phase_time_kernels(torch, np, exes):
     import torch.nn.functional as F
     from repro_torch.kernels.fast_act import ref as fa_ref
     from repro_torch.kernels.fast_act.ops import fast_act
+    from repro_torch.kernels.fused_matmul import kernel as fm_k
     from repro_torch.kernels.fused_matmul import ref as fm_ref
     from repro_torch.kernels.fused_matmul.ops import fused_matmul
     from repro_torch.table1_models import SUITE
@@ -819,6 +877,7 @@ def phase_time_kernels(torch, np, exes):
                 row = {"phase": "time", "kernel": "fused_matmul",
                        "model": name, "node": node.name, "M": m, "K": k,
                        "N": n, "layout": layout, "epilogue": fn or "none",
+                       "plan": fm_k.plan(m, k, n, w_layout=layout).describe(),
                        "ms": ms, "call_ms": call, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": bnd, "bound_by": by}
                 rows["fused_matmul"].append(row)
@@ -941,6 +1000,7 @@ def phase_time_decode(torch, dec_feeds):
     the bound (K and V up to each length read once, q read and the
     output written once; 4·H·D operations per valid row)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as attn_k
     from repro_torch.kernels.decode_attention import ref as attn_ref
     from repro_torch.kernels.decode_attention.ops import decode_attention
 
@@ -972,9 +1032,21 @@ def phase_time_decode(torch, dec_feeds):
         rows_valid = sum(DECODE_LENGTHS[b])
         nbytes = 2 * rows_valid * hkv * d * 4 + 2 * b * h * d * 4 + 4 * b
         bnd, by = bound_ms(nbytes, 4.0 * h * d * rows_valid)
+        tpc, chunks = attn_k.chunk_plan(b, hkv, s)
+        # Device time of each of the call's kernels (warm L2), by name.
+        split = {}
+        for name, t in device_ms_by_kernel(
+                lambda: decode_attention(q, k, v, lens), 5).items():
+            part = next((p for p in ("scores", "pv", "combine")
+                         if f"{p}_kernel" in name), name[:60])
+            split[part] = split.get(part, 0.0) + t
         row = {"phase": "time", "kernel": "decode_attention", "batch": b,
-               "shape": DECODE, "lengths": DECODE_LENGTHS[b], "ms": ms,
-               "call_ms": call, "scalar_loads_ms": scalar,
+               "shape": DECODE, "lengths": DECODE_LENGTHS[b],
+               "plan": f"{tpc} tiles a chunk, {chunks} chunks x {b * hkv} "
+                       f"(batch, KV head): {b * hkv * chunks} blocks; "
+                       f"{attn_k.KERNELS_PER_CALL} kernels a call", "ms": ms,
+               "call_ms": call, "kernels_device_ms": split,
+               "scalar_loads_ms": scalar,
                "plain_ms": plain, "library_ms": lib,
                "library": lib_note, "bound_ms": bnd, "bound_by": by}
         rows.append(row)

@@ -11,13 +11,17 @@ target's kernels take the graph.
   choice records the reference's facts: M/K/N, the block tile, its
   shared memory (and the int8 kernel's int32 accumulator, which lives in
   registers), and the tile padding waste (padded over logical MACs: the
-  share of the block's threads that idle, not extra bytes moved).  The
+  share of the block's threads that idle, not extra bytes moved).  For
+  ``fused_matmul`` these come from the plan the kernel runs
+  (``kernels/fused_matmul/kernel.py::plan``: GEMV or tiled path, K
+  split, blocks).  The
   reference's off-TPU prior that hands int8 sites to ``lax.dot`` has no
   counterpart: the int8 kernel is this target's only int8 dense path.
 * Every ``decode_attention`` node runs the CUDA ``decode_attention``
-  kernel.  The reference's lane gate (``D % 128``) has none either: the
-  kernel takes any D up to 256 and G = H/Hkv up to 16, and its wrapper
-  raises beyond.
+  kernels, S split into chunks of 512-row tiles
+  (``kernels/decode_attention/kernel.py::chunk_plan``).  The reference's
+  lane gate (``D % 128``) has none either: the kernels take any D up to
+  256 and G = H/Hkv up to 16, and the wrapper raises beyond.
 * Under ``precision="fast"`` every fast exp/tanh/sigmoid runs in the
   ``fast_act`` kernel (:meth:`~repro_torch.core.lowering.LoweringContext.act`).
   The flat grid-stride kernel takes any shape, so it needs no per-node
@@ -41,8 +45,9 @@ import torch
 
 from .graph import Graph
 from ..kernels.decode_attention.ref import DEFAULT_BS
-from ..kernels.tiles import (CUDA_BLOCK, CUDA_Q8_BLOCK, block_smem_bytes,
-                             ceil_to, q8_block_bytes)
+from ..kernels.decode_attention.kernel import chunk_plan
+from ..kernels.fused_matmul.kernel import plan as dense_plan
+from ..kernels.tiles import CUDA_Q8_BLOCK, ceil_to, q8_block_bytes
 
 #: The compute capability the kernels are built for (``sm_90a``).
 HOPPER = (9, 0)
@@ -88,32 +93,40 @@ def _select_dense(node, in_spec, batch_size: int, n: int) -> KernelChoice:
     k = in_spec.shape[-1]
     qm = node.attrs.get("quant.mode")
     if qm == "int8":
-        kernel, (bm, bk, bn) = "cuda.fused_matmul_q8", CUDA_Q8_BLOCK
+        bm, bk, bn = CUDA_Q8_BLOCK
         smem, acc = q8_block_bytes(bm, bk, bn)
-        mem = (f"{smem / 1024:.1f} KiB SMEM + {acc / 1024:.1f} KiB int32 "
-               f"accumulator in registers")
-    else:
-        kernel, (bm, bk, bn) = "cuda.fused_matmul", CUDA_BLOCK
-        mem = f"{block_smem_bytes(bm, bk, bn) / 1024:.1f} KiB SMEM"
-        if qm == "bf16":
-            mem += ", bf16 operands"
-    waste = (ceil_to(m, bm) * ceil_to(k, bk) * ceil_to(n, bn)) / float(m * k * n)
+        waste = (ceil_to(m, bm) * ceil_to(k, bk) * ceil_to(n, bn)) \
+            / float(m * k * n)
+        return KernelChoice(
+            node.name, "dense", "cuda.fused_matmul_q8",
+            f"M={m} K={k} N={n} tiles to ({bm},{bk},{bn}), "
+            f"{smem / 1024:.1f} KiB SMEM + {acc / 1024:.1f} KiB int32 "
+            f"accumulator in registers, {waste:.1f}x pad waste",
+            block=(bm, bk, bn))
+    layout = node.attrs.get("kernel_layout", "io")
+    p = dense_plan(m, k, n, w_layout=layout, itemsize=2 if qm == "bf16" else 4)
+    mem = f"{p.smem_bytes / 1024:.1f} KiB SMEM"
+    if qm == "bf16":
+        mem += ", bf16 operands"
     return KernelChoice(
-        node.name, "dense", kernel,
-        f"M={m} K={k} N={n} tiles to ({bm},{bk},{bn}), {mem}, "
-        f"{waste:.1f}x pad waste",
-        block=(bm, bk, bn))
+        node.name, "dense", "cuda.fused_matmul",
+        f"M={m} K={k} N={n} {layout}: {p.describe()}, {mem}, "
+        f"{p.pad_waste(m, k, n):.1f}x pad waste",
+        block=(p.block[0], p.ksplit, p.block[1]))
 
 
 def _select_decode_attention(node, q_spec, kv_spec,
                              batch_size: int) -> KernelChoice:
     h, d = q_spec.shape
     s, hkv, _ = kv_spec.shape
+    tpc, nchunks = chunk_plan(batch_size, hkv, s)
     return KernelChoice(
         node.name, "decode_attention", "cuda.decode_attention",
-        f"B={batch_size} H={h} Hkv={hkv} D={d} S={s}: one block per "
-        f"(batch, KV head) owns its {h // hkv} query heads, S in "
-        f"{DEFAULT_BS}-row tiles", block=(DEFAULT_BS,))
+        f"B={batch_size} H={h} Hkv={hkv} D={d} S={s}: S in {DEFAULT_BS}-row "
+        f"tiles, {tpc} a chunk; {nchunks} chunks x {batch_size * hkv} "
+        f"(batch, KV head) blocks, each with its {h // hkv} query heads, "
+        f"score and p.V kernels, then a combine in chunk order",
+        block=(DEFAULT_BS, tpc))
 
 
 def select_kernels(

@@ -100,7 +100,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.repro_fused_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                       ctypes.c_float, i, p]
+                                       ctypes.c_float, i, i, i, i, p, p, p]
     lib.repro_fused_matmul.restype = i
     lib.repro_fused_matmul_q8.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           ctypes.c_float, i, ctypes.c_float,
@@ -109,7 +109,8 @@ def load() -> ctypes.CDLL:
     lib.repro_fast_act.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.repro_fast_act.restype = i
     lib.repro_decode_attention.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                           ctypes.c_float, i, p]
+                                           ctypes.c_float, i, i, p, p, p, p,
+                                           p, p]
     lib.repro_decode_attention.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -3,9 +3,10 @@
 ``decode_attention`` runs a plain torch version (``ref.py``) for tensors
 on the CPU — the tiled online softmax under ``fast``, whose rounding the
 kernel follows, and the one-pass form otherwise — and launches the CUDA
-kernel for CUDA tensors, raising on anything the kernel does not take;
+kernels for CUDA tensors, raising on anything the kernels do not take;
 there is no fallback between the two.  ``decode_attention.launches``
-counts kernel launches.
+counts calls that launched the kernels: one a graph node, whatever the
+number of CUDA kernels a call issues (``kernel.KERNELS_PER_CALL``).
 """
 
 from __future__ import annotations
@@ -71,5 +72,6 @@ def decode_attention(
     return out
 
 
-#: Kernel launches since the count was last set (chip_smoke.py resets it).
+#: Calls that launched the kernels since the count was last set
+#: (chip_smoke.py resets it).
 decode_attention.launches = 0

@@ -8,7 +8,10 @@ two forms:
 * :func:`decode_attention_tiled` — the online softmax of the TPU kernel
   (``kernel.py::_decode_kernel``) walking S in ``bs``-row tiles, which
   the reference's ``pallas`` target runs and the CUDA kernel
-  (``csrc/decode_attention.cu``) is held to.
+  (``csrc/decode_attention.cu``) is held to;
+* :func:`decode_attention_split` — the CUDA kernel's own algorithm (S
+  split into chunks of tiles with the tiled form's running maxima), for
+  the tests and ``chip_smoke.py`` only.
 
 Exact, the two differ only by rounding.  Under ``fast`` they differ by
 more: ``alpha = exp(m_prev - m_new)`` goes through the Schraudolph exp,
@@ -103,3 +106,72 @@ def decode_attention_tiled(
         acc = acc * alpha + torch.einsum("bkgt,btkd->bkgd", p, vt)
         m = m_new
     return (acc / l).reshape(b, h, d)
+
+
+def decode_attention_split(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    tiles_per_chunk: int,
+    scale: Optional[float] = None,
+    fast: bool = False,
+    bs: int = DEFAULT_BS,
+) -> torch.Tensor:
+    """The CUDA kernel's split of :func:`decode_attention_tiled`, in plain
+    torch (``csrc/decode_attention.cu``; tests and ``chip_smoke.py`` hold
+    the two against each other).  S is cut into chunks of
+    ``tiles_per_chunk`` tiles:
+
+    1. the masked scores and each tile's maximum;
+    2. per chunk, the running maxima ``m_t`` (a prefix max over every
+       tile before), then tile by tile in order the tiled form's
+       ``p = exp(s - m_t)`` and ``alpha_t = exp(m_{t-1} - m_t)``, giving
+       the chunk's ``l_c``, ``acc_c`` and ``A_c = prod alpha_t``;
+    3. ``acc = acc·A_c + acc_c``, ``l = l·A_c + l_c`` in chunk order, then
+       ``acc / l``.
+
+    Every p and alpha equals the tiled form's; tiles wholly past a length
+    are dropped (the tiled form's ``alpha = exp(0)`` for them cancels in
+    ``acc / l``)."""
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    exp = _exp(fast)
+    qg = q.reshape(b, hkv, g, d)
+    rows = tiles_per_chunk * bs
+    out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), s)
+        # 1. scores and tile maxima over the valid rows.
+        scores = torch.einsum("kgd,tkd->kgt", qg[bi], k_cache[bi, :n]) * scale
+        ntiles = -(-n // bs)
+        tmax = [torch.amax(scores[..., t * bs:(t + 1) * bs], dim=-1)
+                for t in range(ntiles)]
+        m_run, m = [], torch.full((hkv, g), float("-inf"), device=q.device)
+        for t in range(ntiles):
+            m = torch.maximum(m, tmax[t])
+            m_run.append(m)
+        acc = torch.zeros((hkv, g, d), dtype=torch.float32, device=q.device)
+        l = torch.zeros((hkv, g), dtype=torch.float32, device=q.device)
+        for c0 in range(0, max(n, 1), rows):
+            # 2. one chunk, its tiles in order.
+            acc_c = torch.zeros_like(acc)
+            l_c, a_c = torch.zeros_like(l), torch.ones_like(l)
+            for t in range(c0 // bs, min(-(-(c0 + rows) // bs), ntiles)):
+                sc = scores[..., t * bs:(t + 1) * bs]
+                vt = v_cache[bi, t * bs:min((t + 1) * bs, n)]
+                m_prev = m_run[t - 1] if t else torch.full_like(l, float("-inf"))
+                p = exp(sc - m_run[t][..., None])
+                alpha = exp(m_prev - m_run[t])
+                l_c = l_c * alpha + torch.sum(p, dim=-1)
+                acc_c = acc_c * alpha[..., None] + torch.einsum(
+                    "kgt,tkd->kgd", p, vt)
+                a_c = a_c * alpha
+            # 3. combine.
+            acc = acc * a_c[..., None] + acc_c
+            l = l * a_c + l_c
+        out[bi] = acc / l[..., None]
+    return out.reshape(b, h, d)

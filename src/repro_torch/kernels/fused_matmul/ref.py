@@ -33,6 +33,34 @@ def fused_matmul_ref(
     return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
 
 
+def fused_matmul_split_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    *,
+    splits: int,
+    ksplit: int,
+    fn: Optional[str] = None,
+    fast: bool = False,
+    w_layout: str = "io",
+    attrs: Optional[dict] = None,
+) -> torch.Tensor:
+    """The CUDA kernel's split-K reduction in plain torch (tests and
+    ``chip_smoke.py`` only): the partial products over the K ranges
+    ``[i·ksplit, (i+1)·ksplit)`` summed in split order, then the
+    epilogue once."""
+    k = x.shape[-1]
+    wk = w.T if w_layout == "oi" else w
+    y = None
+    for i in range(splits):
+        k0, k1 = i * ksplit, min(k, (i + 1) * ksplit)
+        part = x[:, k0:k1] @ wk[k0:k1]
+        y = part if y is None else y + part
+    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+
+
 def _epilogue_chain(y, bias, scale, offset, fn, fast, attrs):
     """The f32 epilogue chain alone (bias → activation → affine), each a
     separate op — shared by the int8 path, which produces ``y`` by
