@@ -13,7 +13,8 @@ JAX package.  Every phase prints one JSON line (also written to
 2. ``build``     nvcc builds the kernels from ``src/repro_torch/csrc``;
                  seconds, and ptxas' registers/shared memory per kernel.
 3. ``check``     each kernel against its plain torch version on the card,
-                 at the main path's shapes and a ragged one.
+                 at the main path's shapes and the edges of each kernel's
+                 plan (paths, K splits, ragged and unaligned shapes).
 4. ``main``      the six Table-1 CNNs through ``repro_torch.compile(...,
                  target="cuda")`` at batch 1 and 256: ``exact`` against
                  ``interpret`` on the card, ``fast`` against the same
@@ -21,7 +22,8 @@ JAX package.  Every phase prints one JSON line (also written to
                  run, held against the graphs' dense and softmax nodes.
 5. ``time``      medians of interpret/jit/cuda per model and batch (host
                  clock around a synchronised call) with the device's busy
-                 time per inference (``torch.profiler``); per kernel at the
+                 time per inference, exact and fast (``torch.profiler``);
+                 per kernel at the
                  main-path shapes its time, the plain version's, a library
                  call's and the bound.  A kernel row's ``ms``,
                  ``plain_ms`` and ``library_ms`` are the median device time
@@ -277,6 +279,14 @@ MAIN_DENSE_KN = [(128, 16), (16, 4), (256, 32), (32, 2), (256, 128),
 #: sums of K terms in another order.
 DENSE_CHECK_MORE = [(16, 256, 128), (17, 256, 128), (300, 257, 130),
                     (256, 2048, 128), (1, 2048, 96)]
+#: B2 shapes beside the int8 path's (M 1 and 256 at MAIN_DENSE_KN), each
+#: on a path of plan_q8 or its edge: M 1/16 (GEMV) and 17/33 (tiled) at
+#: K 256 N 128, K 16 and 32 (below the s8 mma's depth of 32, and at it)
+#: over a full N, deep K split across blocks on both paths, and a ragged
+#: shape with odd K and N (element copies, no 16-byte loads).
+Q8_CHECK_MORE = [(1, 256, 128), (16, 256, 128), (17, 256, 128),
+                 (33, 256, 128), (256, 16, 128), (256, 32, 128),
+                 (256, 2048, 128), (1, 2048, 96), (300, 257, 130)]
 EPILOGUES = [  # (name, fn, fast, attrs, affine)
     ("none", None, False, {}, False),
     ("relu", "relu", False, {}, False),
@@ -291,8 +301,6 @@ EPILOGUES = [  # (name, fn, fast, attrs, affine)
 
 
 def phase_check(torch, np):
-    from repro_torch.kernels.fast_act import ref as fa_ref
-    from repro_torch.kernels.fast_act.ops import fast_act
     from repro_torch.kernels.fused_matmul import kernel as fm_k
     from repro_torch.kernels.fused_matmul import ref as fm_ref
     from repro_torch.kernels.fused_matmul.ops import fused_matmul
@@ -358,34 +366,61 @@ def phase_check(torch, np):
           "plans": plans, "failures": failures[:20]})
     fm_err = worst
 
-    x = torch.tensor(rng.standard_normal((4097, 1000)) * 5.0,
-                     dtype=torch.float32, device=dev)
-    x[0, :241] = torch.linspace(-120.0, 120.0, 241, device=dev)
     fa_worst, fa_fail = 0.0, []
     for fn in ("exp", "tanh", "sigmoid"):
-        got = fast_act(x, fn)
-        want = fa_ref.FAST[fn](x)
-        ulps = int((got.view(torch.int32).long()
-                    - want.view(torch.int32).long()).abs().max())
-        err = float((got - want).abs().max())
-        fa_worst = max(fa_worst, err)
-        xb = x.to(torch.bfloat16)
-        gotb = fast_act(xb, fn)
-        wantb = fa_ref.FAST[fn](xb.float()).to(torch.bfloat16)
-        bf16_equal = bool(torch.equal(gotb, wantb))
-        f32_bit_equal = bool(torch.equal(got, want))
-        if ulps > 1 or not bf16_equal:
+        row = fast_act_check(torch, np, fn, rng)
+        fa_worst = max(fa_worst, row["f32_max_abs_err"])
+        if not row["ok"]:
             fa_fail.append(fn)
-        emit({"phase": "check", "kernel": "fast_act", "fn": fn,
-              "shape": [4097, 1000], "f32_max_ulps": ulps,
-              "f32_bit_equal": f32_bit_equal, "f32_max_abs_err": err,
-              "bf16_equal": bf16_equal})
+        emit(row)
     torch.cuda.synchronize()
     problems = []
     if failures or fa_fail:
         problems.append(f"kernel checks failed: fused_matmul {len(failures)} "
                         f"cases, fast_act {fa_fail}")
     return fm_err, fa_worst, problems
+
+
+def fast_act_check(torch, np, fn, rng):
+    """fast_act against its plain version on the card: the main path's
+    largest input size (4097 x 1000 + 3, through -120..120 and unit
+    normals x 5), every length 1..37 (scalar head and tail around the
+    16-byte vectors), and a view starting one element into its storage
+    (``x.view(-1)[1:]``, which the wrapper takes as contiguous); f32
+    bit-equal, bf16 equal."""
+    from repro_torch.kernels.fast_act import ref as fa_ref
+    from repro_torch.kernels.fast_act.ops import fast_act
+
+    dev = torch.device(DEVICE)
+    big = torch.tensor(rng.standard_normal(4097 * 1000 + 3) * 5.0,
+                       dtype=torch.float32, device=dev)
+    big[:241] = torch.linspace(-120.0, 120.0, 241, device=dev)
+    cases = [("4097x1000+3", big),
+             ("view[1:] of 4097x1000+3", big.view(-1)[1:])]
+    cases += [(f"n={n}", big[:n].clone()) for n in range(1, 38)]
+    cases += [(f"view[1:] n={n}", big[:n + 1].clone().view(-1)[1:])
+              for n in (1, 7, 8, 9, 37)]
+    ulps_max, err_max, f32_equal, bf16_equal = 0, 0.0, True, True
+    for _, x in cases:
+        got = fast_act(x, fn)
+        want = fa_ref.FAST[fn](x)
+        ulps_max = max(ulps_max, int((got.view(torch.int32).long()
+                                      - want.view(torch.int32).long())
+                                     .abs().max()))
+        err_max = max(err_max, float((got - want).abs().max()))
+        f32_equal &= bool(torch.equal(got, want))
+        xb = x.to(torch.bfloat16) if x.data_ptr() % 16 == 0 else \
+            torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                        device=dev)[1:].copy_(x)
+        wantb = fa_ref.FAST[fn](xb.float()).to(torch.bfloat16)
+        bf16_equal &= bool(torch.equal(fast_act(xb, fn), wantb))
+    torch.cuda.synchronize()
+    return {"phase": "check", "kernel": "fast_act", "fn": fn,
+            "cases": [c for c, _ in cases[:2]] + ["n=1..37",
+                                                  "view[1:] n=1,7,8,9,37"],
+            "f32_max_ulps": ulps_max, "f32_bit_equal": f32_equal,
+            "f32_max_abs_err": err_max, "bf16_equal": bf16_equal,
+            "ok": f32_equal and bf16_equal}
 
 
 def phase_check_q8(torch, np):
@@ -396,11 +431,14 @@ def phase_check_q8(torch, np):
     from repro_torch.kernels.fused_matmul import ref as fm_ref
     from repro_torch.kernels.fused_matmul.ops import fused_matmul_q8
 
+    from repro_torch.kernels.fused_matmul import kernel as fm_k
+
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(12)
     shapes = [(m, k, n) for k, n in MAIN_DENSE_KN for m in BATCHES]
-    shapes.append((300, 257, 130))
+    shapes += Q8_CHECK_MORE
     worst, failures, cases, equal_cases = 0.0, [], 0, 0
+    plans, deterministic, split_equal = {}, True, True
     for m, k, n in shapes:
         x_np = rng.standard_normal((m, k)).astype(np.float32)
         w_np = rng.standard_normal((k, n)).astype(np.float32)
@@ -416,6 +454,8 @@ def phase_check_q8(torch, np):
             w = torch.from_numpy(w_np if layout == "io"
                                  else np.ascontiguousarray(w_np.T)).to(dev)
             wq, deq = qmath.quantize_weight(w, xs, ws, layout)
+            p = fm_k.plan_q8(m, k, n, w_layout=layout)
+            plans[f"{m}x{k}x{n} {layout}"] = p.describe()
             for name, fn, fast, attrs, affine in EPILOGUES:
                 s, o = (scale, offset) if affine else (None, None)
                 kw = dict(fn=fn, fast=fast, w_layout=layout, attrs=attrs)
@@ -426,7 +466,20 @@ def phase_check_q8(torch, np):
                 cases += 1
                 equal_cases += equal
                 worst = max(worst, err)
-                if not (equal if name in Q8_BIT_EQUAL else err <= Q8_ATOL):
+                ok = equal if name in Q8_BIT_EQUAL else err <= Q8_ATOL
+                if name == "relu_affine":
+                    # The split reduction: bit-equal to its plain int32
+                    # emulation, and from one call to the next.
+                    split = fm_ref.fused_matmul_q8_split_ref(
+                        xq, wq, deq, bias, s, o, splits=p.splits,
+                        ksplit=p.ksplit, **kw)
+                    same_split = bool(torch.equal(got, split))
+                    same = bool(torch.equal(got, fused_matmul_q8(
+                        x, wq, deq, bias, s, o, x_scale=xs, **kw)))
+                    split_equal &= same_split
+                    deterministic &= same
+                    ok &= same and same_split
+                if not ok:
                     failures.append([m, k, n, layout, name, err, equal])
     torch.cuda.synchronize()
 
@@ -456,8 +509,11 @@ def phase_check_q8(torch, np):
     emit({"phase": "check", "kernel": "fused_matmul_q8", "cases": cases,
           "bit_equal_cases": equal_cases, "max_abs_err": worst,
           "bit_equal_for": list(Q8_BIT_EQUAL), "atol_others": Q8_ATOL,
+          "bit_equal_to_split_ref": split_equal,
+          "deterministic_two_calls": deterministic,
           "inputs": "unit-normal x and W, x scale clipping 20% of |x|max",
-          "quantize_ties": tie_rows, "failures": failures[:20]})
+          "quantize_ties": tie_rows, "plans": plans,
+          "failures": failures[:20]})
     problems = []
     if failures or not tie_ok or not n_ties:
         problems.append(f"fused_matmul_q8 checks failed: {len(failures)} "
@@ -814,6 +870,8 @@ def phase_time_models(torch, exes, inputs, per_model):
                 row["_".join(key) + "_ms"] = host_median_ms(lambda: exe(input=xt))
             exe = exes[name, "cuda", "exact"]
             row["cuda_exact_device_ms"] = device_ms(lambda: exe(input=xt))
+            exe_f = exes[name, "cuda", "fast"]
+            row["cuda_fast_device_ms"] = device_ms(lambda: exe_f(input=xt))
             row["cuda_exact_queued_ms"] = queued_ms(
                 lambda: exe(input=xt), iters=5, spin=400_000_000)
             if row["cuda_exact_device_ms"] is not None:
@@ -840,6 +898,11 @@ def phase_time_kernels(torch, np, exes):
     rng = np.random.default_rng(5)
     rows = {"fused_matmul": [], "fast_act": []}
     saved = (fused_matmul.launches, fast_act.launches)
+    # What the timing itself costs: one empty kernel between the same
+    # events, after the same flush, as every kernel row below.
+    emit({"phase": "time", "kernel": "launch_floor",
+          "ms": cold_ms(lambda: torch.cuda._sleep(0)),
+          "what": "torch.cuda._sleep(0) timed as cold_ms times a kernel"})
     for name in SUITE:
         exe = exes[name, "cuda", "exact"]
         g = exe.graph
@@ -882,8 +945,12 @@ def phase_time_kernels(torch, np, exes):
                        "library_ms": lib, "bound_ms": bnd, "bound_by": by}
                 rows["fused_matmul"].append(row)
                 emit(row)
-        if any(nd.op == "softmax" for nd in SUITE[name]().nodes):
-            shape = tuple(exe.signature.outputs[0][1].shape)
+        src = SUITE[name]()   # every softmax's exp, at its input's shape
+        src_specs = src.infer_shapes()
+        for node in src.nodes:
+            if node.op != "softmax":
+                continue
+            shape = tuple(src_specs[node.inputs[0]].shape)
             for m in BATCHES:
                 x = torch.tensor(rng.standard_normal((m,) + shape),
                                  dtype=torch.float32, device=dev)
@@ -891,13 +958,17 @@ def phase_time_kernels(torch, np, exes):
                 call = cuda_ms(lambda: fast_act(x, "exp"))
                 plain = cold_ms(lambda: fa_ref.schraudolph_exp(x))
                 lib = cold_ms(lambda: torch.exp(x))
+                y = torch.empty_like(x)   # the same bytes moved, no math
+                copy = cold_ms(lambda: y.copy_(x))
                 nel = x.numel()
                 # clamp (2), multiply, add, convert per element
                 bnd, by = bound_ms(8.0 * nel, 5.0 * nel)
                 row = {"phase": "time", "kernel": "fast_act", "fn": "exp",
-                       "model": name, "shape": [m, *shape], "ms": ms,
-                       "call_ms": call, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bnd, "bound_by": by}
+                       "model": name, "node": node.name, "shape": [m, *shape],
+                       "ms": ms, "call_ms": call, "plain_ms": plain,
+                       "library_ms": lib, "copy_ms": copy, "bound_ms": bnd,
+                       "bound_by": by,
+                       "achieved_tb_per_s": 8.0 * nel / (ms * 1e-3) / 1e12}
                 rows["fast_act"].append(row)
                 emit(row)
     torch.cuda.synchronize()
@@ -937,6 +1008,7 @@ def phase_time_q8(torch, np, exes):
     rules allow it (the integer product alone), and the bound."""
     from repro_torch.core.lowering import quant_key
     from repro_torch.kernels import qmath
+    from repro_torch.kernels.fused_matmul import kernel as fm_k
     from repro_torch.kernels.fused_matmul import ref as fm_ref
     from repro_torch.kernels.fused_matmul.ops import fused_matmul_q8
 
@@ -984,6 +1056,8 @@ def phase_time_q8(torch, np, exes):
                 row = {"phase": "time", "kernel": "fused_matmul_q8",
                        "model": name, "node": node.name, "M": m, "K": k,
                        "N": n, "layout": layout, "epilogue": fn or "none",
+                       "plan": fm_k.plan_q8(m, k, n,
+                                            w_layout=layout).describe(),
                        "ms": ms, "call_ms": call, "plain_ms": plain,
                        "library_ms": lib, "library": lib_note,
                        "bound_ms": bnd, "bound_by": by}

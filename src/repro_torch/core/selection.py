@@ -11,12 +11,12 @@ target's kernels take the graph.
   choice records the reference's facts: M/K/N, the block tile, its
   shared memory (and the int8 kernel's int32 accumulator, which lives in
   registers), and the tile padding waste (padded over logical MACs: the
-  share of the block's threads that idle, not extra bytes moved).  For
-  ``fused_matmul`` these come from the plan the kernel runs
-  (``kernels/fused_matmul/kernel.py::plan``: GEMV or tiled path, K
-  split, blocks).  The
-  reference's off-TPU prior that hands int8 sites to ``lax.dot`` has no
-  counterpart: the int8 kernel is this target's only int8 dense path.
+  share of the block's threads that idle, not extra bytes moved).  They
+  come from the plan the kernel runs (``kernels/fused_matmul/kernel.py``:
+  ``plan`` for ``fused_matmul``, ``plan_q8`` for ``fused_matmul_q8``;
+  GEMV or tiled path, K split, blocks).  The reference's off-TPU prior
+  that hands int8 sites to ``lax.dot`` has no counterpart: the int8
+  kernel is this target's only int8 dense path.
 * Every ``decode_attention`` node runs the CUDA ``decode_attention``
   kernels, S split into chunks of 512-row tiles
   (``kernels/decode_attention/kernel.py::chunk_plan``).  The reference's
@@ -24,7 +24,7 @@ target's kernels take the graph.
   256 and G = H/Hkv up to 16, and the wrapper raises beyond.
 * Under ``precision="fast"`` every fast exp/tanh/sigmoid runs in the
   ``fast_act`` kernel (:meth:`~repro_torch.core.lowering.LoweringContext.act`).
-  The flat grid-stride kernel takes any shape, so it needs no per-node
+  The flat elementwise kernel takes any shape, so it needs no per-node
   decision, and the reference's lane-alignment gate has no counterpart.
 
 The reference's ``_ON_TPU`` gates become :func:`check_kernel_device`:
@@ -47,7 +47,7 @@ from .graph import Graph
 from ..kernels.decode_attention.ref import DEFAULT_BS
 from ..kernels.decode_attention.kernel import chunk_plan
 from ..kernels.fused_matmul.kernel import plan as dense_plan
-from ..kernels.tiles import CUDA_Q8_BLOCK, ceil_to, q8_block_bytes
+from ..kernels.fused_matmul.kernel import plan_q8
 
 #: The compute capability the kernels are built for (``sm_90a``).
 HOPPER = (9, 0)
@@ -92,24 +92,20 @@ def _select_dense(node, in_spec, batch_size: int, n: int) -> KernelChoice:
     m = batch_size * rows
     k = in_spec.shape[-1]
     qm = node.attrs.get("quant.mode")
-    if qm == "int8":
-        bm, bk, bn = CUDA_Q8_BLOCK
-        smem, acc = q8_block_bytes(bm, bk, bn)
-        waste = (ceil_to(m, bm) * ceil_to(k, bk) * ceil_to(n, bn)) \
-            / float(m * k * n)
-        return KernelChoice(
-            node.name, "dense", "cuda.fused_matmul_q8",
-            f"M={m} K={k} N={n} tiles to ({bm},{bk},{bn}), "
-            f"{smem / 1024:.1f} KiB SMEM + {acc / 1024:.1f} KiB int32 "
-            f"accumulator in registers, {waste:.1f}x pad waste",
-            block=(bm, bk, bn))
     layout = node.attrs.get("kernel_layout", "io")
-    p = dense_plan(m, k, n, w_layout=layout, itemsize=2 if qm == "bf16" else 4)
-    mem = f"{p.smem_bytes / 1024:.1f} KiB SMEM"
-    if qm == "bf16":
-        mem += ", bf16 operands"
+    if qm == "int8":
+        p = plan_q8(m, k, n, w_layout=layout)
+        mem = f"{p.smem_bytes / 1024:.1f} KiB SMEM, int32 sums in registers"
+        kernel = "cuda.fused_matmul_q8"
+    else:
+        p = dense_plan(m, k, n, w_layout=layout,
+                       itemsize=2 if qm == "bf16" else 4)
+        mem = f"{p.smem_bytes / 1024:.1f} KiB SMEM"
+        if qm == "bf16":
+            mem += ", bf16 operands"
+        kernel = "cuda.fused_matmul"
     return KernelChoice(
-        node.name, "dense", "cuda.fused_matmul",
+        node.name, "dense", kernel,
         f"M={m} K={k} N={n} {layout}: {p.describe()}, {mem}, "
         f"{p.pad_waste(m, k, n):.1f}x pad waste",
         block=(p.block[0], p.ksplit, p.block[1]))

@@ -36,7 +36,7 @@ def fast_act(x: torch.Tensor, fn: str) -> torch.Tensor:
         raise TypeError(f"fast_act: dtype {x.dtype} not in {_DTYPES}")
     if not x.is_contiguous():
         raise ValueError("fast_act: the CUDA kernel needs a contiguous input")
-    y = torch.empty_like(x)
+    y = kernel.empty_in_phase(x)
     if x.numel():
         kernel.launch(x, y, fn)
         fast_act.launches += 1

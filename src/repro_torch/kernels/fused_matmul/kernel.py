@@ -1,7 +1,8 @@
 """Launch bindings of the CUDA ``fused_matmul`` kernel
 (``csrc/fused_matmul.cu``) and of its int8 twin ``fused_matmul_q8``
-(``csrc/fused_matmul_q8.cu``), and :func:`plan`, which picks the f32/bf16
-kernel's path, tile and K split.
+(``csrc/fused_matmul_q8.cu``), and their plans: :func:`plan` picks the
+f32/bf16 kernel's path, tile and K split, :func:`plan_q8` the int8
+kernel's.
 
 They replace the TPU kernels ``fused_matmul_p`` and ``fused_matmul_q8_p``
 of ``src/repro/kernels/fused_matmul/kernel.py``; the source notes of the
@@ -19,7 +20,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..tiles import (CUDA_BLOCK, CUDA_STAGES, GEMV_MAX_M, GEMV_THREADS,
-                     GEMV_X_FLOATS, ceil_to, gemv_smem_bytes, tiled_smem_bytes)
+                     GEMV_X_FLOATS, Q8_BK, Q8_GEMV_CHUNKS, Q8_GEMV_IO_THREADS,
+                     Q8_GEMV_MAX_THREADS, Q8_GEMV_X_BYTES, Q8_MAX_KSPLIT,
+                     Q8_TILED_THREADS, Q8_TILES, ceil_to, gemv_smem_bytes,
+                     q8_gemv_smem_bytes, q8_tiled_smem_bytes,
+                     tiled_smem_bytes)
 
 #: Activation codes of ``repro_fused_matmul`` (``csrc/fused_matmul.cu::Act``).
 ACT_CODES = {None: 0, "linear": 0, "relu": 1, "relu6": 2, "leaky_relu": 3,
@@ -40,6 +45,21 @@ SPLIT_ALIGN = CUDA_BLOCK[1]
 #: Most K splits of the tiled path.
 MAX_SPLITS = 16
 
+#: The int8 plan's constants, in the same roles: the tiled path's output
+#: tile (one of ``tiles.Q8_TILES``), and the K range from which its block
+#: takes 512 threads (four K groups) rather than 256, which keep more of
+#: the quantize's divisions in flight but cost a shallow product more
+#: than they save; the blocks the K split aims for and the shallowest
+#: split; and the GEMV path's fewest columns a block on "oi"
+#: (benchmarks/plan_sweep_torch.py, readings in PERF.md).
+Q8_TILE: Tuple[int, int] = (16, 32)
+Q8_WIDE_K = 128
+Q8_TARGET_BLOCKS = 64
+Q8_MIN_KSPLIT = 256
+Q8_GEMV_COLS = 8
+#: Largest M the int8 wrapper takes: gridDim.y of its smallest tile.
+MAX_M_Q8 = 65535 * min(bm for bm, _ in Q8_TILES)
+
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
@@ -55,6 +75,13 @@ class Plan:
     ksplit: int
     grid: Tuple[int, int, int]
     smem_bytes: int
+    #: The int8 kernel's: its threads a block, the lanes that share a
+    #: column on the GEMV path's "oi" (0: not that path), and the depth
+    #: K is padded to per split (4 for fused_matmul's 4-deep steps, 32
+    #: for the s8 mma on the int8 tiled path).
+    threads: int = 0
+    lanes: int = 0
+    kstep: int = 4
 
     @property
     def tiles(self) -> int:
@@ -77,12 +104,18 @@ class Plan:
         bm, bn = self.block
         if self.path == "gemv":
             return ceil_to(n, bn) / float(n)
-        kp = sum(ceil_to(k1 - k0, 4) for k0, k1 in self.split_edges(k))
+        kp = sum(ceil_to(k1 - k0, self.kstep)
+                 for k0, k1 in self.split_edges(k))
         return ceil_to(m, bm) * kp * ceil_to(n, bn) / float(m * max(k, 1) * n)
 
     def describe(self) -> str:
         if self.path == "gemv":
             how = f"GEMV over {self.block[1]}-column blocks"
+            if self.lanes:
+                how += f", {self.lanes} lanes a column"
+        elif self.kstep == Q8_BK:
+            how = (f"s8 mma.sync tiles to {self.block[0]}x{self.block[1]} "
+                   f"on {self.threads} threads")
         else:
             how = f"tiles to {self.block[0]}x{self.block[1]}"
         split = (f"K split {self.splits} ways of {self.ksplit}"
@@ -98,16 +131,16 @@ def gemv_rows(m: int) -> int:
     return mm
 
 
-def _split(k: int, tiles: int, max_ksplit: Optional[int],
-           max_splits: int) -> Tuple[int, int]:
+def _split(k: int, tiles: int, max_ksplit: Optional[int], max_splits: int,
+           target: int, min_ksplit: int, align: int) -> Tuple[int, int]:
     """(splits, ksplit): enough splits that ``tiles * splits`` reaches
-    TARGET_BLOCKS, none shallower than MIN_KSPLIT nor deeper than
-    ``max_ksplit``, each a SPLIT_ALIGN multiple."""
-    want = -(-TARGET_BLOCKS // tiles)
-    want = min(want, max(1, k // MIN_KSPLIT), max_splits)
+    ``target`` blocks, none shallower than ``min_ksplit`` nor deeper than
+    ``max_ksplit``, each an ``align`` multiple."""
+    want = -(-target // tiles)
+    want = min(want, max(1, k // min_ksplit), max_splits)
     if max_ksplit is not None:
         want = max(want, -(-k // max_ksplit))
-    ksplit = max(SPLIT_ALIGN, ceil_to(-(-k // want), SPLIT_ALIGN))
+    ksplit = max(align, ceil_to(-(-k // want), align))
     splits = max(1, -(-k // ksplit))
     return splits, ksplit
 
@@ -120,14 +153,53 @@ def plan(m: int, k: int, n: int, *, w_layout: str = "io",
     if m <= GEMV_MAX_M:
         cols = GEMV_THREADS // 32 if w_layout == "oi" else 32
         gx = -(-n // cols)
-        splits, ksplit = _split(k, gx, GEMV_X_FLOATS // gemv_rows(m), 65535)
+        splits, ksplit = _split(k, gx, GEMV_X_FLOATS // gemv_rows(m), 65535,
+                                TARGET_BLOCKS, MIN_KSPLIT, SPLIT_ALIGN)
         return Plan("gemv", (m, cols), splits, ksplit, (gx, splits, 1),
                     gemv_smem_bytes(gemv_rows(m), w_layout))
     bm, _, bn = CUDA_BLOCK
     gx, gy = -(-n // bn), -(-m // bm)
-    splits, ksplit = _split(k, gx * gy, None, MAX_SPLITS)
+    splits, ksplit = _split(k, gx * gy, None, MAX_SPLITS, TARGET_BLOCKS,
+                            MIN_KSPLIT, SPLIT_ALIGN)
     return Plan("tiled", (bm, bn), splits, ksplit, (gx, gy, splits),
                 tiled_smem_bytes(*CUDA_BLOCK, itemsize, CUDA_STAGES))
+
+
+def plan_q8(m: int, k: int, n: int, *, w_layout: str = "io") -> Plan:
+    """The int8 kernel's plan for q(x) (M, K) . Wq -> (M, N): the GEMV
+    path for M <= GEMV_MAX_M, else ``Q8_TILE`` tiles on s8 ``mma.sync``
+    with a block's K range of at most Q8_MAX_KSPLIT staged at once; K
+    split to cover the card.  On the GEMV path's "oi", a column's row of
+    Wq is read 16 bytes a lane by just enough lanes (a power of two) that
+    each issues at most Q8_GEMV_CHUNKS loads.  Pure: the wrapper launches
+    it and the selector reports it."""
+    def split(tiles, max_ksplit):
+        return _split(k, tiles, max_ksplit, 65535, Q8_TARGET_BLOCKS,
+                      Q8_MIN_KSPLIT, Q8_BK)
+
+    if m <= GEMV_MAX_M:
+        rows = gemv_rows(m)
+        if w_layout == "oi":
+            splits, ksplit = split(-(-n // Q8_GEMV_COLS),
+                                   Q8_GEMV_X_BYTES // rows)
+            chunks = -(-min(k, ksplit) // 16)
+            lanes = min(32, gemv_rows(-(-chunks // Q8_GEMV_CHUNKS)))
+            threads = min(Q8_GEMV_MAX_THREADS,
+                          max(32, Q8_GEMV_COLS * lanes))
+        else:
+            lanes, threads = 0, Q8_GEMV_IO_THREADS
+            splits, ksplit = split(-(-n // 32), Q8_GEMV_X_BYTES // rows)
+        cols = threads // lanes if lanes else 32
+        gx = -(-n // cols)
+        return Plan("gemv", (m, cols), splits, ksplit, (gx, splits, 1),
+                    q8_gemv_smem_bytes(rows, w_layout), threads=threads,
+                    lanes=lanes, kstep=Q8_BK)
+    bm, bn = Q8_TILE
+    gx, gy = -(-n // bn), -(-m // bm)
+    splits, ksplit = split(gx * gy, Q8_MAX_KSPLIT)
+    threads = Q8_TILED_THREADS[min(k, ksplit) >= Q8_WIDE_K]
+    return Plan("tiled", (bm, bn), splits, ksplit, (gx, gy, splits),
+                q8_tiled_smem_bytes(bm, bn), threads=threads, kstep=Q8_BK)
 
 
 #: Per device: the split counters (int32 zeros; each reducing block sets
@@ -181,18 +253,28 @@ def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
               fn: Optional[str], alpha: float, fast: bool,
               w_layout: str) -> None:
     """out(M, N) = epilogue(deq * (q(x)(M, K) . Wq)) on the current stream
-    of ``x``'s device, x quantized with ``x_scale`` as it is loaded.  The
-    wrapper has checked devices, dtypes, shapes and contiguity."""
+    of ``x``'s device, x quantized with ``x_scale`` as it is loaded, as
+    :func:`plan_q8` lays it out: one launch, its K-split int32 partials in
+    a scratch tensor.  The wrapper has checked devices, dtypes, shapes and
+    contiguity."""
     from .. import build
 
     lib = build.load()
     m, k = x.shape
     n = out.shape[1]
+    p = plan_q8(m, k, n, w_layout=w_layout)
+    part = counters = None
+    if p.splits > 1:
+        part = torch.empty(p.splits * m * n, dtype=torch.int32,
+                           device=x.device)
+        counters = _counters(x.device, p.tiles)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.repro_fused_matmul_q8(
             x.data_ptr(), wq.data_ptr(), deq.data_ptr(), _ptr(bias),
             _ptr(scale), _ptr(offset), out.data_ptr(), m, k, n,
             int(w_layout == "oi"), float(x_scale), ACT_CODES[fn],
-            float(alpha), int(bool(fast)), stream)
+            float(alpha), int(bool(fast)), int(p.path == "tiled"),
+            p.block[0] if p.path == "tiled" else 0, p.block[1], p.threads,
+            p.lanes, p.splits, p.ksplit, _ptr(part), _ptr(counters), stream)
     build.check(lib, rc, "fused_matmul_q8")

@@ -155,9 +155,9 @@ def fused_matmul_q8(
         _check_vec(name, v, n, x.device, "fused_matmul_q8")
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
-    if m > kernel.MAX_M:
+    if m > kernel.MAX_M_Q8:
         raise ValueError(f"fused_matmul_q8: M={m} exceeds the grid's "
-                         f"{kernel.MAX_M}")
+                         f"{kernel.MAX_M_Q8}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
         kernel.launch_q8(x2, wq, deq, bias, scale, offset, out,

@@ -115,3 +115,36 @@ def fused_matmul_q8_ref(
     acc = xq.double() @ (wd.T if w_layout == "oi" else wd)
     y = acc.float() * deq
     return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+
+
+def fused_matmul_q8_split_ref(
+    xq: torch.Tensor,
+    wq: torch.Tensor,
+    deq: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    *,
+    splits: int,
+    ksplit: int,
+    fn: Optional[str] = None,
+    fast: bool = False,
+    w_layout: str = "io",
+    attrs: Optional[dict] = None,
+) -> torch.Tensor:
+    """The CUDA int8 kernel's split-K reduction in plain torch (tests and
+    ``chip_smoke.py`` only): an int32 partial sum over each K range
+    ``[i·ksplit, (i+1)·ksplit)``, the partials added in int32, then the
+    one f32 multiply by ``deq`` and the epilogue chain.  Each partial is
+    computed exactly in float64 (as :func:`fused_matmul_q8_ref` does)
+    and held as int32, the kernel's accumulator type."""
+    k = xq.shape[-1]
+    wd = wq.double()
+    wk = wd.T if w_layout == "oi" else wd
+    acc = None
+    for i in range(splits):
+        k0, k1 = i * ksplit, min(k, (i + 1) * ksplit)
+        part = (xq[:, k0:k1].double() @ wk[k0:k1]).to(torch.int32)
+        acc = part if acc is None else acc + part
+    y = acc.float() * deq
+    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)

@@ -8,8 +8,9 @@ Two parts, kept apart on purpose:
   stay ``structure_hash``-identical to the JAX package's.  Nothing on
   the GPU tiles against these numbers.
 * **Hopper geometry** for the CUDA ``fused_matmul`` and
-  ``fused_matmul_q8`` kernels, their plan
-  (``kernels/fused_matmul/kernel.py::plan``) and their selector
+  ``fused_matmul_q8`` kernels, their plans
+  (``kernels/fused_matmul/kernel.py::plan`` and ``plan_q8``) and their
+  selector
   (``core/selection.py``): the block tiles the kernels are compiled
   with (``csrc/fused_matmul.cu`` and ``csrc/fused_matmul_q8.cu`` must
   agree), and the shared memory a block may claim on an H100.
@@ -76,21 +77,48 @@ def gemv_smem_bytes(rows: int, w_layout: str) -> int:
     return 4 * (GEMV_X_FLOATS + red)
 
 
-#: The int8 kernel's tile (``csrc/fused_matmul_q8.cu``): a 64x64 output
-#: tile and 4x4 register sub-tile, K in steps of 32 int8 values.
-CUDA_Q8_BLOCK: Tuple[int, int, int] = (64, 32, 64)   # (bm, bk, bn)
+#: The int8 kernel's geometry (``csrc/fused_matmul_q8.cu``; its plan is
+#: ``kernels/fused_matmul/kernel.py::plan_q8``).
+#:
+#: Tiled path (M > GEMV_MAX_M): output tiles (bm, bn) of ``Q8_TILES``,
+#: the tiles the kernel is compiled for (the plan picks one and a thread
+#: count of ``Q8_TILED_THREADS``): four warps on the tile's ``mma.sync``
+#: m16n8k32 s8 tiles (``Q8_BK`` deep, the instruction's depth) in each of
+#: two or four K groups; a block's whole K range of at most
+#: ``Q8_MAX_KSPLIT`` values is staged at once.
+Q8_TILES: Tuple[Tuple[int, int], ...] = ((16, 32), (16, 64), (32, 16))
+Q8_BK = 32
+Q8_TILED_THREADS: Tuple[int, int] = (256, 512)
+Q8_MAX_KSPLIT = 256
+#: GEMV path (M <= GEMV_MAX_M): on "oi", a column of Wq per group of
+#: lanes, each lane issuing up to ``Q8_GEMV_CHUNKS`` 16-byte loads of its
+#: row before q(x) is staged, at most ``Q8_GEMV_MAX_THREADS`` a block.
+#: On "io", 256 threads, lanes on 32 neighbouring columns.  q(x) is
+#: staged as int8: M rounded up to a power of two, times the K range
+#: rounded up to 16, within ``Q8_GEMV_X_BYTES``.
+Q8_GEMV_CHUNKS = 2
+Q8_GEMV_MAX_THREADS = 256
+Q8_GEMV_IO_THREADS = 256
+Q8_GEMV_X_BYTES = 16384
 
 
-def q8_block_bytes(bm: int, bk: int, bn: int) -> Tuple[int, int]:
-    """(shared memory, accumulator) bytes of one fused_matmul_q8 block.
+def q8_tiled_smem_bytes(bm: int, bn: int) -> int:
+    """Shared memory of one tiled fused_matmul_q8 block: x in f32 for the
+    whole K range (bm x Q8_MAX_KSPLIT), and Wq and q(x) K-major in int8
+    (bn and bm rows of Q8_MAX_KSPLIT bytes, each padded by 16, which
+    keeps the fragment reads off each other's banks), and the int32 sums
+    the K groups add up (bm x bn).  The accumulators live in
+    registers."""
+    return (4 * bm * Q8_MAX_KSPLIT + (bn + bm) * (Q8_MAX_KSPLIT + 16)
+            + 4 * bm * bn)
 
-    The operand tiles are int8, packed four along K per 32-bit word, one
-    word of padding per row against bank conflicts: ``bk/4 * (bm+1)``
-    and ``bk/4 * (bn+1)`` words.  The int32 accumulator tile (bm x bn)
-    lives in registers, not shared memory; it is counted apart, as the
-    reference's ``block_vmem_bytes(..., acc_itemsize)`` counts it."""
-    smem = 4 * (bk // 4) * ((bm + 1) + (bn + 1))
-    return smem, 4 * bm * bn
+
+def q8_gemv_smem_bytes(rows: int, w_layout: str) -> int:
+    """Shared memory of one GEMV fused_matmul_q8 block: the staged q(x),
+    and for "io" the 8 warps' int32 partial sums of ``rows`` x 32
+    columns."""
+    red = 0 if w_layout == "oi" else 4 * (Q8_GEMV_IO_THREADS // 32) * rows * 32
+    return Q8_GEMV_X_BYTES + red
 
 
 assert max(tiled_smem_bytes(*CUDA_BLOCK, itemsize, CUDA_STAGES)
@@ -98,5 +126,7 @@ assert max(tiled_smem_bytes(*CUDA_BLOCK, itemsize, CUDA_STAGES)
     "CUDA_BLOCK's stages outgrow a block's static shared memory"
 assert gemv_smem_bytes(GEMV_MAX_M, "io") <= STATIC_SMEM_BYTES, \
     "the GEMV path outgrows a block's static shared memory"
-assert q8_block_bytes(*CUDA_Q8_BLOCK)[0] <= SMEM_BUDGET_BYTES, \
-    "CUDA_Q8_BLOCK's tiles outgrow one block's shared memory"
+assert max(q8_tiled_smem_bytes(bm, bn) for bm, bn in Q8_TILES) \
+    <= STATIC_SMEM_BYTES, "a Q8_TILES tile outgrows static shared memory"
+assert q8_gemv_smem_bytes(GEMV_MAX_M, "io") <= STATIC_SMEM_BYTES, \
+    "the int8 GEMV path outgrows a block's static shared memory"

@@ -18,6 +18,8 @@ interpret mode here).  Tolerances, each with its reason:
   spread (ROADMAP C); f32 against exact bit-equal.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -35,8 +37,10 @@ import repro_torch
 from repro_torch.core.passes import run_pipeline as port_run_pipeline
 from repro_torch.kernels import qmath
 from repro_torch.kernels.fused_matmul.ops import fused_matmul_q8
-from repro_torch.kernels.tiles import (CUDA_Q8_BLOCK, SMEM_BUDGET_BYTES,
-                                       q8_block_bytes)
+from repro_torch.kernels.fused_matmul.kernel import Q8_TILE, plan_q8
+from repro_torch.kernels.tiles import (GEMV_MAX_M, Q8_BK, Q8_MAX_KSPLIT,
+                                       Q8_TILES, STATIC_SMEM_BYTES,
+                                       q8_gemv_smem_bytes, q8_tiled_smem_bytes)
 from repro_torch.table1_models import SUITE as PORT_SUITE
 
 ATOL = 1e-5
@@ -192,10 +196,19 @@ def test_fused_matmul_q8_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_q8_tile_fits_shared_memory():
-    smem, acc = q8_block_bytes(*CUDA_Q8_BLOCK)
-    assert smem <= SMEM_BUDGET_BYTES
-    bm, bk, bn = CUDA_Q8_BLOCK
-    assert acc == 4 * bm * bn and bk % 4 == 0
+    """Every tile the int8 kernel is compiled for, and its GEMV path at
+    the most rows, fit a block's static shared memory; the plan's tile
+    is one of them, and its K stages are the s8 mma's depth."""
+    assert Q8_TILE in Q8_TILES
+    for bm, bn in Q8_TILES:
+        assert q8_tiled_smem_bytes(bm, bn) <= STATIC_SMEM_BYTES
+        assert bm % 16 == 0 and bn % 8 == 0   # m16n8 tiles over 4 warps
+    for layout in ("io", "oi"):
+        assert q8_gemv_smem_bytes(GEMV_MAX_M, layout) <= STATIC_SMEM_BYTES
+    assert Q8_BK == 32 and Q8_MAX_KSPLIT % Q8_BK == 0
+    p = plan_q8(256, 256, 128, w_layout="oi")
+    assert p.smem_bytes == q8_tiled_smem_bytes(*Q8_TILE)
+    assert p.ksplit <= Q8_MAX_KSPLIT
 
 
 # ---------------------------------------------------------------------------
@@ -320,9 +333,15 @@ def test_int8_dense_nodes_reach_the_q8_wrapper(monkeypatch, target, q8, fm):
         sel = exe.cost_summary()["kernel_selection"][2]
         dense = [c for c in sel if c["op"] == "dense"]
         assert [c["kernel"] for c in dense] == ["cuda.fused_matmul_q8"] * 3
-        assert all("tiles to (64,32,64)" in c["reason"]
-                   and "int32 accumulator in registers" in c["reason"]
-                   for c in dense)
+        for c in dense:   # the reason names the plan the kernel runs
+            m, k, n = (int(v) for v in re.match(
+                r"M=(\d+) K=(\d+) N=(\d+) oi: ", c["reason"]).groups())
+            p = plan_q8(m, k, n, w_layout="oi")
+            assert m == 2 and p.path == "gemv"
+            assert (f"oi: {p.describe()}, {p.smem_bytes / 1024:.1f} KiB SMEM, "
+                    f"int32 sums in registers, "
+                    f"{p.pad_waste(m, k, n):.1f}x pad waste") in c["reason"]
+            assert tuple(c["block"]) == (p.block[0], p.ksplit, p.block[1])
 
 
 @pytest.mark.parametrize("target,fm", [("jit", 0), ("cuda", 3)])
