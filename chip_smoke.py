@@ -18,12 +18,38 @@ JAX package.  Every phase prints one JSON line (also written to
 4. ``main``      the six Table-1 CNNs through ``repro_torch.compile(...,
                  target="cuda")`` at batch 1 and 256: ``exact`` against
                  ``interpret`` on the card, ``fast`` against the same
-                 compile on the CPU; the kernels' launch counts on that
-                 run, held against the graphs' dense and softmax nodes.
-5. ``time``      medians of interpret/jit/cuda per model and batch (host
-                 clock around a synchronised call) with the device's busy
-                 time per inference, exact and fast (``torch.profiler``);
-                 per kernel at the
+                 compile on the CPU (path 1); ``int8``/``bf16`` against
+                 ``jit`` (path A); decode attention at qwen2.5-14b's
+                 widths (path B).  Each path sets the wrappers' counts
+                 to 0, prepares its programs (a warm-up call and a
+                 captured call each, both through the wrappers, which
+                 count them), then calls each program once under
+                 ``torch.profiler``: a replay passes through no wrapper,
+                 so its launches are counted from the kernel names, and
+                 held against the graphs' dense and softmax nodes.
+5. ``program``   every captured program of paths 1, A and B against the
+                 eager program it was captured from: bit-equal on two
+                 different inputs, the first call's outputs unchanged by
+                 the second (fresh clones), and the launches of one
+                 replay from the profiler; capture time and the graph
+                 pool's bytes per program.
+                 ``split_counters``: a captured program still replays
+                 bit-equal after its split counters grew and after a
+                 larger plan was captured.
+6. ``runtime``   batch buckets: ``buckets=BucketPolicy`` (the engine
+                 cache, a bucket captured in the background while a
+                 warm one serves) and the legacy ``batch_buckets``, each
+                 output bit-equal to the bucket's program on the padded
+                 input and close to ``interpret``.
+7. ``cache``     ``serialize``/``deserialize`` bit-equal, and a second
+                 process that takes every program's entry from the
+                 executable cache, runs no pass pipeline and gives the
+                 first process's outputs bit for bit.
+8. ``time``      medians of interpret/jit/cuda per model and batch (host
+                 clock around a synchronised call), captured and eager,
+                 with the device's busy time per inference, exact and
+                 fast (``torch.profiler``, which sees the kernels inside
+                 a graph replay by name); per kernel at the
                  main-path shapes its time, the plain version's, a library
                  call's and the bound.  A kernel row's ``ms``,
                  ``plain_ms`` and ``library_ms`` are the median device time
@@ -93,6 +119,28 @@ DECODE_CHECK_MORE = [(2, 16, 1, 256, 4096, [4096, 1537]),
                      # edge, inside the first tile, 1, and S.
                      (4, 40, 8, 128, 9000, [2048, 300, 1, 9000])]
 KERNELS = ("fused_matmul", "fast_act", "fused_matmul_q8", "decode_attention")
+#: Calls of the eager program that preparing one captured program makes,
+#: each through the wrappers: the warm-up and the captured call
+#: (``core/program.py``).
+PREPARE_CALLS = 2
+#: The CUDA kernels of each wrapper by symbol (``csrc/``), to count the
+#: launches on the card from the profiler's kernel names.
+#: decode_attention counts calls: its combine kernel runs once per call.
+KERNEL_SYMBOLS = {
+    "fused_matmul": ("fm_gemv_kernel<", "fm_tiled_kernel<"),
+    "fused_matmul_q8": ("q8_gemv_oi_kernel<", "q8_gemv_io_kernel<",
+                        "q8_tiled_kernel<"),
+    "fast_act": ("fast_act_kernel<",),
+    "decode_attention": ("combine_kernel",),
+}
+#: The runtime phase: a bucket policy over the main path's batches, the
+#: batches sent through it, and the legacy batch_buckets.
+RUNTIME_POLICY = (1, 4, 16, 64, 256)
+RUNTIME_BATCHES = (1, 3, 17, 100, 256)
+RUNTIME_MODELS = ("VGG19", "C-HTWK")
+LEGACY_BUCKETS = (4, 256)
+#: The cache phase's compiles, made again by a second process.
+CACHE_COMPILES = (("C-HTWK", "int8"), ("VGG19", "exact"))
 TIMED_RUNS = 25
 DEVICE = "cuda"
 
@@ -185,9 +233,10 @@ def queued_ms(fn, iters: int = 50, spin: int = 40_000_000) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, iters: int = 20):
-    """Device time per call of ``fn()`` of each CUDA kernel it launched,
-    by name, from ``torch.profiler`` over ``iters`` calls."""
+def device_profile(fn, iters: int = 20):
+    """Each CUDA kernel ``fn()`` launched, by name, from ``torch.profiler``
+    over ``iters`` calls: (launches per call, device ms per call).  The
+    profiler sees the kernels inside a CUDA graph replay by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -202,16 +251,62 @@ def device_ms_by_kernel(fn, iters: int = 20):
             continue
         t = getattr(evt, "self_device_time_total", None)
         t = t if t is not None else getattr(evt, "self_cuda_time_total", 0.0)
-        if t:
-            out[evt.key] = out.get(evt.key, 0.0) + t / iters / 1e3
+        n, ms = out.get(evt.key, (0.0, 0.0))
+        out[evt.key] = (n + evt.count / iters, ms + t / iters / 1e3)
     return out
+
+
+def device_ms_by_kernel(fn, iters: int = 20):
+    """Device time per call of ``fn()`` of each CUDA kernel it launched,
+    by name, from ``torch.profiler`` over ``iters`` calls."""
+    return {k: ms for k, (_, ms) in device_profile(fn, iters).items() if ms}
 
 
 def device_ms(fn, iters: int = 20):
     """Device time per call of ``fn()``: the sum of every CUDA kernel it
-    launched; None when the profiler recorded no device time."""
+    launched; None when the profiler recorded no device time twice (a
+    profile now and then comes back empty)."""
     total = sum(device_ms_by_kernel(fn, iters).values())
+    total = total or sum(device_ms_by_kernel(fn, iters).values())
     return total or None
+
+
+def profiled_call(fn):
+    """``fn()`` once under ``torch.profiler``, synchronised: its result
+    and the launches on the card of each wrapper's kernels, counted from
+    the kernel names (KERNEL_SYMBOLS), inside graph replays too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {k: 0 for k in KERNELS}
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        for kernel, symbols in KERNEL_SYMBOLS.items():
+            if any(sym in evt.key for sym in symbols):
+                counts[kernel] += evt.count
+    return out, counts
+
+
+def eager_call(exe, feeds):
+    """The outputs of the eager program (the LoweredGraph walk) that
+    ``exe``'s program for this batch was captured from, on ``feeds``,
+    keyed like ``exe(**feeds)``."""
+    import torch
+    env = {n: torch.as_tensor(feeds[n], device=DEVICE) for n in exe.graph.inputs}
+    batch = next(iter(env.values())).shape[0]
+    prog = exe.ensure_compiled(batch)
+    with torch.inference_mode():
+        out = getattr(prog, "eager", prog)(env)   # the CPU's is eager
+    return {pub: out[opt]
+            for pub, opt in zip(exe.source.output_names, exe.graph.outputs)}
+
+
+def outputs_equal(a, b) -> bool:
+    import torch
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
 def bound_ms(nbytes: float, flops: float, ops_per_s: float = F32_FLOPS_PER_S):
@@ -603,8 +698,6 @@ def expected_launches(graph):
 
 def phase_main(torch, np):
     import repro_torch
-    from repro_torch.kernels.fast_act.ops import fast_act
-    from repro_torch.kernels.fused_matmul.ops import fused_matmul
     from repro_torch.table1_models import SUITE
 
     rng = np.random.default_rng(0)
@@ -627,28 +720,39 @@ def phase_main(torch, np):
             inputs[name, b] = rng.standard_normal(
                 (b,) + tuple(g.inputs["input"].shape)).astype(np.float32)
 
-    # The main path: every count set to 0 just before, read just after.
+    # The path, every count set to 0 just before and read just after:
+    # each batch size's program prepared (a warm-up and a captured call
+    # through the wrappers), then called once under the profiler, which
+    # counts the replay's kernels by name.
     reset_counts()
+    for name in SUITE:
+        for prec in ("exact", "fast"):
+            for b in BATCHES:
+                exes[name, "cuda", prec].ensure_compiled(b)
+    torch.cuda.synchronize()
+    prepared = read_counts()
     outs = {}
-    expect_total = {"fused_matmul": 0, "fast_act": 0}
+    expect_total = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in KERNELS}
     per_model = {}
     for name in SUITE:
         for b in BATCHES:
             for prec in ("exact", "fast"):
                 exe = exes[name, "cuda", prec]
-                fm0, fa0 = fused_matmul.launches, fast_act.launches
-                out = exe(input=inputs[name, b])
-                torch.cuda.synchronize()
+                out, counts = profiled_call(
+                    lambda: exe(input=inputs[name, b]))
                 outs[name, b, prec] = out
                 n_fm, n_fa = expect[name]
                 n_fa = n_fa if prec == "fast" else 0
                 expect_total["fused_matmul"] += n_fm
                 expect_total["fast_act"] += n_fa
-                per_model[name, b, prec] = {
-                    "fused_matmul": fused_matmul.launches - fm0,
-                    "fast_act": fast_act.launches - fa0,
-                    "expected": {"fused_matmul": n_fm, "fast_act": n_fa}}
-    launches = read_counts()
+                for k in KERNELS:
+                    launches[k] += counts[k]
+                per_model[name, b, prec] = dict(
+                    counts, expected={"fused_matmul": n_fm, "fast_act": n_fa,
+                                      "fused_matmul_q8": 0,
+                                      "decode_attention": 0})
+    wrappers = read_counts()
 
     for name in SUITE:
         for b in BATCHES:
@@ -669,7 +773,7 @@ def phase_main(torch, np):
             ok = (err_exact <= EXACT_ATOL and err_fast <= FAST_ATOL and finite
                   and shapes_ok
                   and all(c[k] == c["expected"][k] for c in counts.values()
-                          for k in ("fused_matmul", "fast_act")))
+                          for k in KERNELS))
             if not ok:
                 failures.append([name, b])
             sel = exes[name, "cuda", "exact"].cost_summary().get(
@@ -682,13 +786,20 @@ def phase_main(torch, np):
                   "launches": counts, "ok": ok,
                   "kernel_selection": [[c["node"], c["kernel"], c["reason"]]
                                        for c in sel]})
+    # The wrappers counted the preparing calls alone: the replays pass
+    # through none.
+    want_wrappers = {k: PREPARE_CALLS * v for k, v in expect_total.items()}
     emit({"phase": "main", "launches": launches, "expected": expect_total,
+          "wrapper_launches": wrappers, "wrapper_launches_preparing":
+          prepared, "wrapper_expected": want_wrappers,
           "failures": failures})
     problems = []
-    expect_all = dict(expect_total, fused_matmul_q8=0, decode_attention=0)
-    if failures or launches != expect_all or not all(expect_total.values()):
+    if (failures or launches != expect_total
+            or not (expect_total["fused_matmul"] and expect_total["fast_act"])
+            or wrappers != prepared or wrappers != want_wrappers):
         problems.append(f"main path failed: {failures}, launches {launches}, "
-                        f"expected {expect_all}")
+                        f"expected {expect_total}, wrappers {wrappers}, "
+                        f"expected {want_wrappers}")
     return exes, inputs, launches, per_model, problems
 
 
@@ -712,19 +823,32 @@ def phase_path_a(torch, np, exes, inputs):
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        # The path: every count set to 0 just before, read just after.
-        reset_counts()
-        outs, per = {}, {}
+        # Programs captured under deterministic cuDNN.  The path, every
+        # count set to 0 just before and read just after: the cuda
+        # programs prepared, then each called once under the profiler.
         for prec, models in modes.items():
             for name in models:
                 for b in BATCHES:
-                    c0 = read_counts()
-                    outs[name, b, prec] = exes[name, "cuda", prec](
-                        input=inputs[name, b])
-                    torch.cuda.synchronize()
-                    per[name, b, prec] = {k: v - c0[k]
-                                          for k, v in read_counts().items()}
-        launches = read_counts()
+                    exes[name, "jit", prec].ensure_compiled(b)
+        reset_counts()
+        for prec, models in modes.items():
+            for name in models:
+                for b in BATCHES:
+                    exes[name, "cuda", prec].ensure_compiled(b)
+        torch.cuda.synchronize()
+        prepared = read_counts()
+        outs, per = {}, {}
+        launches = {k: 0 for k in KERNELS}
+        for prec, models in modes.items():
+            for name in models:
+                for b in BATCHES:
+                    exe = exes[name, "cuda", prec]
+                    outs[name, b, prec], per[name, b, prec] = profiled_call(
+                        lambda: exe(input=inputs[name, b]))
+                    for k in KERNELS:
+                        launches[k] += per[name, b, prec][k]
+        wrappers = read_counts()
+        want_total = {k: 0 for k in KERNELS}
         rows, failures = [], []
         for prec, models in modes.items():
             for name in models:
@@ -732,6 +856,8 @@ def phase_path_a(torch, np, exes, inputs):
                 want_counts = {k: 0 for k in KERNELS}
                 want_counts["fused_matmul_q8" if prec == "int8"
                             else "fused_matmul"] = dense
+                for k, v in want_counts.items():
+                    want_total[k] += v * len(BATCHES)
                 for b in BATCHES:
                     got = outs[name, b, prec]
                     jit = exes[name, "jit", prec](input=inputs[name, b])
@@ -772,11 +898,18 @@ def phase_path_a(torch, np, exes, inputs):
                     emit(rows[-1])
     finally:
         torch.backends.cudnn.deterministic = prev
+    want_wrappers = {k: PREPARE_CALLS * v for k, v in want_total.items()}
     emit({"phase": "main", "path": "A", "launches": launches,
+          "expected": want_total, "wrapper_launches": wrappers,
+          "wrapper_launches_preparing": prepared,
+          "wrapper_expected": want_wrappers,
           "cudnn_deterministic": True, "failures": failures})
     problems = []
-    if failures or not (launches["fused_matmul"] and launches["fused_matmul_q8"]):
-        problems.append(f"path A failed: {failures}, launches {launches}")
+    if (failures or launches != want_total
+            or not (launches["fused_matmul"] and launches["fused_matmul_q8"])
+            or wrappers != prepared or wrappers != want_wrappers):
+        problems.append(f"path A failed: {failures}, launches {launches}, "
+                        f"wrappers {wrappers}")
     return launches, problems
 
 
@@ -810,17 +943,32 @@ def phase_path_b(torch, np):
         q, k, v, lens = decode_inputs(torch, b, DECODE["h"], DECODE["hkv"],
                                       DECODE["d"], DECODE["s"], lengths, 30 + b)
         feeds[b] = {"q": q, "k": k, "v": v, "lengths": lens}
-
-    # The path: every count set to 0 just before, read just after.
+    # K and V are written once into each captured program's static inputs
+    # (2.15 GB at batch 8), and every call passes those tensors: a call
+    # copies only q and the lengths.
     reset_counts()
+    cuda_feeds = {}
+    for prec in ("exact", "fast"):
+        for b in DECODE_LENGTHS:
+            bufs = exes["cuda", prec].input_buffers(b)
+            for n in ("k", "v"):
+                bufs[n].copy_(feeds[b][n])
+            cuda_feeds[prec, b] = dict(feeds[b], k=bufs["k"], v=bufs["v"])
+    torch.cuda.synchronize()
+
+    # The path: every count set to 0 before the programs were prepared
+    # (above, to hand out their static inputs), read just after; each
+    # program called once under the profiler.
     outs, per = {}, {}
+    launches = {k: 0 for k in KERNELS}
     for b in DECODE_LENGTHS:
         for prec in ("exact", "fast"):
-            c0 = read_counts()
-            outs[b, prec] = exes["cuda", prec](**feeds[b])
-            torch.cuda.synchronize()
-            per[b, prec] = {k: v - c0[k] for k, v in read_counts().items()}
-    launches = read_counts()
+            exe = exes["cuda", prec]
+            outs[b, prec], per[b, prec] = profiled_call(
+                lambda: exe(**cuda_feeds[prec, b]))
+            for k in KERNELS:
+                launches[k] += per[b, prec][k]
+    wrappers = read_counts()
 
     want_counts = {k: int(k == "decode_attention") for k in KERNELS}
     failures = []
@@ -849,12 +997,324 @@ def phase_path_b(torch, np):
               "launches": {p: per[b, p] for p in ("exact", "fast")},
               "kernel_selection": exes["cuda", "exact"].cost_summary()
               ["kernel_selection"][b][0]["reason"], "ok": ok})
+    calls = len(DECODE_LENGTHS) * 2
+    want_total = {k: calls * v for k, v in want_counts.items()}
+    want_wrappers = {k: PREPARE_CALLS * v for k, v in want_total.items()}
     emit({"phase": "main", "path": "B", "launches": launches,
-          "failures": failures})
+          "expected": want_total, "wrapper_launches": wrappers,
+          "wrapper_expected": want_wrappers, "failures": failures})
     problems = []
-    if failures or not launches["decode_attention"]:
-        problems.append(f"path B failed: {failures}, launches {launches}")
-    return exes, feeds, launches, problems
+    if (failures or launches != want_total
+            or not launches["decode_attention"]
+            or wrappers != want_wrappers):
+        problems.append(f"path B failed: {failures}, launches {launches}, "
+                        f"wrappers {wrappers}")
+    return exes, feeds, cuda_feeds, launches, problems
+
+
+def program_cases(torch, np, exes, inputs, dec_exes, cuda_feeds):
+    """Every captured program of paths 1, A and B: (label, executable,
+    two feeds, the launches one replay must make, cuDNN deterministic
+    as when it was captured)."""
+    from repro_torch.table1_models import SUITE
+    rng = np.random.default_rng(99)
+    cases = []
+    for name in SUITE:
+        n_fm, n_fa = expected_launches(SUITE[name]())
+        for b in BATCHES:
+            x1 = inputs[name, b]
+            x2 = rng.standard_normal(x1.shape).astype(np.float32)
+            feeds = ({"input": x1}, {"input": x2})
+            for target, prec in (("cuda", "exact"), ("cuda", "fast"),
+                                 ("jit", "exact"), ("cuda", "int8"),
+                                 ("jit", "int8"), ("cuda", "bf16"),
+                                 ("jit", "bf16")):
+                exe = exes.get((name, target, prec))
+                if exe is None:
+                    continue
+                want = {k: 0 for k in KERNELS}
+                if target == "cuda":
+                    want["fused_matmul_q8" if prec == "int8"
+                         else "fused_matmul"] = n_fm
+                    want["fast_act"] = n_fa if prec == "fast" else 0
+                path = "1" if prec in ("exact", "fast") else "A"
+                cases.append((f"{path} {name} {target} {prec} b{b}", exe,
+                              feeds, want, path == "A"))
+    for (prec, b), feeds in cuda_feeds.items():
+        gen = torch.Generator(device=DEVICE).manual_seed(77 + b)
+        other = dict(feeds, q=torch.randn(feeds["q"].shape, generator=gen,
+                                          device=DEVICE),
+                     lengths=torch.clamp(feeds["lengths"] - 257, min=1))
+        want = {k: int(k == "decode_attention") for k in KERNELS}
+        cases.append((f"B decode cuda {prec} b{b}", dec_exes["cuda", prec],
+                      (feeds, other), want, False))
+    return cases
+
+
+def phase_program(torch, np, cases):
+    """Each captured program against the eager program it was captured
+    from: two calls on different inputs, each bit-equal to the eager
+    walk on its input, the first call's outputs unchanged after the
+    second, one replay's launches from the profiler; capture time and
+    pool bytes."""
+    failures, pool_total, capture_total = [], 0, 0.0
+    prev = torch.backends.cudnn.deterministic
+    try:
+        for label, exe, (f1, f2), want, deterministic in cases:
+            torch.backends.cudnn.deterministic = deterministic
+            out1 = exe(**f1)
+            keep = {k: v.clone() for k, v in out1.items()}
+            out2 = exe(**f2)
+            eq1 = outputs_equal(out1, eager_call(exe, f1))
+            eq2 = outputs_equal(out2, eager_call(exe, f2))
+            fresh = outputs_equal(out1, keep)
+            differ = not outputs_equal(out1, out2)
+            _, prof = profiled_call(lambda: exe(**f1))
+            batch = next(iter(out1.values())).shape[0]
+            info = exe.cost_summary()["programs"][batch]
+            ok = (info["captured"] and eq1 and eq2 and fresh and differ
+                  and prof == want)
+            if not ok:
+                failures.append(label)
+            pool_total += info.get("pool_bytes", 0)
+            capture_total += info.get("capture_ms", 0.0)
+            emit({"phase": "program", "program": label,
+                  "bit_equal_to_eager": [eq1, eq2],
+                  "first_outputs_unchanged": fresh,
+                  "inputs_differ_outputs_differ": differ,
+                  "replay_launches_profiler": prof, "expected": want,
+                  "capture_ms": info.get("capture_ms"),
+                  "pool_bytes": info.get("pool_bytes"),
+                  "cudnn_deterministic": deterministic, "ok": ok})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    emit({"phase": "program", "programs": len(cases),
+          "pool_bytes_total": pool_total, "capture_ms_total": capture_total,
+          "failures": failures})
+    return [f"program phase failed: {failures}"] if failures else []
+
+
+def phase_split_counters(torch, np):
+    """B1 and B2 reduce K splits through per-tile counters.  A program
+    captured with a small plan must replay bit-equal after a program
+    with a larger plan was captured, after its own counter buffer grew
+    (the outgrown buffer stays held), and after the freed memory of the
+    card was handed out and scribbled over."""
+    import repro_torch
+
+    def one_dense(k, n, seed):
+        mb = repro_torch.ModelBuilder().seed(seed)
+        x = mb.input((k,))
+        return mb.build([mb.dense(x, n, activation="relu")])
+
+    rows = []
+    for prec in ("exact", "int8"):
+        small = repro_torch.compile(one_dense(2048, 96, 1), target="cuda",
+                                    precision=prec, device=DEVICE)
+        large = repro_torch.compile(one_dense(2048, 128, 2), target="cuda",
+                                    precision=prec, device=DEVICE)
+        x = np.random.default_rng(3).standard_normal((1, 2048)).astype(
+            np.float32)
+        xl = np.random.default_rng(4).standard_normal((256, 2048)).astype(
+            np.float32)
+        prog = small.ensure_compiled(1)
+        first = small(input=x)
+        large.ensure_compiled(256)
+        large(input=xl)
+        grown = getattr(prog, "eager", prog).ctx.counters.get(
+            torch.device(DEVICE), 1 << 16)
+        scribble = torch.full((1 << 28,), -1, dtype=torch.int32, device=DEVICE)
+        again = small(input=x)
+        eager = eager_call(small, {"input": x})
+        del scribble
+        sel = [c["reason"] for c in
+               small.cost_summary()["kernel_selection"][1] +
+               large.cost_summary()["kernel_selection"][256]]
+        ok = (outputs_equal(first, again) and outputs_equal(first, eager)
+              and grown.numel() == 1 << 16)
+        rows.append(ok)
+        emit({"phase": "split_counters", "precision": prec,
+              "plans": sel, "replay_bit_equal_after": ok,
+              "grown_to": grown.numel(), "ok": ok})
+    return [] if all(rows) else ["split counter check failed"]
+
+
+def phase_runtime(torch, np, exes, inputs):
+    """Batch buckets on the card: a BucketPolicy (engine cache, a cold
+    bucket captured in the background while a warm one serves) and the
+    legacy batch_buckets; every output bit-equal to its bucket's program
+    on the input padded with zero rows, and within EXACT_ATOL of
+    interpret."""
+    import repro_torch
+    from repro_torch.runtime import BucketPolicy
+    from repro_torch.table1_models import SUITE
+
+    rng = np.random.default_rng(7)
+    failures = []
+    policy = BucketPolicy(batch_buckets=RUNTIME_POLICY)
+    for name in RUNTIME_MODELS:
+        g = SUITE[name]()
+        shape = tuple(g.inputs["input"].shape)
+        interp = exes[name, "interpret", "exact"]
+        bucketed = repro_torch.compile(g, target="cuda", device=DEVICE,
+                                       buckets=policy)
+        bucketed.warm_up(block=True)
+        legacy = repro_torch.compile(g, target="cuda", device=DEVICE,
+                                     batch_buckets=LEGACY_BUCKETS)
+        for kind, exe, inner, buckets in (
+                ("buckets", bucketed, bucketed.inner, RUNTIME_POLICY),
+                ("batch_buckets", legacy, legacy, LEGACY_BUCKETS)):
+            for batch in RUNTIME_BATCHES:
+                x = rng.standard_normal((batch,) + shape).astype(np.float32)
+                got = exe(input=x)
+                bucket = next((b for b in buckets if b >= batch), batch)
+                padded = np.zeros((bucket,) + shape, np.float32)
+                padded[:batch] = x
+                want = inner(input=padded)
+                equal = outputs_equal(got, {k: v[:batch]
+                                            for k, v in want.items()})
+                ref = interp(input=x)
+                err = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+                ok = equal and err <= EXACT_ATOL
+                if not ok:
+                    failures.append([name, kind, batch])
+                emit({"phase": "runtime", "model": name, "kind": kind,
+                      "batch": batch, "bucket": bucket,
+                      "bit_equal_to_padded_bucket_program": equal,
+                      "max_abs_err_vs_interpret": err, "ok": ok})
+        emit({"phase": "runtime", "model": name, "kind": "buckets",
+              "counters": bucketed.runtime_stats()})
+        bucketed.shutdown()
+
+    # worker="thread": only the largest bucket warm; calls of batch 3 are
+    # served on it while their own bucket is captured in the background.
+    g = SUITE["C-HTWK"]()
+    exe = repro_torch.compile(g, target="cuda", device=DEVICE,
+                              buckets=policy)
+    exe.ensure_compiled(RUNTIME_POLICY[-1])
+    cold = str(policy.bucket_for(3))
+    x = rng.standard_normal((3,) + tuple(g.inputs["input"].shape)).astype(
+        np.float32)
+    ref = exes["C-HTWK", "interpret", "exact"](input=x)
+    # No synchronise while the capture is under way: a device-wide one is
+    # refused then, and the outputs are read after it (core/program.py).
+    served = []
+    t0 = time.perf_counter()
+    while cold not in exe.runtime_stats()["warm_buckets"] \
+            and len(served) < 2000:
+        served.append(exe(input=x))
+        time.sleep(0.001)
+    warm = exe.wait_warm(timeout=120.0)
+    served.append(exe(input=x))
+    errs = [max(float((got[k] - ref[k]).abs().max()) for k in ref)
+            for got in served]
+    stats = exe.runtime_stats()
+    ok = (warm and stats["fallback_serves"] >= 1 and stats["bucket_hits"] >= 1
+          and stats["compile_stalls"] == 0 and max(errs) <= EXACT_ATOL)
+    if not ok:
+        failures.append(["thread worker", stats])
+    emit({"phase": "runtime", "model": "C-HTWK", "kind": "thread worker",
+          "calls_served_while_capturing": len(served) - 1,
+          "seconds_to_warm": time.perf_counter() - t0,
+          "max_abs_err_vs_interpret": max(errs), "counters": stats,
+          "ok": ok})
+    exe.shutdown()
+    return [f"runtime phase failed: {failures}"] if failures else []
+
+
+CACHE_SCRIPT = """
+import json, sys
+sys.path.insert(0, {src!r})
+import numpy as np, torch
+import repro_torch
+from repro_torch.api import targets
+from repro_torch.table1_models import SUITE
+torch.backends.cudnn.deterministic = True
+ran = []
+real = targets.run_pipeline
+def counted(*a, **kw):
+    ran.append(1)
+    return real(*a, **kw)
+targets.run_pipeline = counted
+data = np.load({inputs!r})
+report, outs = {{}}, {{}}
+for name, prec in {compiles!r}:
+    exe = repro_torch.compile(SUITE[name](), target="cuda", precision=prec,
+                              device={device!r}, cache_dir={cache!r})
+    for b in {batches!r}:
+        out = exe(input=data[f"{{name}} {{b}}"])
+        for k, v in out.items():
+            outs[f"{{name}} {{prec}} {{b}} {{k}}"] = v.cpu().numpy()
+    report[f"{{name}} {{prec}}"] = exe.cache_info()
+np.savez({outputs!r}, **outs)
+print(json.dumps({{"pipelines": len(ran), "cache": report}}))
+"""
+
+
+def phase_cache(torch, np, exes, inputs):
+    """serialize/deserialize on the card, and a second process with the
+    first one's cache directory (cuDNN deterministic in both)."""
+    import shutil
+    import repro_torch
+    from repro_torch.table1_models import SUITE
+
+    failures = []
+    work = os.path.join(ROOT, "build", "chip_smoke_cache")
+    shutil.rmtree(work, ignore_errors=True)
+    cache_dir = os.path.join(work, "entries")
+    os.makedirs(cache_dir)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs, feeds = {}, {}
+        for name, prec in CACHE_COMPILES:
+            exe = repro_torch.compile(SUITE[name](), target="cuda",
+                                      precision=prec, device=DEVICE,
+                                      cache_dir=cache_dir)
+            again = repro_torch.deserialize(exe.serialize())
+            for b in BATCHES:
+                x = inputs[name, b]
+                feeds[f"{name} {b}"] = x
+                out = exe(input=x)
+                equal = outputs_equal(out, again(input=x))
+                for k, v in out.items():
+                    outs[f"{name} {prec} {b} {k}"] = v.cpu().numpy()
+                if not equal:
+                    failures.append(["deserialize", name, prec, b])
+                emit({"phase": "cache", "model": name, "precision": prec,
+                      "batch": b, "deserialized_bit_equal": equal})
+            if exe.cache_info()["programs"] != {b: "miss" for b in BATCHES}:
+                failures.append(["first process", exe.cache_info()])
+        in_path = os.path.join(work, "inputs.npz")
+        out_path = os.path.join(work, "second.npz")
+        np.savez(in_path, **feeds)
+        script = CACHE_SCRIPT.format(
+            src=os.path.join(ROOT, "src"), inputs=in_path, outputs=out_path,
+            compiles=list(CACHE_COMPILES), cache=cache_dir,
+            batches=list(BATCHES), device=DEVICE)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", script],
+                              capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise SystemExit(f"second process failed:\n{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        second = np.load(out_path)
+        equal = (sorted(second.files) == sorted(outs)
+                 and all(np.array_equal(second[k], outs[k]) for k in outs))
+        hits = all(info["graph"] == "hit"
+                   and info["programs"] == {str(b): "hit" for b in BATCHES}
+                   for info in report["cache"].values())
+        ok = equal and hits and report["pipelines"] == 0
+        if not ok:
+            failures.append(["second process", report])
+        emit({"phase": "cache", "second_process": report,
+              "outputs_bit_equal_to_first": equal, "seconds": seconds,
+              "ok": ok})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        shutil.rmtree(work, ignore_errors=True)
+    return [f"cache phase failed: {failures}"] if failures else []
 
 
 def phase_time_models(torch, exes, inputs, per_model):
@@ -863,20 +1323,29 @@ def phase_time_models(torch, exes, inputs, per_model):
         for b in BATCHES:
             x = inputs[name, b]
             row = {"phase": "time", "model": name, "batch": b}
+            xt = torch.as_tensor(x, device=DEVICE)
             for key in (("interpret", "exact"), ("jit", "exact"),
                         ("cuda", "exact"), ("cuda", "fast")):
                 exe = exes[(name,) + key]
-                xt = torch.as_tensor(x, device=DEVICE)
-                row["_".join(key) + "_ms"] = host_median_ms(lambda: exe(input=xt))
+                tag = "_".join(key)
+                # Captured programs under the existing keys; the eager
+                # walk of the same prepared program beside them.
+                row[tag + "_ms"] = host_median_ms(lambda: exe(input=xt))
+                if key[0] != "interpret":
+                    row[tag + "_eager_ms"] = host_median_ms(
+                        lambda: eager_call(exe, {"input": xt}))
             exe = exes[name, "cuda", "exact"]
             row["cuda_exact_device_ms"] = device_ms(lambda: exe(input=xt))
             exe_f = exes[name, "cuda", "fast"]
             row["cuda_fast_device_ms"] = device_ms(lambda: exe_f(input=xt))
             row["cuda_exact_queued_ms"] = queued_ms(
                 lambda: exe(input=xt), iters=5, spin=400_000_000)
-            if row["cuda_exact_device_ms"] is not None:
-                row["cuda_exact_device_busy"] = (row["cuda_exact_device_ms"]
-                                                 / row["cuda_exact_ms"])
+            for tag in ("cuda_exact", "cuda_fast"):
+                if row[tag + "_device_ms"] is not None:
+                    row[tag + "_device_busy"] = (row[tag + "_device_ms"]
+                                                 / row[tag + "_ms"])
+                    row[tag + "_eager_device_busy"] = (
+                        row[tag + "_device_ms"] / row[tag + "_eager_ms"])
             row["interpret_over_cuda"] = row["interpret_exact_ms"] / row["cuda_exact_ms"]
             row["interpret_over_jit"] = row["interpret_exact_ms"] / row["jit_exact_ms"]
             row["launches_per_inference"] = {
@@ -976,10 +1445,12 @@ def phase_time_kernels(torch, np, exes):
     return rows
 
 
-def phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds):
-    """Host medians of the int8, bf16 and decode compiles (the per-model
-    rows of path 1 are ``phase_time_models``')."""
+def phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds, cuda_feeds):
+    """Host medians of the int8, bf16 and decode compiles, captured and
+    eager (the per-model rows of path 1 are ``phase_time_models``')."""
     from repro_torch.table1_models import SUITE
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # as path A was captured
     for prec, models in (("int8", INT8_MODELS), ("bf16", tuple(SUITE))):
         for name in models:
             for b in BATCHES:
@@ -989,16 +1460,29 @@ def phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds):
                 for target in ("cuda", "jit"):
                     exe = exes[name, target, prec]
                     row[f"{target}_ms"] = host_median_ms(lambda: exe(input=xt))
+                    row[f"{target}_eager_ms"] = host_median_ms(
+                        lambda: eager_call(exe, {"input": xt}))
                 exe = exes[name, "cuda", prec]
                 row["cuda_device_ms"] = device_ms(lambda: exe(input=xt))
+                if row["cuda_device_ms"] is not None:
+                    row["cuda_device_busy"] = row["cuda_device_ms"] / row["cuda_ms"]
                 emit(row)
+    torch.backends.cudnn.deterministic = prev
     for b, feeds in dec_feeds.items():
         row = {"phase": "time", "path": "B", "batch": b, "shape": DECODE}
-        for t, p in (("cuda", "exact"), ("cuda", "fast"), ("interpret", "exact")):
-            exe = dec_exes[t, p]
-            row[f"{t}_{p}_ms"] = host_median_ms(lambda: exe(**feeds), runs=10)
-        exe = dec_exes["cuda", "exact"]
-        row["cuda_exact_device_ms"] = device_ms(lambda: exe(**feeds), iters=5)
+        for p in ("exact", "fast"):
+            exe, f = dec_exes["cuda", p], cuda_feeds[p, b]
+            row[f"cuda_{p}_ms"] = host_median_ms(lambda: exe(**f), runs=10)
+            row[f"cuda_{p}_eager_ms"] = host_median_ms(
+                lambda: eager_call(exe, f), runs=10)
+        exe = dec_exes["interpret", "exact"]
+        row["interpret_exact_ms"] = host_median_ms(lambda: exe(**feeds),
+                                                   runs=10)
+        exe, f = dec_exes["cuda", "exact"], cuda_feeds["exact", b]
+        row["cuda_exact_device_ms"] = device_ms(lambda: exe(**f), iters=5)
+        if row["cuda_exact_device_ms"] is not None:
+            row["cuda_exact_device_busy"] = (row["cuda_exact_device_ms"]
+                                             / row["cuda_exact_ms"])
         emit(row)
 
 
@@ -1154,11 +1638,16 @@ def main() -> int:
     problems += more
     launches_a, more = phase_path_a(torch, np, exes, inputs)
     problems += more
-    dec_exes, dec_feeds, launches_b, more = phase_path_b(torch, np)
+    dec_exes, dec_feeds, cuda_feeds, launches_b, more = phase_path_b(torch, np)
     problems += more
     totals = {k: launches[k] + launches_a[k] + launches_b[k] for k in KERNELS}
+    problems += phase_program(torch, np, program_cases(
+        torch, np, exes, inputs, dec_exes, cuda_feeds))
+    problems += phase_split_counters(torch, np)
+    problems += phase_runtime(torch, np, exes, inputs)
+    problems += phase_cache(torch, np, exes, inputs)
     phase_time_models(torch, exes, inputs, per_model)
-    phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds)
+    phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds, cuda_feeds)
     rows = phase_time_kernels(torch, np, exes)
     rows["fused_matmul_q8"] = phase_time_q8(torch, np, exes)
     rows["decode_attention"] = phase_time_decode(torch, dec_feeds)

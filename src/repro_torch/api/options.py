@@ -12,6 +12,8 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
+from ..runtime.buckets import BucketPolicy
+
 PRECISIONS = ("exact", "fast", "f32", "bf16", "int8", "mixed")
 #: Precisions that go through the calibrated quantize pass.
 QUANT_PRECISIONS = ("f32", "bf16", "int8", "mixed")
@@ -19,9 +21,6 @@ AUTOTUNE_MODES = ("off", "cached", "full")
 
 #: Field that must stay unset -> the ROADMAP item that ports the feature.
 _UNPORTED = {
-    "batch_buckets": "A.11: runtime buckets",
-    "buckets": "A.11: runtime buckets",
-    "cache_dir": "A.7: executable cache and serialization",
     "capture": "A.10: capture and replay",
     "mesh": "A.14: distribution",
     "sharding_rules": "A.14: distribution",
@@ -60,9 +59,32 @@ class CompileOptions:
                    read by nothing until A.8.
     autotune_budget_ms: read only by the unported autotuner.
     autotune:      only ``"off"`` (ROADMAP A.8: autotune).
-    batch_buckets, buckets, cache_dir, capture, mesh, sharding_rules:
-                   must stay unset (ROADMAP A.11, A.7, A.10, A.14); the
-                   targets prepare one program per batch size seen.
+    batch_buckets: optional ascending batch sizes to specialize for; a
+                   call with batch B runs the smallest bucket >= B (input
+                   padded with zero rows, output sliced).  Empty =
+                   specialize exactly.  Prepares lazily and synchronously
+                   (the legacy spelling; prefer ``buckets=``).
+    buckets:       a :class:`repro_torch.runtime.BucketPolicy` (or its
+                   ``to_dict`` form); the compile returns a
+                   :class:`~repro_torch.runtime.BucketedExecutable`: one
+                   warm program per batch bucket, cold buckets captured in
+                   the background, pre-warmed from the executable cache.
+                   On a CUDA device a capture under way makes CUDA refuse
+                   a device-wide ``torch.cuda.synchronize()`` on any
+                   thread, and the refused call can fail that capture.
+                   While buckets may still be cold, synchronise the
+                   current stream instead
+                   (``torch.cuda.current_stream().synchronize()``), or
+                   call ``warm_up(block=True)`` first.  A capture that
+                   failed is not kept: the bucket's next call captures it
+                   again.
+    cache_dir:     directory of the persistent executable cache (the pass
+                   pipeline's output graph, its report and the kernel
+                   selection per batch); None falls back to
+                   ``$REPRO_TORCH_CACHE_DIR``, and if that is unset the
+                   disk cache is off.
+    capture, mesh, sharding_rules:
+                   must stay unset (ROADMAP A.10, A.14).
     """
 
     target: str = "jit"
@@ -72,7 +94,7 @@ class CompileOptions:
     embed_weights: bool = True
     passes: Optional[Tuple[str, ...]] = None
     batch_buckets: Tuple[int, ...] = ()
-    buckets: Optional[object] = None
+    buckets: Optional[BucketPolicy] = None
     donate_inputs: bool = False
     cache_dir: Optional[str] = None
     dump_ir: Optional[str] = None
@@ -106,7 +128,22 @@ class CompileOptions:
             raise NotImplementedError(
                 f"autotune={self.autotune!r} is not ported yet "
                 f"(ROADMAP A.8: autotune)")
-        object.__setattr__(self, "batch_buckets", tuple(self.batch_buckets))
+        buckets = tuple(sorted(int(b) for b in self.batch_buckets))
+        if any(b <= 0 for b in buckets):
+            raise ValueError(f"batch_buckets must be positive: {buckets}")
+        object.__setattr__(self, "batch_buckets", buckets)
+        if isinstance(self.buckets, dict):      # from_dict round trip
+            object.__setattr__(self, "buckets",
+                               BucketPolicy.from_dict(self.buckets))
+        if self.buckets is not None and not isinstance(self.buckets,
+                                                       BucketPolicy):
+            raise ValueError(
+                f"buckets must be a repro_torch.runtime.BucketPolicy or "
+                f"None, got {type(self.buckets).__name__}")
+        if self.buckets is not None and self.batch_buckets:
+            raise ValueError(
+                "batch_buckets (legacy, lazy) and buckets (runtime "
+                "engine cache) are mutually exclusive")
         for field, item in _UNPORTED.items():
             value = getattr(self, field)
             if value is not None and value != ():
@@ -122,12 +159,24 @@ class CompileOptions:
         return dataclasses.replace(self, **kw)
 
     def to_dict(self) -> dict:
-        """Plain-dict form for JSON artifacts."""
+        """Plain-dict form for JSON artifacts; invert with ``from_dict``."""
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "CompileOptions":
+        """Rebuild options from ``to_dict`` output (re-tuplifying the
+        fields JSON round-trips as lists)."""
+        d = dict(d)
+        if d.get("passes") is not None:
+            d["passes"] = tuple(d["passes"])
+        d["batch_buckets"] = tuple(d.get("batch_buckets") or ())
+        return cls(**d)
+
     def cache_token(self) -> str:
-        """Stable string of every field that affects the compiled program
-        (where it is cached and how it is dumped do not)."""
+        """Stable string of every field that affects the compiled program.
+        Where it is cached and how it is dumped do not, nor how a caller
+        buckets batches: the batch size is a key part of its own, so a
+        bucketed executable shares entries with exact compiles."""
         d = self.to_dict()
         for k in ("cache_dir", "batch_buckets", "buckets", "dump_ir",
                   "autotune", "autotune_budget_ms", "capture"):

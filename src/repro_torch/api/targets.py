@@ -5,7 +5,9 @@ built-ins mirror the reference's cast:
 
     "interpret"  SimpleNN semantics — node-by-node eager oracle.
     "jit"        the optimized path: pass pipeline + generic ATen rules,
-                 one prepared program per batch size.
+                 one program per batch size: on a CUDA device a captured
+                 CUDA graph (``core/program.py``, the reference's AOT XLA
+                 program's counterpart), on the CPU the eager walk.
     "cuda"       ``jit`` with the hand-written CUDA kernels (every int8
                  dense node through ``fused_matmul_q8``, every other dense
                  node through ``fused_matmul``; every ``decode_attention``
@@ -15,7 +17,9 @@ built-ins mirror the reference's cast:
                  wrappers run their plain versions, or a Hopper card.
 
 Every target converts the weights to tensors on ``options.device`` once,
-when it is built, never per call.  New backends register with::
+when it is built, never per call.  ``jit`` and ``cuda`` look the pass
+pipeline's output up in the persistent executable cache (``cache.py``)
+before running it.  New backends register with::
 
     @register_target("my-backend")
     def build(graph, options):
@@ -24,19 +28,34 @@ when it is built, never per call.  New backends register with::
 
 from __future__ import annotations
 
+import functools
+import hashlib
+import io
+import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..core.graph import Graph
-from ..core.lowering import (LoweredGraph, LoweringContext, device_params,
+from ..core.lowering import (LoweredGraph, LoweringContext, _rule_token,
+                             device_params, lowering_fingerprint,
                              quant_params, resolve_device)
-from ..core.passes import run_pipeline
+from ..core.passes import PassManager, plan_memory, run_pipeline
+from ..core.program import CapturedProgram
 from ..core.selection import KernelChoice, check_kernel_device, select_kernels
 from ..core.simple import SimpleNN
-from .executable import Executable
+from ..frontends.container import load_model, save_model
+from .cache import cache_key, open_cache
+from .executable import Executable, pack
 from .options import QUANT_PRECISIONS, CompileOptions
+
+#: What one batch size runs: a captured graph on a CUDA device, the
+#: eager walk on the CPU.
+Program = Union[CapturedProgram, LoweredGraph]
+
 
 def _quant_request(options: CompileOptions) -> Optional[dict]:
     """The quantization request a target rides on ``graph.quant`` for the
@@ -112,6 +131,11 @@ class GraphExecutable(Executable):
                     f"input {n!r}: expected (batch,)+{spec.shape}, "
                     f"got {tuple(a.shape)}")
             args.append(a)
+        if len({a.shape[0] for a in args}) > 1:
+            raise ValueError(
+                "inputs disagree on the batch: " + ", ".join(
+                    f"{n} {a.shape[0]}"
+                    for n, a in zip(self.source.inputs, args)))
         return args
 
     def _public_outputs(self, out) -> dict:
@@ -120,6 +144,18 @@ class GraphExecutable(Executable):
         return {pub: out[t]
                 for pub, t in zip(self.source.output_names,
                                   self.source.outputs)}
+
+    def serialize(self) -> bytes:
+        """Pack the source graph + options + signature into the portable
+        artifact container (recompiled, not unpickled, on load)."""
+        buf = io.BytesIO()
+        save_model(self.source, buf)
+        return pack("graph", self.options, buf.getvalue(),
+                    extra={"signature": self.signature.to_dict()})
+
+    def cache_info(self) -> dict:
+        """Disk-cache counters; zeros for targets without one."""
+        return {"dir": None, "hits": 0, "misses": 0}
 
 
 @register_target("interpret")
@@ -161,8 +197,50 @@ class InterpretExecutable(GraphExecutable):
         return out
 
 
+@functools.lru_cache(maxsize=None)
+def _package_digest() -> str:
+    """Digest of every module of the package (read once a process)."""
+    package = Path(__file__).resolve().parents[1]
+    h = hashlib.sha256()
+    for path in sorted(package.rglob("*.py")):
+        h.update(str(path.relative_to(package)).encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def _code_token(passes, lowering_target: str) -> str:
+    """Digest of the code a cached entry depends on: every module of the
+    package, the lowering rules effective under the target (rules
+    registered from outside the package too) and the resolved pass
+    pipeline's functions (custom passes too).  The reference keys on the
+    optimized graph, which reflects all of these; the port looks its
+    entry up before the pipeline runs, so it keys on their code."""
+    h = hashlib.sha256(_package_digest().encode())
+    h.update(lowering_fingerprint(lowering_target).encode())
+    for spec in PassManager(passes, verify=False)._specs:
+        h.update(f"{spec.name}/{_rule_token(spec.fn)}".encode())
+    return h.hexdigest()
+
+
+def _weights_digest(params) -> str:
+    h = hashlib.sha256()
+    for k in sorted(params):
+        v = np.ascontiguousarray(params[k])
+        h.update(k.encode())
+        h.update(f"{v.shape}{v.dtype}".encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
 class JitExecutable(GraphExecutable):
-    """Pass pipeline + one prepared program per batch size.
+    """Pass pipeline + one program per batch size, with the persistent
+    on-disk executable cache.
+
+    On a CUDA device each batch size's program is a
+    :class:`~repro_torch.core.program.CapturedProgram`: the prepared
+    :class:`LoweredGraph` captured once as a CUDA graph and replayed; a
+    capture that fails raises.  On the CPU it is the eager
+    :class:`LoweredGraph`, which is what the caller asked for.
 
     ``lowering_target`` names the lowering-rule registry slice: ``"jit"``
     uses only the generic rules; ``"cuda"`` activates the CUDA kernels
@@ -176,52 +254,198 @@ class JitExecutable(GraphExecutable):
         if lowering_target == "cuda":
             check_kernel_device(self.device)
         t0 = time.perf_counter()
-        # The quantize request rides on a copy (self.source stays the
-        # input graph); the pass leaves only the semantic record, the
-        # mode and the quant.* node attrs, which structure_hash() reads.
-        req = _quant_request(options)
-        if req is not None:
-            graph = graph.copy()
-            graph.quant = req
-        self.graph, self.report = run_pipeline(
-            graph, options.passes, dump_ir=options.dump_ir)
+        # ensure_compiled may be entered from a BucketedExecutable's
+        # background worker while the request path runs; one lock keeps
+        # the programs, the disk counters and compile_time coherent.
+        self._compile_lock = threading.RLock()
+        self._programs: Dict[int, Program] = {}
+        self._selections: Dict[int, Dict[str, KernelChoice]] = {}
+        self._disk = open_cache(options.cache_dir)
+        self._disk_hits: Dict[object, bool] = {}
+        self._graph_key: Optional[str] = None
+        loaded = self._load_graph() if self._disk is not None else None
+        if loaded is not None:
+            self.graph, self.report = loaded
+        else:
+            # The quantize request rides on a copy (self.source stays the
+            # input graph); the pass leaves only the semantic record, the
+            # mode and the quant.* node attrs, which structure_hash() reads.
+            req = _quant_request(options)
+            if req is not None:
+                graph = graph.copy()
+                graph.quant = req
+            self.graph, self.report = run_pipeline(
+                graph, options.passes, dump_ir=options.dump_ir)
+            if self._disk is not None:
+                self._store_graph()
         self.params = device_params(self.graph, self.device)
         self.params.update(quant_params(self.graph, self.params))
-        self._programs: Dict[int, LoweredGraph] = {}
-        self._selections: Dict[int, Dict[str, KernelChoice]] = {}
         self.compile_time = time.perf_counter() - t0
 
-    def ensure_compiled(self, batch_size: int = 1) -> LoweredGraph:
-        """The program specialized to ``batch_size`` (prepared once)."""
+    # -- the executable cache ------------------------------------------
+    def _source_key(self) -> str:
+        """Key of the graph entry: what the pass pipeline's output is a
+        function of, known before it runs."""
+        if self._graph_key is None:
+            self._graph_key = cache_key(
+                self.device, "graph", self.source.structure_hash(),
+                _weights_digest(self.source.params),
+                self.options.cache_token(),
+                f"sig={self.signature.cache_token()}",
+                f"code={_code_token(self.options.passes, self.lowering_target)}")
+        return self._graph_key
+
+    def _load_graph(self):
+        entry = self._disk.load(self._source_key())
+        graph = None
+        if entry is not None:
+            meta, body = entry
+            try:
+                graph = load_model(io.BytesIO(body))
+                report = dict(meta["report"], plan=plan_memory(graph))
+            except Exception:
+                graph = None     # unreadable: compile as if it missed
+        self._disk_hits["graph"] = graph is not None
+        return None if graph is None else (graph, report)
+
+    def _store_graph(self) -> None:
+        buf = io.BytesIO()
+        try:
+            save_model(self.graph, buf)
+        except (TypeError, ValueError):
+            return               # not containerisable: stay uncached
+        report = {k: v for k, v in self.report.items() if k != "plan"}
+        self._disk.store(self._source_key(),
+                         {"kind": "graph", "report": report}, buf.getvalue())
+
+    def disk_key(self, batch_size: int) -> str:
+        """The executable-cache key of this batch size's program entry."""
+        return cache_key(self.device, "program", self._source_key(),
+                         f"batch={batch_size}")
+
+    def has_disk_entry(self, batch_size: int) -> bool:
+        """True if the executable cache holds this batch size's program
+        entry (its graph entry is looked up at construction)."""
+        return self._disk is not None and self._disk.has(
+            self.disk_key(batch_size))
+
+    def _resolve_selection(self, batch_size: int) -> Dict[str, KernelChoice]:
+        """The kernel selection for one batch size: from its program
+        entry on a hit, else from the selector (and stored)."""
+        if self._disk is not None:
+            key = self.disk_key(batch_size)
+            entry = self._disk.load(key)
+            self._disk_hits[batch_size] = entry is not None
+            if entry is not None:
+                try:
+                    return {c["node"]: KernelChoice.from_dict(c)
+                            for c in entry[0]["selection"]}
+                except (KeyError, TypeError):
+                    self._disk_hits[batch_size] = False
+        selection = select_kernels(
+            self.graph, batch_size=batch_size, target=self.lowering_target)
+        if self._disk is not None:
+            self._disk.store(key, {
+                "kind": "program", "batch": batch_size,
+                "selection": [c.to_dict() for c in selection.values()]})
+        return selection
+
+    # -- compilation ---------------------------------------------------
+    def ensure_compiled(self, batch_size: int = 1) -> Program:
+        """The program specialized to ``batch_size`` (prepared, and on a
+        CUDA device captured, once); called with a dict of input tensors
+        by graph input name."""
         prog = self._programs.get(batch_size)
         if prog is not None:
             return prog
-        t0 = time.perf_counter()
-        selection = select_kernels(
-            self.graph, batch_size=batch_size, target=self.lowering_target)
-        if selection:
-            self._selections[batch_size] = selection
-        ctx = LoweringContext(
-            params=self.params, batch_size=batch_size,
-            precision=self.options.precision, target=self.lowering_target)
-        prog = self._programs[batch_size] = LoweredGraph(self.graph, ctx)
-        self.compile_time += time.perf_counter() - t0
-        return prog
+        with self._compile_lock:
+            prog = self._programs.get(batch_size)
+            if prog is not None:
+                return prog
+            t0 = time.perf_counter()
+            selection = self._resolve_selection(batch_size)
+            if selection:
+                self._selections[batch_size] = selection
+            ctx = LoweringContext(
+                params=self.params, batch_size=batch_size,
+                precision=self.options.precision,
+                target=self.lowering_target)
+            prog = LoweredGraph(self.graph, ctx)
+            if self.device.type == "cuda":
+                prog = CapturedProgram(prog, {
+                    n: (spec.shape, getattr(torch, spec.dtype))
+                    for n, spec in self.graph.inputs.items()}, self.device)
+            self._programs[batch_size] = prog
+            # Seconds spent compiling: the pipeline (or its cache hit)
+            # once, plus every batch size's selection and capture.
+            self.compile_time += time.perf_counter() - t0
+            return prog
+
+    def input_buffers(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """The static input tensors of the program captured for
+        ``batch_size``, by input name.  A call given one of them as that
+        input copies nothing: write a large input (a KV cache) there
+        once and pass it on every call."""
+        prog = self.ensure_compiled(batch_size)
+        if not isinstance(prog, CapturedProgram):
+            raise ValueError("static input tensors belong to programs "
+                             "captured on a CUDA device; this executable "
+                             f"runs on {self.device}")
+        return dict(prog.static_inputs)
+
+    # -- execution -----------------------------------------------------
+    def _pick_bucket(self, batch: int) -> int:
+        for b in self.options.batch_buckets:
+            if b >= batch:
+                return b
+        return batch
+
+    def _run(self, prog: Program, args: List[torch.Tensor],
+             bucket: int) -> Dict[str, torch.Tensor]:
+        """Run the ``bucket``-batch program on ``args`` (batch <= bucket):
+        padded with zero rows and the outputs cut back, keyed by the
+        graph's output names."""
+        batch = args[0].shape[0]
+        env = dict(zip(self.graph.inputs, args))
+        with torch.inference_mode():
+            if isinstance(prog, CapturedProgram):
+                return prog(env, rows=batch)
+            if bucket != batch:
+                env = {n: torch.cat([a, a.new_zeros((bucket - batch,)
+                                                    + a.shape[1:])])
+                       for n, a in env.items()}
+            out = prog(env)
+        if bucket != batch:
+            out = {k: v[:batch] for k, v in out.items()}
+        return out
 
     def __call__(self, *pos, **inputs):
         args = self._gather_inputs(pos, inputs)
-        prog = self.ensure_compiled(args[0].shape[0])
-        with torch.inference_mode():
-            out = prog(dict(zip(self.graph.inputs, args)))
+        bucket = self._pick_bucket(args[0].shape[0])
+        out = self._run(self.ensure_compiled(bucket), args, bucket)
         # Passes may rename output tensors (e.g. a fused terminal
         # activation); the public contract keys outputs by the
         # signature's names, identically across targets.
         return {pub: out[opt] for pub, opt in
                 zip(self.source.output_names, self.graph.outputs)}
 
+    # -- introspection -------------------------------------------------
+    def cache_info(self) -> dict:
+        """Executable-cache counters (zeros when the disk cache is off),
+        and what each lookup found: ``graph`` (the pipeline's output)
+        and ``programs`` by batch size, ``"hit"`` or ``"miss"``."""
+        if self._disk is None:
+            return super().cache_info()
+        word = lambda hit: "hit" if hit else "miss"
+        return dict(self._disk.stats(),
+                    graph=word(self._disk_hits.get("graph")),
+                    programs={b: word(h) for b, h in self._disk_hits.items()
+                              if b != "graph"})
+
     def cost_summary(self):
-        """Compile-time facts: pass reports, memory plan and the
-        per-batch kernel selections."""
+        """Compile-time facts: pass reports, memory plan, the per-batch
+        kernel selections and programs (captured or eager; capture time
+        and graph pool bytes)."""
         out = {
             "target": self.options.target,
             "device": str(self.device),
@@ -238,11 +462,20 @@ class JitExecutable(GraphExecutable):
                 batch: [c.to_dict() for c in sel.values()]
                 for batch, sel in sorted(self._selections.items())
             }
+        programs = {}
+        for batch, prog in sorted(self._programs.items()):
+            if isinstance(prog, CapturedProgram):
+                programs[batch] = {
+                    "captured": True, "capture_ms": prog.capture_s * 1e3,
+                    "pool_bytes": prog.pool_bytes}
+            else:
+                programs[batch] = {"captured": False}
+        if programs:
+            out["programs"] = programs
         if self.graph.quant:
             # The quantize pass's record: the mode and per-mode site counts.
             out["quant"] = dict(self.graph.quant)
         return out
-
 
 @register_target("jit")
 def _build_jit(graph: Graph, options: CompileOptions) -> Executable:

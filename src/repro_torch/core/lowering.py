@@ -43,6 +43,7 @@ from ..kernels import qmath
 from ..kernels.decode_attention import ref as attn_ref
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.fast_act import ops as fast_act_ops
+from ..kernels.fused_matmul import kernel as fm_kernel
 from ..kernels.fused_matmul import ref as fm_ref
 from ..kernels.fused_matmul.ops import fused_matmul, fused_matmul_q8
 
@@ -70,13 +71,18 @@ class LoweringContext:
     """Static compile-time state threaded through every lowering rule.
 
     ``params`` are device tensors (:func:`device_params`).  ``batch_size``
-    is the batch the program is specialized for.
+    is the batch the program is specialized for.  ``counters`` are the
+    split counters its dense kernels reduce K splits through: each
+    context holds its own, so a CUDA graph captured from the program
+    reads memory the program holds.
     """
 
     params: Mapping[str, torch.Tensor]
     batch_size: int = 1
     precision: str = "exact"
     target: Optional[str] = None
+    counters: fm_kernel.SplitCounters = dataclasses.field(
+        default_factory=fm_kernel.SplitCounters, compare=False, repr=False)
 
     def act(self, fn: str, x: torch.Tensor, attrs: Dict) -> torch.Tensor:
         """Activation ``fn`` under the context's precision.  On the
@@ -174,7 +180,7 @@ def _rule_token(rule) -> str:
 def lowering_fingerprint(target: Optional[str] = None) -> str:
     """Digest of the rule set effective under ``target``: registering,
     removing or editing a rule changes it.  Deterministic across
-    processes (the executable cache of ROADMAP A.7 will key on it)."""
+    processes (the executable cache keys on it)."""
     h = hashlib.sha256()
     for (op, t), rule in sorted(_RULES.items(),
                                 key=lambda kv: (kv[0][0], kv[0][1] or "")):
@@ -264,7 +270,9 @@ def quant_params(graph: Graph, params: Mapping[str, torch.Tensor]
 class LoweredGraph:
     """One specialized program: the graph's rules resolved in
     topological order under a fixed context.  Calling it maps input
-    tensors (by graph input name) to the graph's output tensors."""
+    tensors (by graph input name) to the graph's output tensors, one
+    eager op at a time; :class:`~repro_torch.core.program.CapturedProgram`
+    records one call of it as a CUDA graph."""
 
     def __init__(self, graph: Graph, ctx: LoweringContext) -> None:
         self.ctx = ctx
@@ -304,6 +312,7 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
         fn = None  # handled below (two-pass, not fusable in-kernel)
     kw = dict(fn=fn, fast=ctx.precision == "fast", w_layout=layout,
               attrs=node.epilogue_attrs)
+    kernel_kw = dict(kw, counters=ctx.counters)
     x = ins[0]
     qm = node.attrs.get("quant.mode")
     if qm == "int8":
@@ -311,7 +320,8 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
         deq = ctx.params[quant_key(node, "deq")]
         if use_kernel:
             y = fused_matmul_q8(x.contiguous(), wq, deq, b, scale, offset,
-                                x_scale=node.attrs["quant.x_scale"], **kw)
+                                x_scale=node.attrs["quant.x_scale"],
+                                **kernel_kw)
         else:
             xq = qmath.quantize_q8(x, ctx.params[quant_key(node, "x_scale")])
             y = fm_ref.fused_matmul_q8_ref(xq, wq, deq, b, scale, offset, **kw)
@@ -319,7 +329,8 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
         if qm == "bf16":
             x, w = x.to(torch.bfloat16), ctx.params[quant_key(node, "w")]
         if use_kernel:
-            y = fused_matmul(x.contiguous(), w, b, scale, offset, **kw)
+            y = fused_matmul(x.contiguous(), w, b, scale, offset,
+                             **kernel_kw)
         else:
             y = fm_ref.fused_matmul_ref(x.float(), w.float(), b, scale,
                                         offset, **kw)

@@ -71,6 +71,15 @@ class KernelChoice:
     def to_dict(self) -> Dict[str, object]:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, object]) -> "KernelChoice":
+        """Invert :meth:`to_dict` through JSON (``block`` comes back a
+        list)."""
+        d = dict(d)
+        if d.get("block") is not None:
+            d["block"] = tuple(d["block"])
+        return cls(**d)
+
 
 def check_kernel_device(device) -> None:
     """Raise unless the CUDA kernels can run on ``device``: the CPU (the

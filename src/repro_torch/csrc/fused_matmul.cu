@@ -148,7 +148,7 @@ __device__ __forceinline__ float sum_splits(const float* part, size_t e,
 // ---------------------------------------------------------------------------
 template <typename T, bool OI, int MM>
 __global__ void __launch_bounds__(kGemvThreads)
-    gemv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    fm_gemv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ scale,
                 const float* __restrict__ offset, float* __restrict__ out,
                 int M, int K, int N, int act, float alpha, int fast,
@@ -292,7 +292,7 @@ __device__ __forceinline__ void load_stage(T* xs, T* ws, const T* x,
 
 template <typename T, bool OI>
 __global__ void __launch_bounds__(kTiledThreads)
-    tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    fm_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const float* __restrict__ bias,
                  const float* __restrict__ scale,
                  const float* __restrict__ offset, float* __restrict__ out,
@@ -437,11 +437,11 @@ void launch_gemv(const T* x, const T* w, bool oi, const Args& a,
   const int cols = oi ? kGemvWarps : 32;
   const dim3 grid((a.N + cols - 1) / cols, a.splits);
   if (oi) {
-    gemv_kernel<T, true, MM><<<grid, kGemvThreads, 0, s>>>(
+    fm_gemv_kernel<T, true, MM><<<grid, kGemvThreads, 0, s>>>(
         x, w, a.bias, a.scale, a.offset, a.out, a.M, a.K, a.N, a.act, a.alpha,
         a.fast, a.splits, a.ksplit, a.part, a.counters);
   } else {
-    gemv_kernel<T, false, MM><<<grid, kGemvThreads, 0, s>>>(
+    fm_gemv_kernel<T, false, MM><<<grid, kGemvThreads, 0, s>>>(
         x, w, a.bias, a.scale, a.offset, a.out, a.M, a.K, a.N, a.act, a.alpha,
         a.fast, a.splits, a.ksplit, a.part, a.counters);
   }
@@ -467,11 +467,11 @@ void launch(const void* xv, const void* wv, bool oi, int path,
                     reinterpret_cast<uintptr_t>(w) % al == 0;
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, a.splits);
   if (oi) {
-    tiled_kernel<T, true><<<grid, kTiledThreads, 0, s>>>(
+    fm_tiled_kernel<T, true><<<grid, kTiledThreads, 0, s>>>(
         x, w, a.bias, a.scale, a.offset, a.out, a.M, a.K, a.N, a.act, a.alpha,
         a.fast, a.splits, a.ksplit, a.part, a.counters, x_al, w_al);
   } else {
-    tiled_kernel<T, false><<<grid, kTiledThreads, 0, s>>>(
+    fm_tiled_kernel<T, false><<<grid, kTiledThreads, 0, s>>>(
         x, w, a.bias, a.scale, a.offset, a.out, a.M, a.K, a.N, a.act, a.alpha,
         a.fast, a.splits, a.ksplit, a.part, a.counters, x_al, w_al);
   }

@@ -289,7 +289,7 @@ __device__ __forceinline__ void gemv_finish(int (&acc)[MM], const Args& a,
 
 template <int MM>
 __global__ void __launch_bounds__(kGemvMaxThreads)
-    gemv_oi_kernel(const Args a) {
+    q8_gemv_oi_kernel(const Args a) {
   __shared__ __align__(16) int xs[kGemvXBytes / 4];
   __shared__ int flag;
   const int lanes = a.lanes;
@@ -336,7 +336,8 @@ __global__ void __launch_bounds__(kGemvMaxThreads)
 }
 
 template <int MM>
-__global__ void __launch_bounds__(kGemvIoThreads) gemv_io_kernel(const Args a) {
+__global__ void __launch_bounds__(kGemvIoThreads)
+    q8_gemv_io_kernel(const Args a) {
   __shared__ __align__(16) int xs[kGemvXBytes / 4];
   __shared__ int red[kGemvIoWarps * MM * 32];
   __shared__ int flag;
@@ -388,7 +389,7 @@ __global__ void __launch_bounds__(kGemvIoThreads) gemv_io_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 template <int BM, int BN, int WM, int KG, bool OI>
 __global__ void __launch_bounds__(32 * kMmaWarps * KG)
-    tiled_kernel(const Args a) {
+    q8_tiled_kernel(const Args a) {
   constexpr int kTiledThreads = 32 * kMmaWarps * KG;
   constexpr int WN = kMmaWarps / WM;
   constexpr int WTM = BM / WM, WTN = BN / WN;  // one warp's output tile
@@ -600,9 +601,9 @@ void launch_gemv(const Args& a, bool oi, int threads, cudaStream_t s) {
   const int cols = oi ? threads / a.lanes : 32;
   const dim3 grid((a.N + cols - 1) / cols, a.splits);
   if (oi) {
-    gemv_oi_kernel<MM><<<grid, threads, 0, s>>>(a);
+    q8_gemv_oi_kernel<MM><<<grid, threads, 0, s>>>(a);
   } else {
-    gemv_io_kernel<MM><<<grid, kGemvIoThreads, 0, s>>>(a);
+    q8_gemv_io_kernel<MM><<<grid, kGemvIoThreads, 0, s>>>(a);
   }
 }
 
@@ -611,9 +612,9 @@ void launch_tiled(const Args& a, bool oi, cudaStream_t s) {
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, a.splits);
   constexpr int threads = 32 * kMmaWarps * KG;
   if (oi) {
-    tiled_kernel<BM, BN, WM, KG, true><<<grid, threads, 0, s>>>(a);
+    q8_tiled_kernel<BM, BN, WM, KG, true><<<grid, threads, 0, s>>>(a);
   } else {
-    tiled_kernel<BM, BN, WM, KG, false><<<grid, threads, 0, s>>>(a);
+    q8_tiled_kernel<BM, BN, WM, KG, false><<<grid, threads, 0, s>>>(a);
   }
 }
 

@@ -72,6 +72,8 @@ def decode_attention(
     return out
 
 
-#: Calls that launched the kernels since the count was last set
-#: (chip_smoke.py resets it).
+#: Calls that launched the kernels, eagerly or into a CUDA graph under
+#: capture, since the count was last set (chip_smoke.py resets it).  A
+#: graph's replay passes through no wrapper; chip_smoke.py counts replays
+#: from the profiler's kernel names.
 decode_attention.launches = 0

@@ -43,7 +43,10 @@ def fast_act(x: torch.Tensor, fn: str) -> torch.Tensor:
     return y
 
 
-#: Kernel launches since the count was last set (chip_smoke.py resets it).
+#: Calls that launched the kernel, eagerly or into a CUDA graph under
+#: capture, since the count was last set (chip_smoke.py resets it).  A
+#: graph's replay passes through no wrapper; chip_smoke.py counts replays
+#: from the profiler's kernel names.
 fast_act.launches = 0
 
 

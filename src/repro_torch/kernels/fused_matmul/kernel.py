@@ -15,7 +15,7 @@ launches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -202,17 +202,28 @@ def plan_q8(m: int, k: int, n: int, *, w_layout: str = "io") -> Plan:
                 q8_tiled_smem_bytes(bm, bn), threads=threads, kstep=Q8_BK)
 
 
-#: Per device: the split counters (int32 zeros; each reducing block sets
-#: its own back to 0), grown as larger plans need more.
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+class SplitCounters:
+    """The split counters of one owner, per device: int32 zeros (each
+    reducing block sets its own back to 0), grown as larger plans need
+    more.  Each prepared program holds its own (``LoweringContext.
+    counters``), so two programs running at once on two streams (a
+    bucket captured in the background while another replays) never
+    share one.  An outgrown buffer is kept, never freed: a CUDA graph
+    captured with it keeps reading its address at every replay."""
+
+    def __init__(self) -> None:
+        self._bufs: Dict[torch.device, List[torch.Tensor]] = {}
+
+    def get(self, device: torch.device, tiles: int) -> torch.Tensor:
+        bufs = self._bufs.setdefault(device, [])
+        if not bufs or bufs[-1].numel() < tiles:
+            bufs.append(torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                                    device=device))
+        return bufs[-1]
 
 
-def _counters(device: torch.device, tiles: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
+#: The counters of wrapper calls made outside a prepared program.
+SHARED_COUNTERS = SplitCounters()
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -221,22 +232,22 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def launch(x: torch.Tensor, w: torch.Tensor, bias, scale, offset,
            out: torch.Tensor, *, fn: Optional[str], alpha: float,
-           fast: bool, w_layout: str) -> None:
+           fast: bool, w_layout: str, counters: SplitCounters) -> None:
     """out(M, N) = epilogue(x(M, K) . W) on the current stream of
     ``x``'s device, as :func:`plan` lays it out: one launch, its K-split
-    partials in a scratch tensor.  The wrapper has checked devices,
-    dtypes, shapes and contiguity."""
+    partials in a scratch tensor, reduced through ``counters``.  The
+    wrapper has checked devices, dtypes, shapes and contiguity."""
     from .. import build
 
     lib = build.load()
     m, k = x.shape
     n = out.shape[1]
     p = plan(m, k, n, w_layout=w_layout, itemsize=x.element_size())
-    part = counters = None
+    part = tile_counters = None
     if p.splits > 1:
         part = torch.empty(p.splits * m * n, dtype=torch.float32,
                            device=x.device)
-        counters = _counters(x.device, p.tiles)
+        tile_counters = counters.get(x.device, p.tiles)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.repro_fused_matmul(
@@ -244,14 +255,14 @@ def launch(x: torch.Tensor, w: torch.Tensor, bias, scale, offset,
             out.data_ptr(), m, k, n, int(w_layout == "oi"),
             int(x.dtype == torch.bfloat16), ACT_CODES[fn], float(alpha),
             int(bool(fast)), int(p.path == "tiled"), p.splits, p.ksplit,
-            _ptr(part), _ptr(counters), stream)
+            _ptr(part), _ptr(tile_counters), stream)
     build.check(lib, rc, "fused_matmul")
 
 
 def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
               scale, offset, out: torch.Tensor, *, x_scale: float,
               fn: Optional[str], alpha: float, fast: bool,
-              w_layout: str) -> None:
+              w_layout: str, counters: SplitCounters) -> None:
     """out(M, N) = epilogue(deq * (q(x)(M, K) . Wq)) on the current stream
     of ``x``'s device, x quantized with ``x_scale`` as it is loaded, as
     :func:`plan_q8` lays it out: one launch, its K-split int32 partials in
@@ -263,11 +274,11 @@ def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
     m, k = x.shape
     n = out.shape[1]
     p = plan_q8(m, k, n, w_layout=w_layout)
-    part = counters = None
+    part = tile_counters = None
     if p.splits > 1:
         part = torch.empty(p.splits * m * n, dtype=torch.int32,
                            device=x.device)
-        counters = _counters(x.device, p.tiles)
+        tile_counters = counters.get(x.device, p.tiles)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.repro_fused_matmul_q8(
@@ -276,5 +287,6 @@ def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
             int(w_layout == "oi"), float(x_scale), ACT_CODES[fn],
             float(alpha), int(bool(fast)), int(p.path == "tiled"),
             p.block[0] if p.path == "tiled" else 0, p.block[1], p.threads,
-            p.lanes, p.splits, p.ksplit, _ptr(part), _ptr(counters), stream)
+            p.lanes, p.splits, p.ksplit, _ptr(part), _ptr(tile_counters),
+            stream)
     build.check(lib, rc, "fused_matmul_q8")

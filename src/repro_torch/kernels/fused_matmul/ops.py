@@ -57,12 +57,15 @@ def fused_matmul(
     fast: bool = False,
     w_layout: str = "io",
     attrs: Optional[dict] = None,
+    counters: Optional[kernel.SplitCounters] = None,
 ) -> torch.Tensor:
     """y = affine(act(x @ W + bias)) with W in 'io' (K,N) or 'oi' (N,K).
 
     x may be any rank; the contraction is over its last axis.  Operands
     are f32 or bf16 (x and W alike), bias/scale/offset f32 (N,); the
-    output is f32.
+    output is f32.  ``counters`` are the split counters of the program
+    that calls (``LoweringContext.counters``); a direct call uses
+    ``kernel.SHARED_COUNTERS``.
     """
     n = _check_common("fused_matmul", x, w, scale, offset, fn, w_layout)
     attrs = attrs or {}
@@ -93,12 +96,16 @@ def fused_matmul(
     if m and n:
         kernel.launch(x2, w, bias, scale, offset, out, fn=fn,
                       alpha=attrs.get("alpha", 0.01), fast=fast,
-                      w_layout=w_layout)
+                      w_layout=w_layout,
+                      counters=counters or kernel.SHARED_COUNTERS)
         fused_matmul.launches += 1
     return out.reshape(shape[:-1] + (n,))
 
 
-#: Kernel launches since the count was last set (chip_smoke.py resets it).
+#: Calls that launched the kernel, eagerly or into a CUDA graph under
+#: capture, since the count was last set (chip_smoke.py resets it).  A
+#: graph's replay passes through no wrapper; chip_smoke.py counts replays
+#: from the profiler's kernel names.
 fused_matmul.launches = 0
 
 
@@ -115,6 +122,7 @@ def fused_matmul_q8(
     fast: bool = False,
     w_layout: str = "io",
     attrs: Optional[dict] = None,
+    counters: Optional[kernel.SplitCounters] = None,
 ) -> torch.Tensor:
     """Int8 fused matmul: y = affine(act(deq * (q(x) @ Wq) + bias)) with
     q(x) = ``qmath.quantize_q8(x, x_scale)`` and Wq int8 in 'io' (K,N) or
@@ -123,7 +131,8 @@ def fused_matmul_q8(
     x is f32 of any rank (contracted over its last axis), ``x_scale`` a
     float (rounded to f32, as the reference rounds it); deq/bias/scale/
     offset f32 (N,); the output is f32.  The kernel quantizes x as it
-    loads it, so a CUDA call is one launch.
+    loads it, so a CUDA call is one launch.  ``counters`` as for
+    :func:`fused_matmul`.
     """
     n = _check_common("fused_matmul_q8", x, wq, scale, offset, fn, w_layout)
     attrs = attrs or {}
@@ -163,10 +172,14 @@ def fused_matmul_q8(
         kernel.launch_q8(x2, wq, deq, bias, scale, offset, out,
                          x_scale=float(np.float32(x_scale)), fn=fn,
                          alpha=attrs.get("alpha", 0.01), fast=fast,
-                         w_layout=w_layout)
+                         w_layout=w_layout,
+                         counters=counters or kernel.SHARED_COUNTERS)
         fused_matmul_q8.launches += 1
     return out.reshape(shape[:-1] + (n,))
 
 
-#: Kernel launches since the count was last set (chip_smoke.py resets it).
+#: Calls that launched the kernel, eagerly or into a CUDA graph under
+#: capture, since the count was last set (chip_smoke.py resets it).  A
+#: graph's replay passes through no wrapper; chip_smoke.py counts replays
+#: from the profiler's kernel names.
 fused_matmul_q8.launches = 0

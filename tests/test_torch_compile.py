@@ -160,10 +160,7 @@ def test_cuda_device_without_cuda_raises():
     ("autotune", "full", "A.8"),
     ("mesh", "data=4", "A.14"),
     ("sharding_rules", (("batch", "data"),), "A.14"),
-    ("batch_buckets", (8,), "A.11"),
-    ("buckets", "policy", "A.11"),
     ("capture", "bundle", "A.10"),
-    ("cache_dir", "cache", "A.7"),
 ])
 def test_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
