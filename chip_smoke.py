@@ -45,7 +45,31 @@ JAX package.  Every phase prints one JSON line (also written to
                  process that takes every program's entry from the
                  executable cache, runs no pass pipeline and gives the
                  first process's outputs bit for bit.
-8. ``time``      medians of interpret/jit/cuda per model and batch (host
+8. ``pool``      one graph pool per executable: VGG19 exact at 8 batch
+                 sizes between 129 and 256, the largest first: the
+                 growth of ``memory_reserved`` within the batch-256
+                 pool plus the static inputs and outputs (+10%), beside
+                 what 8 private pools take; replays in reverse and
+                 shuffled order bit-equal to the eager walk; the same in
+                 ascending order, and in a child process whose allocator
+                 rounds requests to half powers of two (reported); the pool
+                 bytes of paths 1, A and B.
+9. ``autotune``  every tactic grid point of B1, B2 and B4 against its
+                 plain version at the main path's shapes; C-HTWK and
+                 VGG19 at exact and int8 (batch 1 and 256) and path B's
+                 decode node (batch 8) with ``autotune="full"``: each
+                 node's candidates in device µs and its winner, each
+                 graph decision's, every tuned program within its path's
+                 bound of ``interpret`` and bit-equal to its eager walk,
+                 tuned against heuristic time; a second process with
+                 ``autotune="cached"`` measures nothing and matches bit
+                 for bit.
+10. ``mixed``    ``precision="mixed"`` for C-HTWK, C-BH and VGG19 (batch 1
+                 and 256): per-site candidates, errors and winners, each
+                 within budget, the median example within the path-A
+                 budget of ``interpret``; seeded all-int8 and all-f32
+                 winners bit-equal to the int8 and f32 programs.
+11. ``time``     medians of interpret/jit/cuda per model and batch (host
                  clock around a synchronised call), captured and eager,
                  with the device's busy time per inference, exact and
                  fast (``torch.profiler``, which sees the kernels inside
@@ -100,6 +124,11 @@ DECODE_ATOL = 1e-5
 QUANT_BUDGET = 0.05
 BF16_ATOL = 1e-4                 # cuda bf16 vs jit bf16: f32 sums reordered
 BATCHES = (1, 256)
+#: The order programs are prepared in: the largest batch first, the
+#: layout of an executable's graph pool, so that no program is captured
+#: again (a larger batch after a smaller one recaptures it, which the
+#: wrappers would count).
+PREPARE = tuple(sorted(BATCHES, reverse=True))
 #: The Table-1 graphs with dense nodes: the int8 path's graphs.
 INT8_MODELS = ("C-HTWK", "C-BH", "VGG19")
 #: qwen2.5-14b's attention widths (src/repro/configs/qwen2_5_14b.py) over
@@ -274,19 +303,28 @@ def device_ms(fn, iters: int = 20):
 def profiled_call(fn):
     """``fn()`` once under ``torch.profiler``, synchronised: its result
     and the launches on the card of each wrapper's kernels, counted from
-    the kernel names (KERNEL_SYMBOLS), inside graph replays too."""
+    the kernel names (KERNEL_SYMBOLS), inside graph replays too.  A
+    profile that recorded no kernel at all is taken again: now and then
+    one comes back empty, or with the call's copies and none of its
+    replay's kernels, while the outputs show the replay ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    counts = {k: 0 for k in KERNELS}
-    for evt in prof.key_averages():
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue
-        for kernel, symbols in KERNEL_SYMBOLS.items():
-            if any(sym in evt.key for sym in symbols):
-                counts[kernel] += evt.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        counts = {k: 0 for k in KERNELS}
+        kernels = 0
+        for evt in prof.key_averages():
+            if "CUDA" not in str(getattr(evt, "device_type", "")):
+                continue
+            if not evt.key.startswith(("Memcpy", "Memset")):
+                kernels += evt.count
+            for kernel, symbols in KERNEL_SYMBOLS.items():
+                if any(sym in evt.key for sym in symbols):
+                    counts[kernel] += evt.count
+        if kernels:
+            break
     return out, counts
 
 
@@ -727,7 +765,7 @@ def phase_main(torch, np):
     reset_counts()
     for name in SUITE:
         for prec in ("exact", "fast"):
-            for b in BATCHES:
+            for b in PREPARE:
                 exes[name, "cuda", prec].ensure_compiled(b)
     torch.cuda.synchronize()
     prepared = read_counts()
@@ -828,12 +866,12 @@ def phase_path_a(torch, np, exes, inputs):
         # programs prepared, then each called once under the profiler.
         for prec, models in modes.items():
             for name in models:
-                for b in BATCHES:
+                for b in PREPARE:
                     exes[name, "jit", prec].ensure_compiled(b)
         reset_counts()
         for prec, models in modes.items():
             for name in models:
-                for b in BATCHES:
+                for b in PREPARE:
                     exes[name, "cuda", prec].ensure_compiled(b)
         torch.cuda.synchronize()
         prepared = read_counts()
@@ -949,7 +987,7 @@ def phase_path_b(torch, np):
     reset_counts()
     cuda_feeds = {}
     for prec in ("exact", "fast"):
-        for b in DECODE_LENGTHS:
+        for b in sorted(DECODE_LENGTHS, reverse=True):     # largest first
             bufs = exes["cuda", prec].input_buffers(b)
             for n in ("k", "v"):
                 bufs[n].copy_(feeds[b][n])
@@ -1072,11 +1110,12 @@ def phase_program(torch, np, cases):
             _, prof = profiled_call(lambda: exe(**f1))
             batch = next(iter(out1.values())).shape[0]
             info = exe.cost_summary()["programs"][batch]
+            pool_bytes = exe.ensure_compiled(batch).pool_bytes
             ok = (info["captured"] and eq1 and eq2 and fresh and differ
                   and prof == want)
             if not ok:
                 failures.append(label)
-            pool_total += info.get("pool_bytes", 0)
+            pool_total += pool_bytes
             capture_total += info.get("capture_ms", 0.0)
             emit({"phase": "program", "program": label,
                   "bit_equal_to_eager": [eq1, eq2],
@@ -1084,12 +1123,13 @@ def phase_program(torch, np, cases):
                   "inputs_differ_outputs_differ": differ,
                   "replay_launches_profiler": prof, "expected": want,
                   "capture_ms": info.get("capture_ms"),
-                  "pool_bytes": info.get("pool_bytes"),
+                  "pool_bytes_added": pool_bytes,
                   "cudnn_deterministic": deterministic, "ok": ok})
     finally:
         torch.backends.cudnn.deterministic = prev
     emit({"phase": "program", "programs": len(cases),
-          "pool_bytes_total": pool_total, "capture_ms_total": capture_total,
+          "pool_bytes_added_total": pool_total,
+          "capture_ms_total": capture_total,
           "failures": failures})
     return [f"program phase failed: {failures}"] if failures else []
 
@@ -1315,6 +1355,554 @@ def phase_cache(torch, np, exes, inputs):
         torch.backends.cudnn.deterministic = prev
         shutil.rmtree(work, ignore_errors=True)
     return [f"cache phase failed: {failures}"] if failures else []
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the executable's one graph pool, the autotuner, mixed precision
+# ---------------------------------------------------------------------------
+#: The pool phase: VGG19 exact at 8 batch sizes between 129 and 256,
+#: arriving in three orders (the largest first, ascending, shuffled);
+#: the bound's slack.
+POOL_BATCHES = (256, 129, 200, 150, 241, 176, 137, 222)
+POOL_ORDERS = (("largest first", POOL_BATCHES),
+               ("ascending", tuple(sorted(POOL_BATCHES))),
+               ("shuffled", (150, 222, 129, 256, 176, 137, 241, 200)))
+POOL_SLACK = 0.10
+#: What the 76 programs of paths 1, A and B took when each held a private
+#: pool (PERF.md §6, the captured programs' first measurement).
+PRIVATE_POOLS_BYTES = 6.98e9
+
+
+def _reserved(torch) -> int:
+    """memory_reserved with the allocator's free cache returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def phase_pool(torch, np, all_exes):
+    """One graph pool per executable: VGG19 exact at POOL_BATCHES, no
+    buckets, the batches arriving in each of POOL_ORDERS.  In every
+    order the growth of memory_reserved over the 8 calls stays within
+    the batch-256 program's pool plus the 8 programs' static inputs and
+    outputs, plus POOL_SLACK (a batch larger than every captured one
+    lays the pool out again, largest first); beside it the sum 8 private
+    pools take (each program captured again alone, as before the pool
+    was shared).  Then replays in reverse and in shuffled order, each
+    bit-equal to its eager walk and to the program's first answer,
+    which calls to the others and the pool's relayouts left unchanged.
+    Last, the pool bytes of every executable of paths 1, A and B."""
+    import random
+    import repro_torch
+    from repro_torch.core.program import CapturedProgram
+    from repro_torch.table1_models import SUITE
+
+    g = SUITE["VGG19"]()
+    rng = np.random.default_rng(5)
+    feeds = {b: rng.standard_normal((b,) + tuple(g.inputs["input"].shape))
+             .astype(np.float32) for b in POOL_BATCHES}
+    failures, private = [], None
+    for order, batches in POOL_ORDERS:
+        exe = repro_torch.compile(g, target="cuda", device=DEVICE)
+        before = _reserved(torch)
+        t0 = time.perf_counter()
+        first = {b: exe(input=feeds[b]) for b in batches}
+        torch.cuda.synchronize()
+        calls_s = time.perf_counter() - t0
+        growth = _reserved(torch) - before
+        progs = {b: exe.ensure_compiled(b) for b in batches}
+        statics = sum(t.numel() * t.element_size() for p in progs.values()
+                      for t in list(p.static_inputs.values())
+                      + list(p.static_outputs.values()))
+        pool = exe.cost_summary()["graph_pool_bytes"]
+        bound = (progs[256].pool_bytes + statics) * (1 + POOL_SLACK)
+        if private is None:
+            # What private pools take: each program captured again
+            # alone, from its own eager walk.
+            private = 0
+            specs = {n: (tuple(s.shape), torch.float32)
+                     for n, s in exe.graph.inputs.items()}
+            for b in batches:
+                alone = CapturedProgram(progs[b].eager, specs,
+                                        torch.device(DEVICE))
+                private += alone.pool_bytes
+                alone.release()
+                del alone
+            _reserved(torch)
+        replays_ok = True
+        shuffled = list(batches)
+        random.Random(7).shuffle(shuffled)
+        for b in list(reversed(batches)) + shuffled:
+            out = exe(input=feeds[b])
+            replays_ok &= outputs_equal(out, eager_call(
+                exe, {"input": feeds[b]}))
+            replays_ok &= outputs_equal(out, first[b])
+        ok = replays_ok and growth <= bound
+        if not ok:
+            failures.append([order, growth, bound, replays_ok])
+        emit({"phase": "pool", "model": "VGG19", "precision": "exact",
+              "order_name": order, "order": list(batches),
+              "reserved_growth_bytes": growth, "graph_pool_bytes": pool,
+              "batch256_pool_bytes": progs[256].pool_bytes,
+              "static_in_out_bytes": statics, "bound_bytes": bound,
+              "private_pools_bytes": private, "calls_s": calls_s,
+              "replays_bit_equal_any_order": replays_ok, "ok": ok})
+        del exe, progs, first
+        _reserved(torch)
+    seen, total, programs = set(), 0, 0
+    for exe in all_exes:
+        if id(exe) in seen or not hasattr(exe, "_programs"):
+            continue
+        seen.add(id(exe))
+        total += exe.cost_summary().get("graph_pool_bytes", 0)
+        programs += sum(isinstance(p, CapturedProgram)
+                        for p in exe._programs.values())
+    emit({"phase": "pool", "paths": "1, A, B",
+          "captured_programs": programs, "graph_pool_bytes_total": total,
+          "private_pools_bytes_before": PRIVATE_POOLS_BYTES})
+    return [f"pool phase failed: {failures}"] if failures else []
+
+
+#: The autotune phase: models and precisions tuned with autotune="full"
+#: at BATCHES, path B's decode node at batch 8, and the budget of each
+#: compile (measurement ends well inside the script's time limit).
+TUNE_COMPILES = (("C-HTWK", "exact"), ("C-HTWK", "int8"),
+                 ("VGG19", "exact"), ("VGG19", "int8"))
+TUNE_BUDGET_MS = 60_000.0
+TUNE_DECODE_BATCH = 8
+
+TUNE_SCRIPT = """
+import json, sys
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {src!r})
+import numpy as np, torch
+import chip_smoke as cs
+import repro_torch
+from repro_torch.table1_models import SUITE
+torch.backends.cudnn.deterministic = True
+data = np.load({inputs!r})
+report, outs = {{}}, {{}}
+for name, prec in {compiles!r}:
+    exe = repro_torch.compile(SUITE[name](), target="cuda", precision=prec,
+                              device={device!r}, autotune="cached",
+                              cache_dir={cache!r})
+    for b in {batches!r}:
+        out = exe(input=data[f"{{name}} {{b}}"])
+        for k, v in out.items():
+            outs[f"{{name}} {{prec}} {{b}} {{k}}"] = v.cpu().numpy()
+        report[f"{{name}} {{prec}} {{b}}"] = (
+            exe.cost_summary()["autotune"][b]["measured_nodes"])
+    report[f"{{name}} {{prec}} decisions"] = [
+        r["source"] for r in exe.cost_summary()["graph_decisions"]["sites"]
+        if r["source"] == "measured"]
+cs.DEVICE = {device!r}
+cs.DECODE = {decode!r}
+cs.DECODE_LENGTHS = {lengths!r}
+exe = repro_torch.compile(cs.decode_graph(repro_torch), target="cuda",
+                          device={device!r}, autotune="cached",
+                          cache_dir={cache!r})
+b = {dbatch!r}
+q, k, v, lens = cs.decode_inputs(torch, b, cs.DECODE["h"], cs.DECODE["hkv"],
+                                 cs.DECODE["d"], cs.DECODE["s"],
+                                 cs.DECODE_LENGTHS[b], 40)
+out = exe(q=q, k=k, v=v, lengths=lens)
+for key, val in out.items():
+    outs[f"decode {{b}} {{key}}"] = val.cpu().numpy()
+report[f"decode {{b}}"] = exe.cost_summary()["autotune"][b]["measured_nodes"]
+np.savez({outputs!r}, **outs)
+print(json.dumps(report))
+"""
+
+
+def grid_checks(torch, np):
+    """Every grid point of the tuned kernels against its plain version at
+    the main path's shapes, under the check phase's bounds: B1 (f32 and
+    bf16, both layouts, no epilogue and relu + affine) within MATMUL_ATOL
+    (x sqrt(K/256) above K=256); B2 (both layouts) bit-equal for
+    none/relu/leaky_relu/affine; B4 (path B at batch 1 and 8, exact and
+    fast) within DECODE_ATOL of its tiled form."""
+    from repro_torch.kernels import qmath
+    from repro_torch.kernels.decode_attention import ref as attn_ref
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.fused_matmul import ref as fm_ref
+    from repro_torch.kernels.fused_matmul.ops import fused_matmul, fused_matmul_q8
+    from repro_torch.autotune.tactics import enumerate_tactics
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(13)
+    rows, failures = {}, []
+    epis = [e for e in EPILOGUES if e[0] in Q8_BIT_EQUAL]
+    for k, n in MAIN_DENSE_KN:
+        for m in BATCHES:
+            atol = MATMUL_ATOL * max(1.0, (k / 256) ** 0.5)
+            x_np = rng.standard_normal((m, k)).astype(np.float32)
+            w_np = rng.standard_normal((k, n)).astype(np.float32)
+            x = torch.from_numpy(x_np).to(dev)
+            vec = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+            bias, scale = vec(rng.standard_normal(n)), vec(rng.uniform(0.5, 1.5, n))
+            offset = vec(rng.standard_normal(n))
+            xs = qmath.tensor_scale(float(np.abs(x_np).max()) * 0.8)
+            xq = qmath.quantize_q8(x, xs)
+            for layout in ("io", "oi"):
+                w = torch.from_numpy(w_np if layout == "io" else
+                                     np.ascontiguousarray(w_np.T)).to(dev)
+                shape = dict(m=m, k=k, n=n, w_layout=layout)
+                for dtype in (torch.float32, torch.bfloat16):
+                    xd, wd = x.to(dtype), w.to(dtype)
+                    grid = enumerate_tactics("cuda.fused_matmul",
+                                             itemsize=xd.element_size(),
+                                             **shape)
+                    for block, p in grid:
+                        for name, fn, fast, attrs, affine in EPILOGUES[:2] + EPILOGUES[-1:]:
+                            s, o = (scale, offset) if affine else (None, None)
+                            got = fused_matmul(xd, wd, bias, s, o, fn=fn,
+                                               w_layout=layout, plan=p)
+                            want = fm_ref.fused_matmul_ref(
+                                xd.float(), wd.float(), bias, s, o, fn=fn,
+                                w_layout=layout)
+                            err = float((got - want).abs().max())
+                            key = "fused_matmul"
+                            rows.setdefault(key, [0, 0.0])
+                            rows[key][0] += 1
+                            rows[key][1] = max(rows[key][1], err)
+                            if err > atol:
+                                failures.append([key, m, k, n, layout,
+                                                 str(dtype), block, name, err])
+                wq, deq = qmath.quantize_weight(
+                    w, xs, qmath.channel_scales(w_np, 1), layout)
+                for block, p in enumerate_tactics("cuda.fused_matmul_q8",
+                                                  **shape):
+                    for name, fn, fast, attrs, affine in epis:
+                        s, o = (scale, offset) if affine else (None, None)
+                        kw = dict(fn=fn, fast=fast, w_layout=layout,
+                                  attrs=attrs)
+                        got = fused_matmul_q8(x, wq, deq, bias, s, o,
+                                              x_scale=xs, plan=p, **kw)
+                        want = fm_ref.fused_matmul_q8_ref(xq, wq, deq, bias,
+                                                          s, o, **kw)
+                        equal = bool(torch.equal(got, want))
+                        key = "fused_matmul_q8"
+                        rows.setdefault(key, [0, 0.0])
+                        rows[key][0] += 1
+                        rows[key][1] = max(rows[key][1],
+                                           float((got - want).abs().max()))
+                        if not equal:
+                            failures.append([key, m, k, n, layout, block,
+                                             name])
+    for b in (1, TUNE_DECODE_BATCH):
+        q, k, v, lens = decode_inputs(torch, b, DECODE["h"], DECODE["hkv"],
+                                      DECODE["d"], DECODE["s"],
+                                      DECODE_LENGTHS[b], 50 + b)
+        for fast in (False, True):
+            want = attn_ref.decode_attention_tiled(q, k, v, lens, fast=fast)
+            for block, (tpc, chunks) in enumerate_tactics(
+                    "cuda.decode_attention", b=b, hkv=DECODE["hkv"],
+                    s=DECODE["s"]):
+                got = decode_attention(q, k, v, lens, fast=fast,
+                                       tiles_per_chunk=tpc)
+                err = float((got - want).abs().max())
+                rows.setdefault("decode_attention", [0, 0.0])
+                rows["decode_attention"][0] += 1
+                rows["decode_attention"][1] = max(
+                    rows["decode_attention"][1], err)
+                if err > DECODE_ATOL:
+                    failures.append(["decode_attention", b, fast, block, err])
+        del q, k, v
+    torch.cuda.synchronize()
+    emit({"phase": "autotune", "grid_checks": {
+        k: {"cases": c, "max_abs_err": e} for k, (c, e) in rows.items()},
+        "bounds": {"fused_matmul": "MATMUL_ATOL * sqrt(K / 256) for K > 256",
+                   "fused_matmul_q8": f"bit-equal for {list(Q8_BIT_EQUAL)}",
+                   "decode_attention": DECODE_ATOL},
+        "failures": failures[:20]})
+    return failures
+
+
+def _tune_rows(exe, batch):
+    """Each tuned node's candidates (device µs) and winner, and each graph
+    decision site's."""
+    sel = exe.cost_summary()["kernel_selection"][batch]
+    nodes = [{"node": c["node"], "kernel": c["kernel"], "source": c["source"],
+              "winner": c["tactic"] or "heuristic", "block": c["block"],
+              "measured_us": c["measured_us"]}
+             for c in sel]
+    return nodes
+
+
+def phase_autotune(torch, np, exes, inputs):
+    """autotune="full" on the card: the grid checks, then C-HTWK and VGG19
+    at exact and int8 (batch 1 and 256) and path B's decode node (batch
+    8), each tuned program held against interpret within its path's
+    bound and bit-equal to its eager walk; tuned against heuristic time;
+    then a second process with autotune="cached" on the same cache
+    directory measures nothing and matches bit for bit."""
+    import shutil
+    import repro_torch
+    from repro_torch.table1_models import SUITE
+
+    problems = []
+    if grid_checks(torch, np):
+        problems.append("autotune grid checks failed")
+    work = os.path.join(ROOT, "build", "chip_smoke_tune")
+    shutil.rmtree(work, ignore_errors=True)
+    cache_dir = os.path.join(work, "entries")
+    os.makedirs(cache_dir)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    failures, outs, feeds = [], {}, {}
+    try:
+        t_all = time.perf_counter()
+        for name, prec in TUNE_COMPILES:
+            t0 = time.perf_counter()
+            exe = repro_torch.compile(
+                SUITE[name](), target="cuda", precision=prec, device=DEVICE,
+                autotune="full", autotune_budget_ms=TUNE_BUDGET_MS,
+                cache_dir=cache_dir, calibrate=4 if prec == "int8" else None)
+            for b in PREPARE:
+                exe.ensure_compiled(b)
+            tune_s = time.perf_counter() - t0
+            heur = exes[name, "cuda", prec]
+            decisions = exe.cost_summary()["graph_decisions"]
+            for b in BATCHES:
+                x = inputs[name, b]
+                feeds[f"{name} {b}"] = x
+                got = exe(input=x)
+                for k, v in got.items():
+                    outs[f"{name} {prec} {b} {k}"] = v.cpu().numpy()
+                eager_equal = outputs_equal(got, eager_call(exe, {"input": x}))
+                ref = exes[name, "interpret", "exact"](input=x)
+                per_example = torch.stack([
+                    (got[k] - ref[k]).abs().flatten(1).amax(1)
+                    for k in ref]).amax(0)
+                err = float(per_example.max())
+                ref_mag = max(float(ref[k].abs().max()) for k in ref)
+                if prec == "exact":
+                    bound = EXACT_ATOL
+                    within = err <= bound
+                else:
+                    bound = QUANT_BUDGET * max(1.0, ref_mag)
+                    within = float(per_example.median()) <= bound
+                finite = all(bool(torch.isfinite(v).all())
+                             for v in got.values())
+                xt = torch.as_tensor(x, device=DEVICE)
+                times = {}
+                for tag, e in (("tuned", exe), ("heuristic", heur)):
+                    times[f"{tag}_ms"] = host_median_ms(lambda: e(input=xt))
+                    times[f"{tag}_device_ms"] = device_ms(lambda: e(input=xt))
+                rep = exe.cost_summary()["autotune"][b]
+                ok = eager_equal and within and finite
+                if not ok:
+                    failures.append([name, prec, b, err, eager_equal])
+                emit({"phase": "autotune", "model": name, "precision": prec,
+                      "batch": b, "nodes": _tune_rows(exe, b),
+                      "measured_nodes": rep["measured_nodes"],
+                      "cached_nodes": rep["cached_nodes"],
+                      "spent_ms": rep["spent_ms"],
+                      "max_abs_err_vs_interpret_exact": err,
+                      "median_example_err": float(per_example.median()),
+                      "bound": bound, "bit_equal_to_eager": eager_equal,
+                      "finite": finite, **times, "ok": ok})
+            emit({"phase": "autotune", "model": name, "precision": prec,
+                  "graph_decisions": [
+                      {k: r.get(k) for k in ("kind", "node", "winner",
+                                             "source", "measured_us")}
+                      for r in decisions["sites"]],
+                  "pipeline": decisions["pipeline"],
+                  "decisions_spent_ms": decisions["spent_ms"],
+                  "tuning_s": tune_s})
+        # Path B's decode node at batch 8.
+        b = TUNE_DECODE_BATCH
+        t0 = time.perf_counter()
+        dexe = repro_torch.compile(
+            decode_graph(repro_torch), target="cuda", device=DEVICE,
+            autotune="full", autotune_budget_ms=TUNE_BUDGET_MS,
+            cache_dir=cache_dir)
+        q, k, v, lens = decode_inputs(torch, b, DECODE["h"], DECODE["hkv"],
+                                      DECODE["d"], DECODE["s"],
+                                      DECODE_LENGTHS[b], 40)
+        bufs = dexe.input_buffers(b)
+        bufs["k"].copy_(k)
+        bufs["v"].copy_(v)
+        tune_s = time.perf_counter() - t0
+        dfeeds = {"q": q, "k": bufs["k"], "v": bufs["v"], "lengths": lens}
+        got = dexe(**dfeeds)
+        for key, val in got.items():
+            outs[f"decode {b} {key}"] = val.cpu().numpy()
+        eager_equal = outputs_equal(got, eager_call(dexe, dfeeds))
+        iexe = repro_torch.compile(decode_graph(repro_torch),
+                                   target="interpret", device=DEVICE)
+        want = iexe(q=q, k=k, v=v, lengths=lens)
+        err = max(float((got[x] - want[x]).abs().max()) for x in want)
+        del k, v
+        heur = repro_torch.compile(decode_graph(repro_torch), target="cuda",
+                                   device=DEVICE)
+        hb = heur.input_buffers(b)
+        hb["k"].copy_(bufs["k"])
+        hb["v"].copy_(bufs["v"])
+        hfeeds = dict(dfeeds, k=hb["k"], v=hb["v"])
+        times = {"tuned_ms": host_median_ms(lambda: dexe(**dfeeds)),
+                 "tuned_device_ms": device_ms(lambda: dexe(**dfeeds)),
+                 "heuristic_ms": host_median_ms(lambda: heur(**hfeeds)),
+                 "heuristic_device_ms": device_ms(lambda: heur(**hfeeds))}
+        del heur, hb, hfeeds
+        ok = eager_equal and err <= DECODE_ATOL
+        if not ok:
+            failures.append(["decode", b, err, eager_equal])
+        emit({"phase": "autotune", "model": "decode qwen2.5-14b",
+              "batch": b, "nodes": _tune_rows(dexe, b),
+              "measured_nodes": dexe.cost_summary()["autotune"][b]
+              ["measured_nodes"], "max_abs_err_vs_interpret_exact": err,
+              "bound": DECODE_ATOL, "bit_equal_to_eager": eager_equal,
+              "tuning_s": tune_s, **times, "ok": ok})
+        del dexe, bufs, dfeeds, iexe
+        tuning_total_s = time.perf_counter() - t_all
+
+        # The second process: autotune="cached" on the same directory.
+        in_path = os.path.join(work, "inputs.npz")
+        out_path = os.path.join(work, "second.npz")
+        np.savez(in_path, **feeds)
+        script = TUNE_SCRIPT.format(
+            root=ROOT, src=os.path.join(ROOT, "src"), inputs=in_path,
+            outputs=out_path, compiles=list(TUNE_COMPILES), cache=cache_dir,
+            batches=list(BATCHES), dbatch=b, device=DEVICE, decode=DECODE,
+            lengths=DECODE_LENGTHS)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", script],
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            raise SystemExit(f"cached process failed:\n{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        second = np.load(out_path)
+        equal = (sorted(second.files) == sorted(outs)
+                 and all(np.array_equal(second[x], outs[x]) for x in outs))
+        measured_nothing = not any(report.values())
+        ok = equal and measured_nothing
+        if not ok:
+            failures.append(["cached process", report, equal])
+        emit({"phase": "autotune", "second_process": "autotune=cached",
+              "measured": report, "outputs_bit_equal_to_first": equal,
+              "seconds": seconds, "tuning_total_s": tuning_total_s,
+              "ok": ok})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        problems.append(f"autotune phase failed: {failures}")
+    return problems
+
+
+MIXED_MODELS = INT8_MODELS
+
+
+def phase_mixed(torch, np, exes, inputs):
+    """precision="mixed" on the card (C-HTWK, C-BH, VGG19; batch 1 and
+    256): each site's measured candidates, errors and winner, every
+    winner within its budget, the median example within QUANT_BUDGET x
+    max(1, max |out|) of interpret exact.  Then two seeded caches: every
+    dense site int8 (conv sites f32) must give the int8 program bit for
+    bit, every site f32 (precision_budget=1e-9, measured) the f32
+    program."""
+    import shutil
+    import repro_torch
+    from repro_torch.autotune.cache import (TacticCache,
+                                            environment_fingerprint,
+                                            tactic_key)
+    from repro_torch.core.passes import run_pipeline
+    from repro_torch.table1_models import SUITE
+    quantize = sys.modules["repro_torch.core.passes.quantize"]
+
+    work = os.path.join(ROOT, "build", "chip_smoke_mixed")
+    shutil.rmtree(work, ignore_errors=True)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    failures = []
+    try:
+        for name in MIXED_MODELS:
+            g = SUITE[name]()
+            t0 = time.perf_counter()
+            exe = repro_torch.compile(
+                g, target="cuda", precision="mixed", device=DEVICE,
+                cache_dir=os.path.join(work, "measured"),
+                autotune_budget_ms=TUNE_BUDGET_MS)
+            mixed_s = time.perf_counter() - t0
+            stats = next(p for p in exe.report["passes"]
+                         if p["pass"] == "quantize")["mixed"]
+            budget = stats["budget"]
+            within = all(s["max_abs_err"].get(s["winner"], 0.0) <= budget
+                         for s in stats["sites"].values())
+            for b in BATCHES:
+                x = inputs[name, b]
+                got = exe(input=x)
+                ref = exes[name, "interpret", "exact"](input=x)
+                per_example = torch.stack([
+                    (got[k] - ref[k]).abs().flatten(1).amax(1)
+                    for k in ref]).amax(0)
+                ref_mag = max(float(ref[k].abs().max()) for k in ref)
+                bound = QUANT_BUDGET * max(1.0, ref_mag)
+                median = float(per_example.median())
+                eager_equal = outputs_equal(got, eager_call(exe, {"input": x}))
+                ok = within and median <= bound and eager_equal
+                if not ok:
+                    failures.append([name, b, median, within, eager_equal])
+                emit({"phase": "mixed", "model": name, "batch": b,
+                      "sites": stats["sites"], "decisions":
+                      exe.graph.quant["decisions"], "budget": budget,
+                      "sites_within_budget": within,
+                      "median_example_err_vs_interpret_exact": median,
+                      "max_abs_err_vs_interpret_exact":
+                      float(per_example.max()), "bound": bound,
+                      "bit_equal_to_eager": eager_equal,
+                      "measure_ms": stats["spent_ms"], "compile_s": mixed_s,
+                      "ok": ok})
+            # Seeded: every dense site int8 -> the int8 program.
+            pre, _ = run_pipeline(g, PRE_QUANTIZE)
+            seeded = os.path.join(work, f"seeded {name}")
+            fp = environment_fingerprint(DEVICE)
+            tc = TacticCache(os.path.join(seeded, "tactics"))
+            for node in pre.nodes:
+                if node.op in quantize.QUANT_OPS and "kernel" in node.params:
+                    desc = quantize.site_desc(
+                        node, pre, quantize.DEFAULT_PRECISION_BUDGET,
+                        "absmax", DEVICE)
+                    tc.store(tactic_key(desc, fp), {
+                        "winner": "int8" if node.op == "dense" else "f32",
+                        "fingerprint": fp})
+            all_int8 = repro_torch.compile(
+                g, target="cuda", precision="mixed", device=DEVICE,
+                autotune="cached", cache_dir=seeded)
+            all_f32 = repro_torch.compile(
+                g, target="cuda", precision="mixed", device=DEVICE,
+                precision_budget=1e-9, autotune_budget_ms=TUNE_BUDGET_MS,
+                cache_dir=os.path.join(work, "tight"))
+            f32 = repro_torch.compile(g, target="cuda", precision="f32",
+                                      device=DEVICE)
+            int8 = exes.get((name, "cuda", "int8"))
+            checks = {}
+            for b in BATCHES:
+                x = inputs[name, b]
+                checks[f"all_int8_bit_equal_int8 b{b}"] = outputs_equal(
+                    all_int8(input=x), int8(input=x))
+                checks[f"all_f32_bit_equal_f32 b{b}"] = outputs_equal(
+                    all_f32(input=x), f32(input=x))
+            checks["all_int8_decisions"] = all_int8.graph.quant["decisions"]
+            checks["all_f32_decisions"] = all_f32.graph.quant["decisions"]
+            ok = (all(v for k, v in checks.items() if "bit_equal" in k)
+                  and all_f32.graph.quant["decisions"]["f32"]
+                  == sum(all_f32.graph.quant["decisions"].values()))
+            if not ok:
+                failures.append([name, "seeded", checks])
+            emit({"phase": "mixed", "model": name, "seeded": checks,
+                  "ok": ok})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        shutil.rmtree(work, ignore_errors=True)
+    return [f"mixed phase failed: {failures}"] if failures else []
+
+
+#: The default pipeline up to the quantize pass (its input graph).
+PRE_QUANTIZE = ("canonicalize", "fold_constants", "fuse_pad",
+                "fuse_activation", "fold_batchnorm", "fuse_activation.post_bn")
 
 
 def phase_time_models(torch, exes, inputs, per_model):
@@ -1646,6 +2234,10 @@ def main() -> int:
     problems += phase_split_counters(torch, np)
     problems += phase_runtime(torch, np, exes, inputs)
     problems += phase_cache(torch, np, exes, inputs)
+    problems += phase_pool(torch, np, list(exes.values())
+                           + list(dec_exes.values()))
+    problems += phase_autotune(torch, np, exes, inputs)
+    problems += phase_mixed(torch, np, exes, inputs)
     phase_time_models(torch, exes, inputs, per_model)
     phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds, cuda_feeds)
     rows = phase_time_kernels(torch, np, exes)

@@ -2,8 +2,9 @@
 
 The reference's field names, plus ``device``, which torch needs and
 JAX did not: the ``torch.device`` the compiled program runs on.  Fields
-whose feature the port has not reached yet raise ``NotImplementedError``
-naming the ROADMAP item that ports them, instead of being ignored.
+whose feature the port has not reached yet (capture, distribution)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them,
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -41,7 +42,10 @@ class CompileOptions:
                    ``"exact"``), ``"bf16"`` (operands rounded to bfloat16,
                    f32 accumulation) and ``"int8"`` (calibrated symmetric
                    int8 dense sites, exact int32 sums, f32 dequant).
-                   ``"mixed"`` (per-site measured choice) is ROADMAP A.8.
+                   ``"mixed"`` measures f32/bf16/int8 per site on the
+                   compile's device and keeps the fastest within
+                   ``precision_budget`` (winners in the tactic cache);
+                   it measures unless ``autotune="cached"``.
     device:        where the program runs: ``"cuda"`` (default; compiling
                    raises when ``torch.cuda.is_available()`` is false) or
                    ``"cpu"``, where every kernel wrapper runs its plain
@@ -55,10 +59,27 @@ class CompileOptions:
     calibrate:     seeded sample batches of the quantize pass's
                    calibration walk; ``None`` = 4 under a quantizing
                    precision, ignored otherwise.
-    precision_budget: the accuracy budget of ``"mixed"``: validated, and
-                   read by nothing until A.8.
-    autotune_budget_ms: read only by the unported autotuner.
-    autotune:      only ``"off"`` (ROADMAP A.8: autotune).
+    precision_budget: the accuracy budget of ``"mixed"``: max abs error of
+                   a site's int8/bf16 output against its f32 output on
+                   the first calibration batch; ``None`` = 0.05.
+    autotune_budget_ms: wall-clock budget of ``"full"`` measurement
+                   (builds, warm-ups and captures included); what it
+                   does not reach keeps the heuristic.  The graph
+                   decisions take at most half of it, once, when the
+                   executable is built; each batch size's kernel tactics
+                   then get what the decisions left, afresh for every
+                   batch size (as in the reference).  ``None`` = no limit
+                   for both.  ``"mixed"``'s per-site measurement has a
+                   budget of its own of the same size, spent once in the
+                   pass pipeline; there ``None`` means 1000 ms.
+    autotune:      ``"off"`` (default: the heuristic selector and
+                   passes), ``"cached"`` (winners from the tactic cache
+                   only, no measurement) or ``"full"`` (measure what the
+                   cache lacks, store the winners): kernel plans of B1,
+                   B2 and B4 per node and graph decisions (fusion,
+                   layout, pipeline).  On the card the candidates are
+                   timed on the device (``repro_torch.autotune``).  The
+                   tactic cache lives under ``<cache_dir>/tactics``.
     batch_buckets: optional ascending batch sizes to specialize for; a
                    call with batch B runs the smallest bucket >= B (input
                    padded with zero rows, output sliced).  Empty =
@@ -109,10 +130,6 @@ class CompileOptions:
         if self.precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be one of {PRECISIONS}, got {self.precision!r}")
-        if self.precision == "mixed":
-            raise NotImplementedError(
-                "precision='mixed' is not ported yet (ROADMAP A.8: "
-                "autotune; its per-site choice is measured)")
         if self.calibrate is not None and int(self.calibrate) <= 0:
             raise ValueError(
                 f"calibrate must be a positive batch count or None, "
@@ -124,10 +141,10 @@ class CompileOptions:
         if self.autotune not in AUTOTUNE_MODES:
             raise ValueError(f"autotune must be one of {AUTOTUNE_MODES}, "
                              f"got {self.autotune!r}")
-        if self.autotune != "off":
-            raise NotImplementedError(
-                f"autotune={self.autotune!r} is not ported yet "
-                f"(ROADMAP A.8: autotune)")
+        if (self.autotune_budget_ms is not None
+                and self.autotune_budget_ms <= 0):
+            raise ValueError(f"autotune_budget_ms must be positive or None, "
+                             f"got {self.autotune_budget_ms!r}")
         buckets = tuple(sorted(int(b) for b in self.batch_buckets))
         if any(b <= 0 for b in buckets):
             raise ValueError(f"batch_buckets must be positive: {buckets}")
@@ -176,7 +193,11 @@ class CompileOptions:
         """Stable string of every field that affects the compiled program.
         Where it is cached and how it is dumped do not, nor how a caller
         buckets batches: the batch size is a key part of its own, so a
-        bucketed executable shares entries with exact compiles."""
+        bucketed executable shares entries with exact compiles.  Nor do
+        the ``autotune`` fields: what they change, the decided graph and
+        pipeline and the resolved kernel selection, are key parts of
+        their own (``api/targets.py``), so a tuned compile that resolves
+        to the heuristic's choices shares its entries."""
         d = self.to_dict()
         for k in ("cache_dir", "batch_buckets", "buckets", "dump_ir",
                   "autotune", "autotune_budget_ms", "capture"):

@@ -31,6 +31,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import io
+import json
 import threading
 import time
 from pathlib import Path
@@ -44,7 +45,7 @@ from ..core.lowering import (LoweredGraph, LoweringContext, _rule_token,
                              device_params, lowering_fingerprint,
                              quant_params, resolve_device)
 from ..core.passes import PassManager, plan_memory, run_pipeline
-from ..core.program import CapturedProgram
+from ..core.program import CapturedProgram, GraphPool
 from ..core.selection import KernelChoice, check_kernel_device, select_kernels
 from ..core.simple import SimpleNN
 from ..frontends.container import load_model, save_model
@@ -57,16 +58,26 @@ from .options import QUANT_PRECISIONS, CompileOptions
 Program = Union[CapturedProgram, LoweredGraph]
 
 
-def _quant_request(options: CompileOptions) -> Optional[dict]:
+def _quant_request(options: CompileOptions, *, measure: bool,
+                   device: torch.device) -> Optional[dict]:
     """The quantization request a target rides on ``graph.quant`` for the
     quantize pass; None when ``options.precision`` does not quantize
-    (``"f32"`` quantizes nothing).  The reference's budget, ``measure``
-    flag and tactic cache serve ``"mixed"`` only, which is ROADMAP A.8."""
+    (``"f32"`` quantizes nothing).  ``measure`` gates ``"mixed"``'s
+    measurement (the ``interpret`` target never measures, nor does
+    ``autotune="cached"``: they take winners from the tactic cache), and
+    ``device`` is where its site runners run: the compile's."""
     if options.precision not in QUANT_PRECISIONS \
             or options.precision == "f32":
         return None
-    req = {"mode": options.precision, "calibrate": options.calibrate}
-    return {k: v for k, v in req.items() if v is not None}
+    req = {"mode": options.precision,
+           "calibrate": options.calibrate,
+           "budget": options.precision_budget,
+           "budget_ms": options.autotune_budget_ms,
+           "cache_dir": options.cache_dir}
+    req = {k: v for k, v in req.items() if v is not None}
+    req["measure"] = measure and options.autotune != "cached"
+    req["device"] = str(device)
+    return req
 
 
 TargetFactory = Callable[[Graph, CompileOptions], Executable]
@@ -110,9 +121,14 @@ class GraphExecutable(Executable):
         self.signature = graph.signature()
         self.compile_time: Optional[float] = None
 
+    #: True when the programs are captured graphs (see JitExecutable).
+    captures = False
+
     def _gather_inputs(self, pos, inputs) -> List[torch.Tensor]:
         """Bind positional-or-keyword call args against the signature;
-        returns tensors on the device, ordered by the graph's inputs."""
+        returns tensors on the device, ordered by the graph's inputs
+        (when the programs are captured, an input given on the host
+        stays there)."""
         inputs = self.signature.bind(pos, inputs)
         missing = [n for n in self.source.inputs if n not in inputs]
         if missing:
@@ -125,7 +141,7 @@ class GraphExecutable(Executable):
         args = []
         for n, spec in self.source.inputs.items():
             a = torch.as_tensor(inputs[n], dtype=getattr(torch, spec.dtype),
-                                device=self.device)
+                                device=None if self.captures else self.device)
             if tuple(a.shape[1:]) != tuple(spec.shape):
                 raise ValueError(
                     f"input {n!r}: expected (batch,)+{spec.shape}, "
@@ -168,7 +184,7 @@ class InterpretExecutable(GraphExecutable):
         # Low precision changes the semantics, so even the oracle honours
         # it: the quantize pass alone (no fusion or layout) on a copy.
         nn_graph = graph
-        req = _quant_request(options)
+        req = _quant_request(options, measure=False, device=self.device)
         if req is not None:
             nn_graph = graph.copy()
             nn_graph.quant = req
@@ -242,9 +258,19 @@ class JitExecutable(GraphExecutable):
     capture that fails raises.  On the CPU it is the eager
     :class:`LoweredGraph`, which is what the caller asked for.
 
+    Every program of the executable captures into one
+    :class:`~repro_torch.core.program.GraphPool` (memory, lock and the
+    event that orders its replays, shared by its batch sizes), laid out
+    largest batch first: a batch larger than every captured one captures
+    the others again after it.
+
     ``lowering_target`` names the lowering-rule registry slice: ``"jit"``
-    uses only the generic rules; ``"cuda"`` activates the CUDA kernels
-    and records the static kernel selection for ``cost_summary``.
+    uses only the generic rules; ``"cuda"`` activates the CUDA kernels,
+    each launching the plan its node's choice in the kernel selection
+    names.  With ``autotune`` on, graph decisions (``tune.*`` attrs and
+    the pass pipeline) are tuned on a copy of the source graph before the
+    pipeline runs, and each batch size's selection is refined by the
+    tactic tuner (``repro_torch.autotune``).
     """
 
     def __init__(self, graph: Graph, options: CompileOptions,
@@ -260,23 +286,48 @@ class JitExecutable(GraphExecutable):
         self._compile_lock = threading.RLock()
         self._programs: Dict[int, Program] = {}
         self._selections: Dict[int, Dict[str, KernelChoice]] = {}
+        self._autotune_reports: Dict[int, dict] = {}
+        self._pool: Optional[GraphPool] = None
         self._disk = open_cache(options.cache_dir)
         self._disk_hits: Dict[object, bool] = {}
         self._graph_key: Optional[str] = None
-        loaded = self._load_graph() if self._disk is not None else None
+        # Graph decisions (repro_torch.autotune.decisions): the winners
+        # land as tune.* attrs on a copy (self.source stays the input
+        # graph) and may swap the pass pipeline.  With autotune="off"
+        # nothing runs and the pipeline is the heuristic compiler's.
+        self._decisions_report: Optional[dict] = None
+        self._decided, self._passes = graph, options.passes
+        if options.autotune != "off":
+            from ..autotune import open_tactic_cache, tune_graph_decisions
+            self._decided, self._passes, self._decisions_report = (
+                tune_graph_decisions(
+                    graph, target=lowering_target,
+                    precision=options.precision, passes=options.passes,
+                    mode=options.autotune,
+                    budget_ms=options.autotune_budget_ms,
+                    cache=open_tactic_cache(options.cache_dir),
+                    device=self.device))
+        # A mixed compile's pipeline output depends on the winners in the
+        # tactic cache, which a key made before the pipeline runs cannot
+        # see: it keeps no graph entry (its tactic cache spares it the
+        # measurement, and the calibration walk runs again).
+        self._graph_disk = (self._disk if options.precision != "mixed"
+                            else None)
+        loaded = self._load_graph() if self._graph_disk is not None else None
         if loaded is not None:
             self.graph, self.report = loaded
         else:
             # The quantize request rides on a copy (self.source stays the
             # input graph); the pass leaves only the semantic record, the
             # mode and the quant.* node attrs, which structure_hash() reads.
-            req = _quant_request(options)
+            graph = self._decided
+            req = _quant_request(options, measure=True, device=self.device)
             if req is not None:
                 graph = graph.copy()
                 graph.quant = req
             self.graph, self.report = run_pipeline(
-                graph, options.passes, dump_ir=options.dump_ir)
-            if self._disk is not None:
+                graph, self._passes, dump_ir=options.dump_ir)
+            if self._graph_disk is not None:
                 self._store_graph()
         self.params = device_params(self.graph, self.device)
         self.params.update(quant_params(self.graph, self.params))
@@ -285,14 +336,16 @@ class JitExecutable(GraphExecutable):
     # -- the executable cache ------------------------------------------
     def _source_key(self) -> str:
         """Key of the graph entry: what the pass pipeline's output is a
-        function of, known before it runs."""
+        function of, known before it runs: the graph after the graph
+        decisions (their tune.* attrs), the weights, the options, and the
+        code of the pipeline the decisions chose."""
         if self._graph_key is None:
             self._graph_key = cache_key(
-                self.device, "graph", self.source.structure_hash(),
+                self.device, "graph", self._decided.structure_hash(),
                 _weights_digest(self.source.params),
                 self.options.cache_token(),
                 f"sig={self.signature.cache_token()}",
-                f"code={_code_token(self.options.passes, self.lowering_target)}")
+                f"code={_code_token(self._passes, self.lowering_target)}")
         return self._graph_key
 
     def _load_graph(self):
@@ -318,10 +371,31 @@ class JitExecutable(GraphExecutable):
         self._disk.store(self._source_key(),
                          {"kind": "graph", "report": report}, buf.getvalue())
 
-    def disk_key(self, batch_size: int) -> str:
-        """The executable-cache key of this batch size's program entry."""
+    @staticmethod
+    def _selection_token(selection: Dict[str, KernelChoice]) -> str:
+        """Digest of the resolved kernel selection (kernel, block and
+        tactic per node), as the reference's: two compiles that resolve
+        to the same kernels share a program entry, and a new winner
+        misses."""
+        payload = json.dumps(
+            sorted((name, c.kernel, c.source,
+                    list(c.block) if c.block else None,
+                    list(c.tactic) if c.tactic else None)
+                   for name, c in selection.items()))
+        return hashlib.sha256(payload.encode()).hexdigest()
+
+    def _program_key(self, batch_size: int,
+                     selection: Dict[str, KernelChoice]) -> str:
         return cache_key(self.device, "program", self._source_key(),
-                         f"batch={batch_size}")
+                         f"batch={batch_size}",
+                         f"sel={self._selection_token(selection)}")
+
+    def disk_key(self, batch_size: int) -> str:
+        """The executable-cache key of this batch size's program entry,
+        as the selection resolves today (in ``"full"`` mode from cached
+        tactics only: a probe never measures)."""
+        selection, _ = self._tune(batch_size, probe=True)
+        return self._program_key(batch_size, selection)
 
     def has_disk_entry(self, batch_size: int) -> bool:
         """True if the executable cache holds this batch size's program
@@ -329,25 +403,53 @@ class JitExecutable(GraphExecutable):
         return self._disk is not None and self._disk.has(
             self.disk_key(batch_size))
 
-    def _resolve_selection(self, batch_size: int) -> Dict[str, KernelChoice]:
-        """The kernel selection for one batch size: from its program
-        entry on a hit, else from the selector (and stored)."""
-        if self._disk is not None:
-            key = self.disk_key(batch_size)
-            entry = self._disk.load(key)
-            self._disk_hits[batch_size] = entry is not None
-            if entry is not None:
-                try:
-                    return {c["node"]: KernelChoice.from_dict(c)
-                            for c in entry[0]["selection"]}
-                except (KeyError, TypeError):
-                    self._disk_hits[batch_size] = False
+    def _tune(self, batch_size: int, *, probe: bool = False):
+        """The selector's choices for one batch size, refined by the
+        tactic tuner when autotune is on; ``probe`` downgrades ``"full"``
+        to ``"cached"``.  Returns ``(selection, report)``."""
         selection = select_kernels(
             self.graph, batch_size=batch_size, target=self.lowering_target)
+        if self.lowering_target != "cuda" or self.options.autotune == "off":
+            return selection, None
+        from ..autotune import open_tactic_cache, tune_selection
+        mode = ("cached" if probe and self.options.autotune == "full"
+                else self.options.autotune)
+        # The graph decisions spent part of the budget at construction;
+        # the kernel tactics get the rest.
+        budget = self.options.autotune_budget_ms
+        if budget is not None and self._decisions_report is not None:
+            budget = max(0.0, budget - self._decisions_report["spent_ms"])
+        return tune_selection(
+            self.graph, selection, batch_size=batch_size,
+            precision=self.options.precision, mode=mode, budget_ms=budget,
+            cache=open_tactic_cache(self.options.cache_dir),
+            device=self.device)
+
+    def _resolve_selection(self, batch_size: int) -> Dict[str, KernelChoice]:
+        """The kernel selection for one batch size, from the selector and
+        the tuner; its program entry (keyed by the selection) is then
+        looked up, or stored."""
+        selection, report = self._tune(batch_size)
+        if report is not None:
+            self._autotune_reports[batch_size] = report
         if self._disk is not None:
-            self._disk.store(key, {
-                "kind": "program", "batch": batch_size,
-                "selection": [c.to_dict() for c in selection.values()]})
+            key = self._program_key(batch_size, selection)
+            entry = self._disk.load(key)
+            hit = False
+            if entry is not None:
+                try:
+                    stored = {c["node"]: KernelChoice.from_dict(c)
+                              for c in entry[0]["selection"]}
+                    hit = (self._selection_token(stored)
+                           == self._selection_token(selection))
+                    selection = stored if hit else selection
+                except (KeyError, TypeError):
+                    hit = False
+            self._disk_hits[batch_size] = hit
+            if not hit:
+                self._disk.store(key, {
+                    "kind": "program", "batch": batch_size,
+                    "selection": [c.to_dict() for c in selection.values()]})
         return selection
 
     # -- compilation ---------------------------------------------------
@@ -369,12 +471,15 @@ class JitExecutable(GraphExecutable):
             ctx = LoweringContext(
                 params=self.params, batch_size=batch_size,
                 precision=self.options.precision,
-                target=self.lowering_target)
+                target=self.lowering_target, selection=selection)
             prog = LoweredGraph(self.graph, ctx)
-            if self.device.type == "cuda":
-                prog = CapturedProgram(prog, {
+            if self.captures:
+                if self._pool is None:
+                    self._pool = GraphPool(self.device)
+                prog = self._pool.admit(prog, {
                     n: (spec.shape, getattr(torch, spec.dtype))
-                    for n, spec in self.graph.inputs.items()}, self.device)
+                    for n, spec in self.graph.inputs.items()},
+                    list(self._programs.values()))
             self._programs[batch_size] = prog
             # Seconds spent compiling: the pipeline (or its cache hit)
             # once, plus every batch size's selection and capture.
@@ -399,6 +504,16 @@ class JitExecutable(GraphExecutable):
             if b >= batch:
                 return b
         return batch
+
+    @property
+    def captures(self) -> bool:
+        """True when the programs are captured graphs (a CUDA device).
+        A call then leaves an input given on the host there: the program
+        copies it straight into its static input, so the call allocates
+        no device tensor for it (one would share the caching allocator's
+        segments with the static inputs, which outlive it, and keep
+        them from being returned)."""
+        return self.device.type == "cuda"
 
     def _run(self, prog: Program, args: List[torch.Tensor],
              bucket: int) -> Dict[str, torch.Tensor]:
@@ -444,8 +559,10 @@ class JitExecutable(GraphExecutable):
 
     def cost_summary(self):
         """Compile-time facts: pass reports, memory plan, the per-batch
-        kernel selections and programs (captured or eager; capture time
-        and graph pool bytes)."""
+        kernel selections and programs (captured or eager; capture time),
+        the executable's graph pool bytes (once: every program captures
+        into it), and when tuned the autotune and graph-decision reports
+        (without the raw cache entries)."""
         out = {
             "target": self.options.target,
             "device": str(self.device),
@@ -462,16 +579,26 @@ class JitExecutable(GraphExecutable):
                 batch: [c.to_dict() for c in sel.values()]
                 for batch, sel in sorted(self._selections.items())
             }
+        if self._autotune_reports:
+            out["autotune"] = {
+                batch: {k: v for k, v in rep.items() if k != "entries"}
+                for batch, rep in sorted(self._autotune_reports.items())}
+        if self._decisions_report is not None:
+            out["graph_decisions"] = {
+                k: v for k, v in self._decisions_report.items()
+                if k != "entries"}
         programs = {}
         for batch, prog in sorted(self._programs.items()):
             if isinstance(prog, CapturedProgram):
                 programs[batch] = {
-                    "captured": True, "capture_ms": prog.capture_s * 1e3,
-                    "pool_bytes": prog.pool_bytes}
+                    "captured": True, "capture_ms": prog.capture_s * 1e3}
             else:
                 programs[batch] = {"captured": False}
         if programs:
             out["programs"] = programs
+        if self._pool is not None:
+            # What the captures added to memory_reserved: the one pool.
+            out["graph_pool_bytes"] = self._pool.bytes
         if self.graph.quant:
             # The quantize pass's record: the mode and per-mode site counts.
             out["quant"] = dict(self.graph.quant)

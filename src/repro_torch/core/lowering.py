@@ -46,6 +46,7 @@ from ..kernels.fast_act import ops as fast_act_ops
 from ..kernels.fused_matmul import kernel as fm_kernel
 from ..kernels.fused_matmul import ref as fm_ref
 from ..kernels.fused_matmul.ops import fused_matmul, fused_matmul_q8
+from .selection import KernelChoice, choice_plan
 
 
 class UnsupportedOpError(NotImplementedError):
@@ -74,7 +75,9 @@ class LoweringContext:
     is the batch the program is specialized for.  ``counters`` are the
     split counters its dense kernels reduce K splits through: each
     context holds its own, so a CUDA graph captured from the program
-    reads memory the program holds.
+    reads memory the program holds.  ``selection`` is the resolved kernel
+    selection (``core/selection.py``, refined by the autotuner): the
+    ``cuda`` dense and decode rules launch the plan its choice names.
     """
 
     params: Mapping[str, torch.Tensor]
@@ -83,6 +86,14 @@ class LoweringContext:
     target: Optional[str] = None
     counters: fm_kernel.SplitCounters = dataclasses.field(
         default_factory=fm_kernel.SplitCounters, compare=False, repr=False)
+    selection: Mapping[str, KernelChoice] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    def plan(self, node: Node, **shape):
+        """The plan the tactic of the selection's choice for ``node``
+        names, laid out at ``shape``; None when it names the heuristic's
+        plan, which the wrapper computes from the shape."""
+        return choice_plan(self.selection.get(node.name), **shape)
 
     def act(self, fn: str, x: torch.Tensor, attrs: Dict) -> torch.Tensor:
         """Activation ``fn`` under the context's precision.  On the
@@ -315,13 +326,16 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
     kernel_kw = dict(kw, counters=ctx.counters)
     x = ins[0]
     qm = node.attrs.get("quant.mode")
+    k = x.shape[-1]
+    shape = dict(m=x.numel() // max(k, 1), k=k, w_layout=layout,
+                 n=w.shape[1] if layout == "io" else w.shape[0])
     if qm == "int8":
         wq = ctx.params[quant_key(node, "wq")]
         deq = ctx.params[quant_key(node, "deq")]
         if use_kernel:
             y = fused_matmul_q8(x.contiguous(), wq, deq, b, scale, offset,
                                 x_scale=node.attrs["quant.x_scale"],
-                                **kernel_kw)
+                                plan=ctx.plan(node, **shape), **kernel_kw)
         else:
             xq = qmath.quantize_q8(x, ctx.params[quant_key(node, "x_scale")])
             y = fm_ref.fused_matmul_q8_ref(xq, wq, deq, b, scale, offset, **kw)
@@ -330,7 +344,8 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
             x, w = x.to(torch.bfloat16), ctx.params[quant_key(node, "w")]
         if use_kernel:
             y = fused_matmul(x.contiguous(), w, b, scale, offset,
-                             **kernel_kw)
+                             plan=ctx.plan(node, itemsize=x.element_size(),
+                                             **shape), **kernel_kw)
         else:
             y = fm_ref.fused_matmul_ref(x.float(), w.float(), b, scale,
                                         offset, **kw)
@@ -477,6 +492,8 @@ def _lower_dense_cuda(node, ins, ctx):
 def _lower_decode_attention_cuda(node, ins, ctx):
     q, k, v = (t.contiguous() for t in ins[:3])
     lengths = ins[3].contiguous() if len(ins) > 3 else None
+    chunks = ctx.plan(node, b=k.shape[0], hkv=k.shape[2], s=k.shape[1])
     return ctx.epilogue(node, decode_attention(
         q, k, v, lengths, scale=node.attrs.get("scale"),
-        fast=ctx.precision == "fast"))
+        fast=ctx.precision == "fast",
+        tiles_per_chunk=None if chunks is None else chunks[0]))

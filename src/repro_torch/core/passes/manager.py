@@ -167,6 +167,23 @@ def _resolve_dump_ir(dump_ir) -> Tuple[str, ...]:
     return tuple(dump_ir)
 
 
+def pipeline_candidates() -> Dict[str, Tuple[str, ...]]:
+    """Named whole-pipeline variants the graph-level autotuner may pick
+    between (``repro_torch.autotune.decisions``, "pipeline" sites), as in
+    the reference.
+
+    Each variant is derived from the current default registry order by
+    ``PassManager.without`` surgery, so a newly registered pass is part
+    of every variant.  ``"default"`` is always present and always first.
+    """
+    default = PassManager.default()
+    return {
+        "default": default.pipeline,
+        "no_fusion": default.without("fuse_activation").pipeline,
+        "no_layout": default.without("optimize_layout").pipeline,
+    }
+
+
 class PassManager:
     """An ordered, verified pass pipeline.
 

@@ -15,33 +15,59 @@ A :class:`CapturedProgram` owns:
   inputs into (a caller that passes the static tensor itself, from
   :attr:`CapturedProgram.static_inputs`, skips the copy: path B's KV
   cache is written there once, not copied per call);
-* the graph and its private memory pool, which holds every intermediate
-  and the static outputs; a call returns clones of the outputs, so the
-  next call never overwrites a tensor a caller holds;
+* the graph and its static outputs; a call returns clones of the
+  outputs, so the next call never overwrites a tensor a caller holds;
 * the eager program it was captured from (:attr:`eager`), whose split
   counters the graph reads.
+
+Every program of one executable captures into one :class:`GraphPool`:
+one memory pool (``torch.cuda.graph_pool_handle()``) for the
+intermediates of all its batch sizes, so device memory grows with the
+largest batch captured, not with the number of batch sizes served.
+The caching allocator hands a capture the blocks earlier captures
+freed only where they are large enough: a batch larger than every
+captured one would take new segments for each of its intermediates,
+and batch sizes arriving in ascending order would each add a pool.  So
+such a batch lays the pool out again, largest first
+(:meth:`GraphPool.admit`): once the last replay has ended on the card,
+every program releases its graph, the pool takes a fresh id (the old
+one's memory returns at the next capture's ``empty_cache``), the new
+program is captured, then the others again in descending batch order,
+each on the static inputs it already had.  Two graphs that share
+intermediates must never run on the card at once, and a host lock does
+not order the card: so under the pool's lock every replay first makes
+the caller's stream wait for the event the previous replay of the
+executable recorded (after its output clones), then copies in, replays
+and clones on that stream, and records the event again.  Static inputs
+and static outputs stay referenced by their programs, so no capture is
+handed another program's live tensor, and the programs replay in any
+order.
 
 Capture warms up on a side stream first (the first call loads the
 kernel library, picks cuDNN algorithms and allocates the counters), as
 the ``torch.cuda.graph`` documentation prescribes, then captures with
 ``capture_error_mode="thread_local"``, so a background capture and a
-replay on another thread do not disturb each other.  Captures take one
-process-wide lock: a capture under way makes CUDA refuse a device-wide
+replay on another thread do not disturb each other.  A capture only
+records: the background worker that captures a bucket never replays
+it, and a replay of another program meanwhile runs nothing the
+capture wrote.  Captures take one process-wide lock: a
+capture under way makes CUDA refuse a device-wide
 ``torch.cuda.synchronize()`` on every thread, and each capture starts
 with one.  For the same reason a thread that serves requests while a
 bucket is captured in the background synchronises its stream
 (``torch.cuda.current_stream().synchronize()``), never the device: a
 refused synchronise also fails the capture.  A capture that fails
 raises and leaves nothing behind (the engine cache captures the bucket
-again at its next call): there is no fallback to the eager walk on a
-CUDA device.
+again at its next call, and a program whose recapture failed captures
+again at its own next call): there is no fallback to the eager walk on
+a CUDA device.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,10 +77,51 @@ from .lowering import LoweredGraph
 InputSpecs = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 #: One capture at a time in the process (see the module's note).
 _CAPTURE_LOCK = threading.Lock()
+#: The side stream captures warm up on, by device (under the lock).
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+class GraphPool:
+    """The memory pool, lock and replay-ordering event that the captured
+    programs of one executable share (see the module's note).  ``bytes``
+    is what their captures added to ``torch.cuda.memory_reserved``: the
+    pool."""
+
+    def __init__(self, device: torch.device) -> None:
+        if device.type != "cuda":
+            raise ValueError(f"GraphPool needs a CUDA device, got {device}")
+        self.device = device
+        self.handle = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        #: Recorded after each replay's clones; None before the first.
+        self.done: Optional[torch.cuda.Event] = None
+        self.bytes = 0
+
+    def admit(self, eager: LoweredGraph, inputs: InputSpecs,
+              held: Sequence["CapturedProgram"]) -> "CapturedProgram":
+        """Capture ``eager`` into the pool beside ``held``, the programs
+        captured into it before; a batch larger than all of theirs lays
+        the pool out again, largest first (see the module's note).  If a
+        capture fails it raises, and a held program left without a graph
+        captures again at its next call."""
+        if not held or eager.ctx.batch_size < max(p.batch for p in held):
+            return CapturedProgram(eager, inputs, self.device, self)
+        with self.lock:
+            if self.done is not None:
+                self.done.synchronize()
+            for p in held:
+                p.release()
+            self.handle = torch.cuda.graph_pool_handle()
+            self.bytes = 0
+            prog = CapturedProgram(eager, inputs, self.device, self)
+            for p in sorted(held, key=lambda p: -p.batch):
+                p.recapture()
+        return prog
 
 
 class CapturedProgram:
-    """A :class:`LoweredGraph` captured as one CUDA graph for its batch.
+    """A :class:`LoweredGraph` captured as one CUDA graph for its batch,
+    into ``pool`` (a pool of its own when None).
 
     Calling it maps input tensors (by graph input name) to fresh output
     tensors, like the eager program.  With ``rows`` below the batch the
@@ -63,53 +130,56 @@ class CapturedProgram:
     ``rows`` rows (a batch bucket's padding)."""
 
     def __init__(self, eager: LoweredGraph, inputs: InputSpecs,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 pool: Optional[GraphPool] = None) -> None:
         if device.type != "cuda":
             raise ValueError(f"CapturedProgram needs a CUDA device, got "
                              f"{device}; run the LoweredGraph on the CPU")
         self.eager = eager
         self.batch = eager.ctx.batch_size
         self.device = device
-        self._lock = threading.Lock()
-        t0 = time.perf_counter()
+        self.pool = pool if pool is not None else GraphPool(device)
         # Created outside inference mode: callers write into them.
         with torch.inference_mode(False):
             self.static_inputs = {
                 n: torch.zeros((self.batch,) + tuple(shape), dtype=dtype,
                                device=device)
                 for n, (shape, dtype) in inputs.items()}
-        with _CAPTURE_LOCK, torch.cuda.device(device), \
-                torch.inference_mode():
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                eager(self.static_inputs)
-            torch.cuda.current_stream(device).wait_stream(side)
-            # torch.cuda.graph empties the allocator's cache as it starts;
-            # doing it first makes the reserved bytes before and after
-            # the capture differ by the graph's pool.
-            torch.cuda.synchronize(device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(device)
-            self.graph = torch.cuda.CUDAGraph()
-            # The outer stream context restores this thread's stream if
-            # the capture fails (torch.cuda.graph's exit then skips it).
-            with torch.cuda.stream(torch.cuda.current_stream(device)), \
-                    torch.cuda.graph(self.graph,
-                                     capture_error_mode="thread_local"):
-                self.static_outputs = eager(self.static_inputs)
-            #: Device memory the capture reserved: the graph's private
-            #: pool (every intermediate and the static outputs).
-            self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        #: Seconds of warm-up and capture.
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_outputs: Optional[Dict[str, torch.Tensor]] = None
+        self.recapture()
+
+    def recapture(self) -> None:
+        """Capture the eager program into the pool, on the static inputs
+        it already has (again, after :meth:`release`)."""
+        t0 = time.perf_counter()
+        self.graph, self.static_outputs, self.pool_bytes = capture(
+            lambda: self.eager(self.static_inputs), self.device, self.pool)
+        #: Seconds of the latest warm-up and capture.
         self.capture_s = time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Drop the graph and its static outputs: the pool's memory is
+        returned once every program captured into it has released its
+        own."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.static_outputs = None
 
     def __call__(self, env: Dict[str, torch.Tensor],
                  rows: Optional[int] = None) -> Dict[str, torch.Tensor]:
         rows = self.batch if rows is None else rows
         cut = rows != self.batch
         self._check(env, rows)
-        with self._lock:
+        pool = self.pool
+        stream = torch.cuda.current_stream(self.device)
+        with pool.lock:
+            if self.graph is None:        # its recapture failed
+                self.recapture()
+            if pool.done is None:
+                pool.done = torch.cuda.Event()
+            else:
+                stream.wait_event(pool.done)
             for name, t in env.items():
                 static = self.static_inputs[name]
                 if t is static:
@@ -120,8 +190,10 @@ class CapturedProgram:
                 else:
                     static.copy_(t)
             self.graph.replay()
-            return {k: (v[:rows] if cut else v).clone()
-                    for k, v in self.static_outputs.items()}
+            out = {k: (v[:rows] if cut else v).clone()
+                   for k, v in self.static_outputs.items()}
+            pool.done.record(stream)
+            return out
 
     def _check(self, env: Dict[str, torch.Tensor], rows: int) -> None:
         """Hold each input to ``rows`` rows of its static tensor's shape
@@ -140,3 +212,58 @@ class CapturedProgram:
                 raise ValueError(
                     f"input {name!r}: expected {want} {static.dtype}, got "
                     f"{tuple(t.shape)} {t.dtype}")
+
+
+def _retire(pool: GraphPool) -> None:
+    """A capture that fails (another thread's device-wide synchronise
+    invalidates it) leaves its pool id refused by the allocator's next
+    capture ("already recording"), even after the recording is ended.
+    So end it (later captures must not allocate into it) and take a
+    fresh pool id for the executable's later captures; the programs
+    captured before keep theirs alive, and every replay stays ordered
+    after the previous one."""
+    try:
+        torch._C._cuda_endAllocateToPool(torch.cuda.current_device(),
+                                         pool.handle)
+    except Exception:
+        pass          # the capture ended its recording itself
+    pool.handle = torch.cuda.graph_pool_handle()
+
+
+def capture(fn: Callable[[], object], device: torch.device,
+            pool: GraphPool) -> Tuple[torch.cuda.CUDAGraph, object, int]:
+    """Warm ``fn()`` up on a side stream, then capture one call of it into
+    ``pool``: ``(graph, what the captured call returned, bytes the
+    capture added to the pool)``.  Used for programs and for the
+    autotuner's measurements alike."""
+    with _CAPTURE_LOCK, torch.cuda.device(device), torch.inference_mode():
+        # One warm-up stream per device (captures hold the lock): a new
+        # stream would make cuBLAS/cuDNN set up workspaces for it, which
+        # the allocator keeps.
+        side = _WARMUP_STREAMS.get(device)
+        if side is None:
+            side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        # torch.cuda.graph empties the allocator's cache as it starts;
+        # doing it first makes the reserved bytes before and after the
+        # capture differ by what it added to the pool.
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        graph = torch.cuda.CUDAGraph()
+        # The outer stream context restores this thread's stream if the
+        # capture fails (torch.cuda.graph's exit then skips it).
+        try:
+            with torch.cuda.stream(torch.cuda.current_stream(device)), \
+                    torch.cuda.graph(graph, pool=pool.handle,
+                                     capture_error_mode="thread_local"):
+                out = fn()
+        except BaseException:
+            _retire(pool)
+            raise
+        added = torch.cuda.memory_reserved(device) - reserved
+        pool.bytes += added
+    return graph, out, added

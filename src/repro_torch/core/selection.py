@@ -27,6 +27,14 @@ target's kernels take the graph.
   The flat elementwise kernel takes any shape, so it needs no per-node
   decision, and the reference's lane-alignment gate has no counterpart.
 
+The selection is what the lowering runs: ``LoweringContext.selection``
+carries it, and the ``cuda`` dense and decode rules launch the plan a
+choice names.  A heuristic choice names the committed plan (what the
+wrappers compute from the shape); a measured one (``source=
+"measured"``, from ``repro_torch.autotune``) may name a tactic of the
+kernel's grid (``kernels/tiles.py``) in its ``tactic``, which
+:func:`tactic_plan` lays out with the kernel's plan function.
+
 The reference's ``_ON_TPU`` gates become :func:`check_kernel_device`:
 the ``cuda`` target compiles for the CPU, where each kernel wrapper runs
 its plain version, or for a Hopper card, and raises on any other CUDA
@@ -48,6 +56,7 @@ from ..kernels.decode_attention.ref import DEFAULT_BS
 from ..kernels.decode_attention.kernel import chunk_plan
 from ..kernels.fused_matmul.kernel import plan as dense_plan
 from ..kernels.fused_matmul.kernel import plan_q8
+from ..kernels.tiles import TACTIC_PARAMS
 
 #: The compute capability the kernels are built for (``sm_90a``).
 HOPPER = (9, 0)
@@ -55,10 +64,16 @@ HOPPER = (9, 0)
 
 @dataclasses.dataclass(frozen=True)
 class KernelChoice:
-    """One selector decision, as shown in ``cost_summary()``.  The
-    ``source``/``block``/``measured_us`` fields keep the reference's
-    record shape; the profile-guided tuner that fills them is ROADMAP
-    A.8, so every choice here is ``"heuristic"``."""
+    """One selector decision, as shown in ``cost_summary()``.
+
+    ``source`` is ``"heuristic"`` (this module) or ``"measured"`` (the
+    autotuner, ``repro_torch.autotune.tuner``).  ``block`` holds the
+    facts of the plan the node runs (:func:`plan_block`): (rows, K
+    split, columns) of a dense tile, (tile depth, tiles a chunk) of
+    decode attention.  ``tactic`` is a measured choice's plan overrides,
+    in the order of ``kernels.tiles.TACTIC_PARAMS[kernel]``, or None for
+    the heuristic's plan.  ``measured_us`` holds every candidate's
+    device µs of a measured choice."""
 
     node: str
     op: str
@@ -67,18 +82,62 @@ class KernelChoice:
     source: str = "heuristic"
     block: Optional[Tuple[int, ...]] = None
     measured_us: Optional[Dict[str, float]] = None
+    tactic: Optional[Tuple[int, ...]] = None
 
     def to_dict(self) -> Dict[str, object]:
         return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: Dict[str, object]) -> "KernelChoice":
-        """Invert :meth:`to_dict` through JSON (``block`` comes back a
-        list)."""
+        """Invert :meth:`to_dict` through JSON (``block`` and ``tactic``
+        come back lists)."""
         d = dict(d)
-        if d.get("block") is not None:
-            d["block"] = tuple(d["block"])
+        for f in ("block", "tactic"):
+            if d.get(f) is not None:
+                d[f] = tuple(d[f])
         return cls(**d)
+
+
+def tactic_plan(kernel: str, tactic: Optional[Tuple[int, ...]], *,
+                m: int = 0, k: int = 0, n: int = 0, w_layout: str = "io",
+                itemsize: int = 4, b: int = 0, hkv: int = 0, s: int = 0):
+    """The plan ``kernel``'s plan function lays out with ``tactic``'s
+    overrides (none for None: the heuristic's plan): a ``Plan`` for the
+    dense kernels at (M, K, N), ``(tiles per chunk, chunks)`` for decode
+    attention at (B, Hkv, S)."""
+    kw = {}
+    if tactic is not None:
+        if len(tactic) != len(TACTIC_PARAMS.get(kernel, ())):
+            raise ValueError(f"{kernel}{list(tactic)} is no tactic of the "
+                             f"kernel grids")
+        kw = dict(zip(TACTIC_PARAMS[kernel], (int(t) for t in tactic)))
+    if kernel == "cuda.fused_matmul":
+        return dense_plan(m, k, n, w_layout=w_layout, itemsize=itemsize,
+                          **kw)
+    if kernel == "cuda.fused_matmul_q8":
+        if kw:
+            kw["tile"] = (kw.pop("tile_m"), kw.pop("tile_n"))
+        return plan_q8(m, k, n, w_layout=w_layout, **kw)
+    if kernel == "cuda.decode_attention":
+        return chunk_plan(b, hkv, s, **kw)
+    raise KeyError(f"no plan function for kernel {kernel!r}")
+
+
+def plan_block(kernel: str, plan) -> Tuple[int, ...]:
+    """The facts of ``plan`` a :class:`KernelChoice` records as its
+    ``block``."""
+    if kernel == "cuda.decode_attention":
+        return (DEFAULT_BS, plan[0])
+    return (plan.block[0], plan.ksplit, plan.block[1])
+
+
+def choice_plan(choice: Optional[KernelChoice], **shape):
+    """The plan a measured choice's tactic names, laid out at ``shape``
+    (the keywords of :func:`tactic_plan`); None when the choice names
+    the heuristic's plan, which the wrappers compute from the shape."""
+    if choice is None or choice.tactic is None:
+        return None
+    return tactic_plan(choice.kernel, choice.tactic, **shape)
 
 
 def check_kernel_device(device) -> None:
@@ -117,7 +176,7 @@ def _select_dense(node, in_spec, batch_size: int, n: int) -> KernelChoice:
         node.name, "dense", kernel,
         f"M={m} K={k} N={n} {layout}: {p.describe()}, {mem}, "
         f"{p.pad_waste(m, k, n):.1f}x pad waste",
-        block=(p.block[0], p.ksplit, p.block[1]))
+        block=plan_block(kernel, p))
 
 
 def _select_decode_attention(node, q_spec, kv_spec,
@@ -131,7 +190,7 @@ def _select_decode_attention(node, q_spec, kv_spec,
         f"tiles, {tpc} a chunk; {nchunks} chunks x {batch_size * hkv} "
         f"(batch, KV head) blocks, each with its {h // hkv} query heads, "
         f"score and p.V kernels, then a combine in chunk order",
-        block=(DEFAULT_BS, tpc))
+        block=plan_block("cuda.decode_attention", (tpc, nchunks)))
 
 
 def select_kernels(

@@ -11,7 +11,7 @@ validates the tensors and counts calls.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,33 +32,47 @@ TARGET_BLOCKS = 256
 MAX_TILES_PER_CHUNK = 2
 
 
-def chunk_plan(b: int, hkv: int, s: int) -> Tuple[int, int]:
+def chunk_plan(b: int, hkv: int, s: int, *,
+               tiles_per_chunk: Optional[int] = None,
+               target_blocks: Optional[int] = None) -> Tuple[int, int]:
     """(tiles per chunk, chunks): the most tiles a chunk, up to
     MAX_TILES_PER_CHUNK, that still give ``b * hkv * chunks`` >=
-    TARGET_BLOCKS, else one.  Pure; chunk edges fall on 512-row tiles."""
+    TARGET_BLOCKS, else one.  ``tiles_per_chunk`` and ``target_blocks``
+    override MAX_TILES_PER_CHUNK and TARGET_BLOCKS (the autotuner's
+    tactics, ``tiles.B4_GRID``); left None, the plan is the heuristic's.
+    The 512-row tile depth is no tactic: under ``fast`` it changes the
+    result, the chunking does not.  Pure; chunk edges fall on 512-row
+    tiles."""
+    most = MAX_TILES_PER_CHUNK if tiles_per_chunk is None \
+        else int(tiles_per_chunk)
+    target = TARGET_BLOCKS if target_blocks is None else int(target_blocks)
+    if most < 1 or target < 1:
+        raise ValueError(f"chunk_plan: tiles_per_chunk {most} and "
+                         f"target_blocks {target} must be positive")
     ntiles = -(-s // DEFAULT_BS)
-    for tpc in range(MAX_TILES_PER_CHUNK, 0, -1):
+    for tpc in range(most, 0, -1):
         chunks = -(-ntiles // tpc)
-        if b * hkv * chunks >= TARGET_BLOCKS or tpc == 1:
+        if b * hkv * chunks >= target or tpc == 1:
             return tpc, chunks
     raise AssertionError("unreachable")
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lengths: torch.Tensor, out: torch.Tensor, *, scale: float,
-           fast: bool) -> None:
+           fast: bool, tpc: int) -> None:
     """out(B, H, D) = attention of q(B, H, D) over K/V(B, S, Hkv, D) up to
-    ``lengths`` (B,), on the current stream of ``q``'s device: the three
-    kernels of one call, their scratch from ``torch.empty``.  The wrapper
-    has checked devices, dtypes, shapes and contiguity."""
+    ``lengths`` (B,), on the current stream of ``q``'s device, S cut into
+    chunks of ``tpc`` tiles: the three kernels of one call, their scratch
+    from ``torch.empty``.  The wrapper has checked devices, dtypes, shapes
+    and contiguity."""
     from .. import build
 
     lib = build.load()
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    tpc, chunks = chunk_plan(b, hkv, s)
     ntiles = -(-s // DEFAULT_BS)
+    chunks = -(-ntiles // tpc)
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, h, s), **f32)
     tmax = torch.empty((b, h, ntiles), **f32)

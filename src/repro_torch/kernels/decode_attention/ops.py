@@ -26,10 +26,13 @@ def decode_attention(
     *,
     scale: Optional[float] = None,
     fast: bool = False,
+    tiles_per_chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """q (B, H, D), K/V (B, S, Hkv, D) f32, lengths (B,) int32 (missing:
     every row is valid); returns (B, H, D) f32.  ``scale`` defaults to
-    D^-1/2."""
+    D^-1/2.  ``tiles_per_chunk`` is the 512-row tiles of one chunk of S
+    (a tactic the autotuner chose); None takes ``kernel.chunk_plan``'s.
+    The plain version on the CPU is the same for every chunking."""
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, K "
                          f"{tuple(k_cache.shape)}, V {tuple(v_cache.shape)}")
@@ -64,10 +67,15 @@ def decode_attention(
             f"decode_attention: the kernel takes G = H/Hkv <= "
             f"{kernel.MAX_GROUP} and D <= {kernel.MAX_HEAD_DIM}, got "
             f"G={h // hkv} D={d}")
+    if tiles_per_chunk is None:
+        tiles_per_chunk, _ = kernel.chunk_plan(b, hkv, s)
+    if int(tiles_per_chunk) < 1:
+        raise ValueError(f"decode_attention: tiles_per_chunk must be >= 1, "
+                         f"got {tiles_per_chunk}")
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if b and s and h and d:
         kernel.launch(q, k_cache, v_cache, lengths, out, scale=scale,
-                      fast=fast)
+                      fast=fast, tpc=int(tiles_per_chunk))
         decode_attention.launches += 1
     return out
 

@@ -146,46 +146,72 @@ def _split(k: int, tiles: int, max_ksplit: Optional[int], max_splits: int,
 
 
 def plan(m: int, k: int, n: int, *, w_layout: str = "io",
-         itemsize: int = 4) -> Plan:
+         itemsize: int = 4, target_blocks: Optional[int] = None,
+         min_ksplit: Optional[int] = None) -> Plan:
     """The f32/bf16 kernel's plan for x (M, K) . W -> (M, N): the GEMV
     path for M <= GEMV_MAX_M, else 32x32 tiles; K split to cover the
-    card.  Pure: the wrapper launches it and the selector reports it."""
+    card.  ``target_blocks`` and ``min_ksplit`` override TARGET_BLOCKS
+    and MIN_KSPLIT (the autotuner's tactics, ``tiles.B1_GRID``); left
+    None, the plan is the heuristic's.  Pure: the wrapper launches it
+    and the selector reports it."""
+    target = TARGET_BLOCKS if target_blocks is None else int(target_blocks)
+    shallowest = MIN_KSPLIT if min_ksplit is None else int(min_ksplit)
+    if target < 1 or shallowest < 1:
+        raise ValueError(f"plan: target_blocks {target} and min_ksplit "
+                         f"{shallowest} must be positive")
     if m <= GEMV_MAX_M:
         cols = GEMV_THREADS // 32 if w_layout == "oi" else 32
         gx = -(-n // cols)
         splits, ksplit = _split(k, gx, GEMV_X_FLOATS // gemv_rows(m), 65535,
-                                TARGET_BLOCKS, MIN_KSPLIT, SPLIT_ALIGN)
+                                target, shallowest, SPLIT_ALIGN)
         return Plan("gemv", (m, cols), splits, ksplit, (gx, splits, 1),
                     gemv_smem_bytes(gemv_rows(m), w_layout))
     bm, _, bn = CUDA_BLOCK
     gx, gy = -(-n // bn), -(-m // bm)
-    splits, ksplit = _split(k, gx * gy, None, MAX_SPLITS, TARGET_BLOCKS,
-                            MIN_KSPLIT, SPLIT_ALIGN)
+    splits, ksplit = _split(k, gx * gy, None, MAX_SPLITS, target,
+                            shallowest, SPLIT_ALIGN)
     return Plan("tiled", (bm, bn), splits, ksplit, (gx, gy, splits),
                 tiled_smem_bytes(*CUDA_BLOCK, itemsize, CUDA_STAGES))
 
 
-def plan_q8(m: int, k: int, n: int, *, w_layout: str = "io") -> Plan:
+def plan_q8(m: int, k: int, n: int, *, w_layout: str = "io",
+            tile: Optional[Tuple[int, int]] = None,
+            wide_k: Optional[int] = None, min_ksplit: Optional[int] = None,
+            gemv_cols: Optional[int] = None) -> Plan:
     """The int8 kernel's plan for q(x) (M, K) . Wq -> (M, N): the GEMV
     path for M <= GEMV_MAX_M, else ``Q8_TILE`` tiles on s8 ``mma.sync``
     with a block's K range of at most Q8_MAX_KSPLIT staged at once; K
     split to cover the card.  On the GEMV path's "oi", a column's row of
     Wq is read 16 bytes a lane by just enough lanes (a power of two) that
-    each issues at most Q8_GEMV_CHUNKS loads.  Pure: the wrapper launches
-    it and the selector reports it."""
+    each issues at most Q8_GEMV_CHUNKS loads.  ``tile`` (one of
+    ``tiles.Q8_TILES``), ``wide_k``, ``min_ksplit`` and ``gemv_cols``
+    override Q8_TILE, Q8_WIDE_K, Q8_MIN_KSPLIT and Q8_GEMV_COLS (the
+    autotuner's tactics, ``tiles.B2_GRID``); left None, the plan is the
+    heuristic's.  Pure: the wrapper launches it and the selector reports
+    it."""
+    tile = Q8_TILE if tile is None else tuple(int(t) for t in tile)
+    wide_k = Q8_WIDE_K if wide_k is None else int(wide_k)
+    shallowest = Q8_MIN_KSPLIT if min_ksplit is None else int(min_ksplit)
+    gemv_cols = Q8_GEMV_COLS if gemv_cols is None else int(gemv_cols)
+    if tile not in Q8_TILES:
+        raise ValueError(f"plan_q8: tile {tile} is none of {Q8_TILES}")
+    if shallowest < 1 or not 1 <= gemv_cols <= Q8_GEMV_MAX_THREADS:
+        raise ValueError(f"plan_q8: min_ksplit {shallowest} and gemv_cols "
+                         f"{gemv_cols} out of range")
+
     def split(tiles, max_ksplit):
         return _split(k, tiles, max_ksplit, 65535, Q8_TARGET_BLOCKS,
-                      Q8_MIN_KSPLIT, Q8_BK)
+                      shallowest, Q8_BK)
 
     if m <= GEMV_MAX_M:
         rows = gemv_rows(m)
         if w_layout == "oi":
-            splits, ksplit = split(-(-n // Q8_GEMV_COLS),
+            splits, ksplit = split(-(-n // gemv_cols),
                                    Q8_GEMV_X_BYTES // rows)
             chunks = -(-min(k, ksplit) // 16)
             lanes = min(32, gemv_rows(-(-chunks // Q8_GEMV_CHUNKS)))
             threads = min(Q8_GEMV_MAX_THREADS,
-                          max(32, Q8_GEMV_COLS * lanes))
+                          max(32, gemv_cols * lanes))
         else:
             lanes, threads = 0, Q8_GEMV_IO_THREADS
             splits, ksplit = split(-(-n // 32), Q8_GEMV_X_BYTES // rows)
@@ -194,12 +220,31 @@ def plan_q8(m: int, k: int, n: int, *, w_layout: str = "io") -> Plan:
         return Plan("gemv", (m, cols), splits, ksplit, (gx, splits, 1),
                     q8_gemv_smem_bytes(rows, w_layout), threads=threads,
                     lanes=lanes, kstep=Q8_BK)
-    bm, bn = Q8_TILE
+    bm, bn = tile
     gx, gy = -(-n // bn), -(-m // bm)
     splits, ksplit = split(gx * gy, Q8_MAX_KSPLIT)
-    threads = Q8_TILED_THREADS[min(k, ksplit) >= Q8_WIDE_K]
+    threads = Q8_TILED_THREADS[min(k, ksplit) >= wide_k]
     return Plan("tiled", (bm, bn), splits, ksplit, (gx, gy, splits),
                 q8_tiled_smem_bytes(bm, bn), threads=threads, kstep=Q8_BK)
+
+
+def check_plan(p: Plan, m: int, k: int, n: int, what: str) -> None:
+    """Raise unless ``p`` lays out an (M, K) . (K, N) product: its block
+    rows and grid cover M and N and its splits cover K with none empty
+    (a ready plan a caller passes to a wrapper, made for another shape,
+    would read out of bounds)."""
+    bm, bn = p.block
+    if p.path == "gemv":
+        grid = (-(-n // bn), p.splits, 1)
+        ok = bm == m and m <= GEMV_MAX_M
+    else:
+        grid = (-(-n // bn), -(-m // bm), p.splits)
+        ok = m > GEMV_MAX_M
+    ok &= p.grid == grid and p.splits * p.ksplit >= k \
+        and (p.splits - 1) * p.ksplit < max(k, 1)
+    if not ok:
+        raise ValueError(f"{what}: the plan {p} does not lay out "
+                         f"M={m} K={k} N={n}")
 
 
 class SplitCounters:
@@ -232,17 +277,18 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def launch(x: torch.Tensor, w: torch.Tensor, bias, scale, offset,
            out: torch.Tensor, *, fn: Optional[str], alpha: float,
-           fast: bool, w_layout: str, counters: SplitCounters) -> None:
+           fast: bool, w_layout: str, counters: SplitCounters,
+           p: Plan) -> None:
     """out(M, N) = epilogue(x(M, K) . W) on the current stream of
-    ``x``'s device, as :func:`plan` lays it out: one launch, its K-split
-    partials in a scratch tensor, reduced through ``counters``.  The
-    wrapper has checked devices, dtypes, shapes and contiguity."""
+    ``x``'s device, as the plan ``p`` lays it out: one launch, its
+    K-split partials in a scratch tensor, reduced through ``counters``.
+    The wrapper has checked devices, dtypes, shapes, contiguity and the
+    plan."""
     from .. import build
 
     lib = build.load()
     m, k = x.shape
     n = out.shape[1]
-    p = plan(m, k, n, w_layout=w_layout, itemsize=x.element_size())
     part = tile_counters = None
     if p.splits > 1:
         part = torch.empty(p.splits * m * n, dtype=torch.float32,
@@ -262,18 +308,17 @@ def launch(x: torch.Tensor, w: torch.Tensor, bias, scale, offset,
 def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
               scale, offset, out: torch.Tensor, *, x_scale: float,
               fn: Optional[str], alpha: float, fast: bool,
-              w_layout: str, counters: SplitCounters) -> None:
+              w_layout: str, counters: SplitCounters, p: Plan) -> None:
     """out(M, N) = epilogue(deq * (q(x)(M, K) . Wq)) on the current stream
     of ``x``'s device, x quantized with ``x_scale`` as it is loaded, as
-    :func:`plan_q8` lays it out: one launch, its K-split int32 partials in
-    a scratch tensor.  The wrapper has checked devices, dtypes, shapes and
-    contiguity."""
+    the plan ``p`` lays it out: one launch, its K-split int32 partials in
+    a scratch tensor.  The wrapper has checked devices, dtypes, shapes,
+    contiguity and the plan."""
     from .. import build
 
     lib = build.load()
     m, k = x.shape
     n = out.shape[1]
-    p = plan_q8(m, k, n, w_layout=w_layout)
     part = tile_counters = None
     if p.splits > 1:
         part = torch.empty(p.splits * m * n, dtype=torch.int32,

@@ -58,6 +58,7 @@ def fused_matmul(
     w_layout: str = "io",
     attrs: Optional[dict] = None,
     counters: Optional[kernel.SplitCounters] = None,
+    plan: Optional[kernel.Plan] = None,
 ) -> torch.Tensor:
     """y = affine(act(x @ W + bias)) with W in 'io' (K,N) or 'oi' (N,K).
 
@@ -65,7 +66,10 @@ def fused_matmul(
     are f32 or bf16 (x and W alike), bias/scale/offset f32 (N,); the
     output is f32.  ``counters`` are the split counters of the program
     that calls (``LoweringContext.counters``); a direct call uses
-    ``kernel.SHARED_COUNTERS``.
+    ``kernel.SHARED_COUNTERS``.  ``plan`` is a ready
+    :func:`kernel.plan` for this (M, K, N) (a tactic the autotuner
+    chose); None launches the heuristic's.  The plain version on the CPU
+    is the same for every plan.
     """
     n = _check_common("fused_matmul", x, w, scale, offset, fn, w_layout)
     attrs = attrs or {}
@@ -94,10 +98,14 @@ def fused_matmul(
         raise ValueError(f"fused_matmul: M={m} exceeds the grid's {kernel.MAX_M}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
+        if plan is None:
+            plan = kernel.plan(m, k, n, w_layout=w_layout,
+                               itemsize=x.element_size())
+        kernel.check_plan(plan, m, k, n, "fused_matmul")
         kernel.launch(x2, w, bias, scale, offset, out, fn=fn,
                       alpha=attrs.get("alpha", 0.01), fast=fast,
                       w_layout=w_layout,
-                      counters=counters or kernel.SHARED_COUNTERS)
+                      counters=counters or kernel.SHARED_COUNTERS, p=plan)
         fused_matmul.launches += 1
     return out.reshape(shape[:-1] + (n,))
 
@@ -123,6 +131,7 @@ def fused_matmul_q8(
     w_layout: str = "io",
     attrs: Optional[dict] = None,
     counters: Optional[kernel.SplitCounters] = None,
+    plan: Optional[kernel.Plan] = None,
 ) -> torch.Tensor:
     """Int8 fused matmul: y = affine(act(deq * (q(x) @ Wq) + bias)) with
     q(x) = ``qmath.quantize_q8(x, x_scale)`` and Wq int8 in 'io' (K,N) or
@@ -132,7 +141,8 @@ def fused_matmul_q8(
     float (rounded to f32, as the reference rounds it); deq/bias/scale/
     offset f32 (N,); the output is f32.  The kernel quantizes x as it
     loads it, so a CUDA call is one launch.  ``counters`` as for
-    :func:`fused_matmul`.
+    :func:`fused_matmul`; ``plan`` a ready :func:`kernel.plan_q8`, as
+    there.
     """
     n = _check_common("fused_matmul_q8", x, wq, scale, offset, fn, w_layout)
     attrs = attrs or {}
@@ -169,11 +179,15 @@ def fused_matmul_q8(
                          f"{kernel.MAX_M_Q8}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
+        if plan is None:
+            plan = kernel.plan_q8(m, k, n, w_layout=w_layout)
+        kernel.check_plan(plan, m, k, n, "fused_matmul_q8")
         kernel.launch_q8(x2, wq, deq, bias, scale, offset, out,
                          x_scale=float(np.float32(x_scale)), fn=fn,
                          alpha=attrs.get("alpha", 0.01), fast=fast,
                          w_layout=w_layout,
-                         counters=counters or kernel.SHARED_COUNTERS)
+                         counters=counters or kernel.SHARED_COUNTERS,
+                         p=plan)
         fused_matmul_q8.launches += 1
     return out.reshape(shape[:-1] + (n,))
 

@@ -130,3 +130,35 @@ assert max(q8_tiled_smem_bytes(bm, bn) for bm, bn in Q8_TILES) \
     <= STATIC_SMEM_BYTES, "a Q8_TILES tile outgrows static shared memory"
 assert q8_gemv_smem_bytes(GEMV_MAX_M, "io") <= STATIC_SMEM_BYTES, \
     "the int8 GEMV path outgrows a block's static shared memory"
+
+
+# ---------------------------------------------------------------------------
+# The autotuner's tactic grids (``autotune/tactics.py`` enumerates them)
+# ---------------------------------------------------------------------------
+#: The plan overrides each tuned kernel is measured at, by parameter of
+#: its plan function: B1 ``fused_matmul`` (``kernel.plan``), B2
+#: ``fused_matmul_q8`` (``kernel.plan_q8``; ``tile`` is one of Q8_TILES,
+#: split into ``tile_m`` and ``tile_n`` in a tactic), B4
+#: ``decode_attention`` (``kernel.chunk_plan``; the 512-row tile depth is
+#: no tactic, it changes the ``fast`` result).  B3 ``fast_act`` has no
+#: plan, so no grid.  The values bracket the committed constants, which
+#: benchmarks/plan_sweep_torch.py chose at the main path's shapes.
+B1_GRID = {"target_blocks": (16, 32, 64, 128),
+           "min_ksplit": (32, 64, 128, 256)}
+B2_GRID = {"tile": Q8_TILES, "wide_k": (32, 128, 512),
+           "min_ksplit": (64, 128, 256), "gemv_cols": (2, 4, 8, 16)}
+B4_GRID = {"tiles_per_chunk": (1, 2, 4, 8),
+           "target_blocks": (132, 256, 512)}
+#: The grid of each tuned kernel, by its selector name.
+TACTIC_GRIDS = {"cuda.fused_matmul": B1_GRID,
+                "cuda.fused_matmul_q8": B2_GRID,
+                "cuda.decode_attention": B4_GRID}
+#: The parameters of a tactic, in the order of ``KernelChoice.tactic``.
+TACTIC_PARAMS = {
+    "cuda.fused_matmul": ("target_blocks", "min_ksplit"),
+    "cuda.fused_matmul_q8": ("tile_m", "tile_n", "wide_k", "min_ksplit",
+                             "gemv_cols"),
+    "cuda.decode_attention": ("tiles_per_chunk", "target_blocks"),
+}
+#: Largest gridDim.y and gridDim.z of a launch.
+MAX_GRID_YZ = 65535

@@ -155,15 +155,32 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("precision", "mixed", "A.8"),
-    ("autotune", "cached", "A.8"),
-    ("autotune", "full", "A.8"),
     ("mesh", "data=4", "A.14"),
     ("sharding_rules", (("batch", "data"),), "A.14"),
     ("capture", "bundle", "A.10"),
 ])
 def test_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
+        repro_torch.CompileOptions(**{field: value}, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("precision", "mixed"), ("autotune", "cached"), ("autotune", "full")])
+def test_autotune_options_are_accepted(field, value):
+    opts = repro_torch.CompileOptions(**{field: value}, device="cpu")
+    assert getattr(opts, field) == value
+    # The autotune fields key the executable cache through what they
+    # resolve to (decided graph, selection), not through the token.
+    assert (opts.replace(autotune="off").cache_token()
+            == opts.cache_token())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("autotune", "bogus"), ("autotune", "always"),
+    ("precision_budget", 0.0), ("precision_budget", -0.05),
+    ("autotune_budget_ms", 0.0)])
+def test_autotune_options_are_validated(field, value):
+    with pytest.raises(ValueError, match=field):
         repro_torch.CompileOptions(**{field: value}, device="cpu")
 
 

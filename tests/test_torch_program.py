@@ -13,6 +13,7 @@ and the CPU's refusal of what only a card has.
 """
 
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch
-from repro_torch.core import lowering
+from repro_torch.core import lowering, program
 from repro_torch.core.lowering import LoweredGraph
 from repro_torch.core.program import CapturedProgram
 from repro_torch.kernels.fused_matmul import kernel as fm_kernel
@@ -45,6 +46,51 @@ def card():
 # ---------------------------------------------------------------------------
 # Anywhere
 # ---------------------------------------------------------------------------
+def test_pool_lays_out_the_largest_batch_first(monkeypatch):
+    # GraphPool.admit's order, with the capture stubbed: a batch larger
+    # than every captured one releases the others, takes a fresh pool id
+    # and captures them again after itself, largest first, on their own
+    # static inputs; a smaller one just joins.  A recapture that fails
+    # raises and leaves the programs not yet captured without a graph.
+    captured, handles = [], iter(range(100))
+
+    class Graph:
+        def reset(self):
+            pass
+
+    class Eager:
+        def __init__(self, batch):
+            self.ctx = types.SimpleNamespace(batch_size=batch)
+
+        def __call__(self, env):
+            if self.ctx.batch_size == fail_at[0]:
+                raise RuntimeError("capture failed")
+            captured.append(self.ctx.batch_size)
+
+    def fake_capture(fn, device, pool):
+        fn()
+        pool.bytes += 1
+        return Graph(), {}, 1
+
+    fail_at = [None]
+    monkeypatch.setattr(program, "capture", fake_capture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: next(handles))
+    pool = program.GraphPool(torch.device("cuda"))
+    held = []
+    for b in (129, 200, 150, 256, 137):
+        held.append(pool.admit(Eager(b), {}, held))
+    assert captured == [129, 200, 129, 150, 256, 200, 150, 129, 137]
+    assert pool.handle == 2 and pool.bytes == 5
+    assert [p.batch for p in held] == [129, 200, 150, 256, 137]
+    assert all(p.graph is not None and p.pool is pool for p in held)
+    fail_at[0] = 150
+    with pytest.raises(RuntimeError, match="capture failed"):
+        pool.admit(Eager(300), {}, held)
+    assert sorted(p.batch for p in held if p.graph is None) == [129, 137,
+                                                                  150]
+
+
 def test_split_counters_grow_without_freeing():
     owner = fm_kernel.SplitCounters()
     cpu = torch.device("cpu")
@@ -342,3 +388,84 @@ def test_background_capture_while_replaying(card):
     for k in served:
         assert torch.allclose(served[k], again[k], rtol=0, atol=1e-5)
     exe.shutdown()
+
+
+@pytest.mark.cuda
+def test_programs_share_one_pool_within_its_bound(card):
+    """The programs of one executable capture into one pool: in whatever
+    order the batch sizes arrive, the reserved memory grows by the
+    largest batch's pool and the programs' static inputs and outputs
+    (10% slack), not by one pool a batch size; every program replays
+    bit-equal to its eager walk in any order, its outputs unchanged by
+    calls to the others and by the pool's relayouts."""
+    import random
+
+    batches = (256, 129, 200, 150, 241, 176, 137, 222)
+    orders = (batches, tuple(sorted(batches)),
+              tuple(random.Random(3).sample(batches, len(batches))))
+    # The process's one-time set-up (cuDNN and cuBLAS handles and their
+    # workspaces) happens on another executable, outside the growth.
+    warm = _compile("VGG19")
+    warm(input=_x(warm.source, 1))
+    feeds = {b: _x(warm.source, b, b) for b in batches}
+    for arrival in orders:
+        exe = _compile("VGG19")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        first = {b: exe(input=feeds[b]) for b in arrival}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        growth = torch.cuda.memory_reserved() - before
+        progs = {b: exe.ensure_compiled(b) for b in batches}
+        assert len({id(p.pool) for p in progs.values()}) == 1
+        statics = sum(t.numel() * t.element_size() for p in progs.values()
+                      for t in list(p.static_inputs.values())
+                      + list(p.static_outputs.values()))
+        assert growth <= (progs[256].pool_bytes + statics) * 1.1, arrival
+        assert exe.cost_summary()["graph_pool_bytes"] == sum(
+            p.pool_bytes for p in progs.values())
+        order = list(reversed(batches)) + random.Random(0).sample(
+            batches, len(batches))
+        (opt,) = exe.graph.outputs
+        (pub,) = exe.source.output_names
+        for b in order:
+            out = exe(input=feeds[b])
+            eager = progs[b].eager(
+                {"input": torch.from_numpy(feeds[b]).to(card)})
+            assert torch.equal(out[pub], eager[opt])
+            assert torch.equal(out[pub], first[b][pub])
+        del exe, progs, first
+
+
+@pytest.mark.cuda
+def test_two_threads_two_batches_two_streams(card):
+    """Two threads call one executable at two batch sizes, each on a
+    stream of its own: every replay waits on the card for the previous
+    one, so the two programs, which share intermediates, never overlap,
+    and every answer is bit-equal to the serial calls'."""
+    exe = _compile("C-BH")
+    feeds = {b: _x(exe.source, b, b) for b in (3, 17)}
+    want = {b: exe(input=feeds[b]) for b in feeds}
+    got, errors = {b: [] for b in feeds}, []
+
+    def serve(b):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(50):
+                    got[b].append(exe(input=feeds[b]))
+                torch.cuda.current_stream().synchronize()
+        except Exception as err:          # reported below
+            errors.append(err)
+
+    threads = [threading.Thread(target=serve, args=(b,)) for b in feeds]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    for b, outs in got.items():
+        assert len(outs) == 50
+        for out in outs:
+            for k in out:
+                assert torch.equal(out[k], want[b][k])

@@ -18,7 +18,9 @@ interpret mode here).  Tolerances, each with its reason:
   spread (ROADMAP C); f32 against exact bit-equal.
 """
 
+import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -240,11 +242,257 @@ def test_quantize_pass_annotates_as_the_reference(name, mode):
     assert stats[0] == stats[1]
 
 
-def test_quantize_pass_mixed_raises_naming_autotune():
+def test_quantize_pass_mixed_raises_naming_autotune(tmp_path):
+    """The pass runs ``mode="mixed"`` (no longer refused): on a tactic
+    cache seeded with one winner per site it annotates each site with its
+    winner, measuring nothing."""
+    from repro_torch.autotune.cache import (TacticCache,
+                                            environment_fingerprint, tactic_key)
+    quantize = sys.modules["repro_torch.core.passes.quantize"]
     g = PORT_SUITE["C-HTWK"]()
-    g.quant = {"mode": "mixed"}
-    with pytest.raises(NotImplementedError, match="A.8"):
-        port_run_pipeline(g)
+    pre, _ = port_run_pipeline(g, PRE_QUANTIZE)
+    sites = [n for n in pre.nodes if n.op in quantize.QUANT_OPS]
+    fp = environment_fingerprint("cpu")
+    cache = TacticCache(str(tmp_path / "tactics"))
+    winners = {}
+    for i, node in enumerate(sites):
+        winners[node.name] = ("bf16", "int8")[i % 2] if node.op == "dense" \
+            else ("bf16", "f32")[i % 2]
+        cache.store(tactic_key(quantize.site_desc(
+            node, pre, quantize.DEFAULT_PRECISION_BUDGET, "absmax", "cpu"),
+            fp), {"winner": winners[node.name], "fingerprint": fp})
+    g.quant = {"mode": "mixed", "measure": False, "cache_dir": str(tmp_path)}
+    out, rep = port_run_pipeline(g)
+    stats = next(p for p in rep["passes"] if p["pass"] == "quantize")
+    assert stats["mixed"]["entries"] == len(sites)
+    assert {s["source"] for s in stats["mixed"]["sites"].values()} == {"cached"}
+    modes = {n.name: n.attrs.get("quant.mode", "f32") for n in out.nodes
+             if n.name in winners}
+    assert modes == winners
+    assert out.quant == {"mode": "mixed", "decisions": {
+        m: sum(w == m for w in winners.values())
+        for m in ("f32", "bf16", "int8")}}
+
+
+# ---------------------------------------------------------------------------
+# mixed: per-site measured precision, against the reference
+# ---------------------------------------------------------------------------
+#: The default pipeline up to the quantize pass.
+PRE_QUANTIZE = ("canonicalize", "fold_constants", "fuse_pad",
+                "fuse_activation", "fold_batchnorm", "fuse_activation.post_bn")
+
+
+def _descs(monkeypatch, tmp_path, ref_g, port_g):
+    """The mixed-precision descriptors each package keys its sites by, in
+    site order: both compiled with ``autotune="cached"`` on empty caches
+    (nothing measured), their ``tactic_key`` watched."""
+    import repro.autotune.cache as ref_cache
+    import repro_torch.autotune.cache as port_cache
+
+    seen = {"ref": [], "port": []}
+
+    def spy(store, real):
+        def key(desc, *a, **kw):
+            if desc.get("kind") == "precision":
+                store.append(dict(desc))
+            return real(desc, *a, **kw)
+        return key
+
+    monkeypatch.setattr(ref_cache, "tactic_key",
+                        spy(seen["ref"], ref_cache.tactic_key))
+    monkeypatch.setattr(port_cache, "tactic_key",
+                        spy(seen["port"], port_cache.tactic_key))
+    repro.compile(ref_g, repro.CompileOptions(
+        target="jit", precision="mixed", autotune="cached",
+        cache_dir=str(tmp_path / "probe_ref")))
+    repro_torch.compile(port_g, target="jit", precision="mixed",
+                        autotune="cached", device="cpu",
+                        cache_dir=str(tmp_path / "probe_port"))
+    monkeypatch.undo()
+    return seen["ref"], seen["port"]
+
+
+def _seed(tmp_path, ref_descs, port_descs, winners):
+    """Each package's own tactic cache, holding the same winner per site
+    under each package's own key."""
+    import repro.autotune.cache as ref_cache
+    import repro_torch.autotune.cache as port_cache
+
+    ref_fp = ref_cache.environment_fingerprint()
+    port_fp = port_cache.environment_fingerprint("cpu")
+    ref_tc = ref_cache.TacticCache(str(tmp_path / "ref" / "tactics"))
+    port_tc = port_cache.TacticCache(str(tmp_path / "port" / "tactics"))
+    for rd, pd, w in zip(ref_descs, port_descs, winners):
+        ref_tc.store(ref_cache.tactic_key(rd, ref_fp),
+                     {"winner": w, "fingerprint": ref_fp})
+        port_tc.store(port_cache.tactic_key(pd, port_fp),
+                      {"winner": w, "fingerprint": port_fp})
+
+
+def _quant_attrs(graph):
+    return {n.name: {k: v for k, v in n.attrs.items() if k.startswith("quant.")}
+            for n in graph.nodes}
+
+
+@pytest.mark.parametrize("pattern", ["cycle", "int8", "f32"])
+@pytest.mark.parametrize("name", DENSE_GRAPHS)
+def test_mixed_seeded_winners_match_reference(monkeypatch, tmp_path, name,
+                                              pattern):
+    """The same per-site winners in both packages' caches give the same
+    ``quant.*`` annotations under ``autotune="cached"``.  Outputs: against
+    the reference compiled with the port's annotations (as
+    test_compile_matches_reference does) within 1e-5; a program whose
+    sites all won int8 (conv sites stay f32) is bit-equal to the int8
+    program, one whose sites all won f32 to the f32 program."""
+    ref_g, port_g = REF_SUITE[name](), PORT_SUITE[name]()
+    ref_descs, port_descs = _descs(monkeypatch, tmp_path, ref_g, port_g)
+    assert len(port_descs) == len(ref_descs) > 0
+    for rd, pd in zip(ref_descs, port_descs):
+        assert rd.pop("tpu") is False and pd.pop("device") == "cpu"
+        assert pd == rd
+    winners = []
+    for i, d in enumerate(port_descs):
+        if pattern == "f32":
+            winners.append("f32")
+        elif pattern == "int8":
+            winners.append("int8" if d["op"] == "dense" else "f32")
+        else:
+            winners.append(("int8", "bf16", "f32")[i % 3] if d["op"] == "dense"
+                           else ("bf16", "f32")[i % 2])
+    _, port_descs = _descs(monkeypatch, tmp_path, ref_g, port_g)
+    ref_descs, _ = _descs(monkeypatch, tmp_path, ref_g, port_g)
+    _seed(tmp_path, ref_descs, port_descs, winners)
+
+    feeds = _inputs(ref_g)
+    ref_exe = repro.compile(ref_g, repro.CompileOptions(
+        target="jit", precision="mixed", autotune="cached",
+        cache_dir=str(tmp_path / "ref")))
+    port = {t: repro_torch.compile(port_g, target=t, precision="mixed",
+                                   autotune="cached", device="cpu",
+                                   cache_dir=str(tmp_path / "port"))
+            for t in ("jit", "cuda")}
+    ref_q, port_q = _quant_attrs(ref_exe.graph), _quant_attrs(port["jit"].graph)
+    assert port_q.keys() == ref_q.keys()
+    for node, rq in ref_q.items():
+        pq = port_q[node]
+        assert pq.keys() == rq.keys(), node
+        for key in rq:
+            if key == "quant.x_scale":
+                np.testing.assert_allclose(pq[key], rq[key], rtol=1e-6)
+            else:
+                assert pq[key] == rq[key], (node, key)
+    assert port["jit"].graph.quant == ref_exe.graph.quant
+    assert _quant_attrs(port["cuda"].graph) == port_q
+
+    annotated = _quant_attrs(port["jit"].graph)
+    for node in ref_g.nodes:
+        node.attrs.update(annotated.get(node.name, {}))
+    want = repro.compile(ref_g, repro.CompileOptions(target="jit"))(**feeds)
+    for exe in port.values():
+        got = exe(**feeds)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=0, atol=ATOL)
+    if pattern != "cycle":
+        for t, exe in port.items():
+            same = repro_torch.compile(port_g, target=t, precision=pattern,
+                                       device="cpu")(**feeds)
+            got = exe(**feeds)
+            for k in got:
+                assert torch.equal(got[k], same[k]), (t, k)
+
+
+@pytest.mark.parametrize("name", DENSE_GRAPHS)
+def test_mixed_site_errors_match_reference(name):
+    """Each site's candidates through both packages' ``_site_runner`` on
+    the reference's first calibration batch: int8 outputs bit-equal, f32
+    and bf16 within 1e-5 times the site output's magnitude where that
+    exceeds 1 (VGG19's convolutions reach ~40, where torch's and XLA's
+    f32 sums, in another order, part by a few ulps), and so each
+    candidate's error against f32."""
+    from repro.core.passes import run_pipeline as ref_pipeline
+    ref_q = sys.modules["repro.core.passes.quantize"]
+    port_q = sys.modules["repro_torch.core.passes.quantize"]
+    ref_g, _ = ref_pipeline(REF_SUITE[name](), PRE_QUANTIZE)
+    port_g, _ = port_run_pipeline(PORT_SUITE[name](), PRE_QUANTIZE)
+    sites = [n for n in ref_g.nodes
+             if n.op in ref_q.QUANT_OPS and "kernel" in n.params]
+    ranges, first_inputs, _ = ref_q._calibrate(ref_g, 4, sites)
+    port_nodes = {n.name: n for n in port_g.nodes}
+    for node in sites:
+        x = first_inputs[node.name]
+        cands = ["f32"] + [c for c in ("bf16", "int8")
+                           if ref_q._static_site_mode(node, c, False) == c]
+        assert cands == ["f32"] + [
+            c for c in ("bf16", "int8")
+            if port_q._static_site_mode(port_nodes[node.name], c) == c]
+        outs = {}
+        for cand in cands:
+            run, args = ref_q._site_runner(node, ref_g, cand, x, ranges,
+                                           "absmax")
+            want = np.asarray(run(*args))
+            run, args = port_q._site_runner(port_nodes[node.name], port_g,
+                                            cand, x, ranges, "absmax", "cpu")
+            got = run(*args).float().numpy()
+            atol = ATOL * max(1.0, float(np.abs(want).max()))
+            if cand == "int8":
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+            outs[cand] = (got, want, atol)
+        for cand, (got, want, atol) in outs.items():
+            err_port = float(np.abs(got - outs["f32"][0]).max())
+            err_ref = float(np.abs(want - outs["f32"][1]).max())
+            assert abs(err_port - err_ref) <= 2 * atol, (node.name, cand)
+
+
+def test_mixed_tight_budget_is_f32(tmp_path):
+    """``precision_budget=1e-9`` leaves every narrow candidate over
+    budget: every site stays f32, bit-equal to ``precision="f32"``."""
+    g = PORT_SUITE["C-HTWK"]()
+    feeds = _inputs(g)
+    exe = repro_torch.compile(g, target="cuda", precision="mixed",
+                              precision_budget=1e-9, device="cpu",
+                              cache_dir=str(tmp_path),
+                              autotune_budget_ms=120_000)
+    assert exe.graph.quant["decisions"]["bf16"] == 0
+    assert exe.graph.quant["decisions"]["int8"] == 0
+    stats = next(p for p in exe.report["passes"] if p["pass"] == "quantize")
+    assert {s["source"] for s in stats["mixed"]["sites"].values()} == \
+        {"measured"}
+    f32 = repro_torch.compile(g, target="cuda", precision="f32",
+                              device="cpu")(**feeds)
+    got = exe(**feeds)
+    for k in got:
+        assert torch.equal(got[k], f32[k])
+
+
+def test_mixed_measures_on_the_compiles_device_unless_cached(tmp_path):
+    """``full``/``off`` measure (and store); ``cached`` and the
+    ``interpret`` target never do: a site without an entry stays f32."""
+    g = PORT_SUITE["C-BH"]()
+    for kw in (dict(target="interpret"), dict(target="cuda",
+                                              autotune="cached")):
+        exe = repro_torch.compile(g, precision="mixed", device="cpu",
+                                  cache_dir=str(tmp_path), **kw)
+        assert exe.cost_summary()["quant"]["decisions"]["f32"] == \
+            sum(exe.cost_summary()["quant"]["decisions"].values())
+    assert not os.path.exists(tmp_path / "tactics") or \
+        not os.listdir(tmp_path / "tactics")
+    exe = repro_torch.compile(g, target="cuda", precision="mixed",
+                              device="cpu", cache_dir=str(tmp_path),
+                              autotune_budget_ms=120_000)
+    stats = next(p for p in exe.report["passes"] if p["pass"] == "quantize")
+    assert stats["mixed"]["device"] == "cpu"
+    assert {s["source"] for s in stats["mixed"]["sites"].values()} == \
+        {"measured"}
+    stored = sorted(os.listdir(tmp_path / "tactics"))
+    assert len(stored) == stats["mixed"]["entries"]
+    # The interpret target still measures nothing (its sites, unfused,
+    # key other descriptors), and stores nothing.
+    repro_torch.compile(g, target="interpret", precision="mixed",
+                        device="cpu", cache_dir=str(tmp_path))
+    assert sorted(os.listdir(tmp_path / "tactics")) == stored
 
 
 # ---------------------------------------------------------------------------
