@@ -69,7 +69,23 @@ JAX package.  Every phase prints one JSON line (also written to
                  within budget, the median example within the path-A
                  budget of ``interpret``; seeded all-int8 and all-f32
                  winners bit-equal to the int8 and f32 programs.
-11. ``time``     medians of interpret/jit/cuda per model and batch (host
+11. ``frontends`` C-HTWK and VGG19 written as functions over
+                 ``repro_torch.frontends.ops`` and traced, at exact and
+                 fast (batch 1 and 256) and C-HTWK at int8 (batch 256);
+                 ``ops.decode_attention`` at path B's widths (batch 1);
+                 both models compiled from an ``.npz`` path, a
+                 ModelBuilder without ``.build()`` and a bare callable
+                 with ``example_inputs=`` on the card: each bit-equal to
+                 the main path's program, each replay's launches (the
+                 profiler's) equal to that program's.
+12. ``replay``   capture bundles of VGG19 exact and C-HTWK int8 with
+                 ``autotune="full"`` (batch 256 then 1) in
+                 ``chiprun_out/bundles``, each replayed by ``python -m
+                 repro_torch.replay --json`` in a fresh process (exit 0,
+                 bit-exact, selections and tactics equal); a copy with a
+                 byte of ``io.npz`` flipped exits 2.  Bundle bytes, the
+                 record's seconds per batch, the replay's seconds.
+13. ``time``     medians of interpret/jit/cuda per model and batch (host
                  clock around a synchronised call), captured and eager,
                  with the device's busy time per inference, exact and
                  fast (``torch.profiler``, which sees the kernels inside
@@ -1900,6 +1916,295 @@ def phase_mixed(torch, np, exes, inputs):
     return [f"mixed phase failed: {failures}"] if failures else []
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the frontends, capture bundles and python -m repro_torch.replay
+# ---------------------------------------------------------------------------
+#: The Table-1 models the frontends and replay phases drive (the two with
+#: dense nodes at both ends of the suite's size).
+FRONTEND_MODELS = ("C-HTWK", "VGG19")
+#: The replay phase's bundles: (model, precision), autotune="full".
+REPLAY_BUNDLES = (("VGG19", "exact"), ("C-HTWK", "int8"))
+REPLAY_TIMEOUT_S = 300
+
+
+def twin_htwk(p):
+    """C-HTWK (``table1_models.htwk_classifier``) written as a plain
+    function over ``repro_torch.frontends.ops``, on the builder graph's
+    own weight arrays ``p``."""
+    from repro_torch.frontends import ops as F
+
+    def htwk(input):
+        h = F.conv2d(input, p["conv2d_1/kernel"], p["conv2d_1/bias"],
+                     strides=(2, 2), activation="relu")
+        h = F.batchnorm(h, p["bn_3/gamma"], p["bn_3/beta"], p["bn_3/mean"],
+                        p["bn_3/var"])
+        h = F.conv2d(h, p["conv2d_4/kernel"], p["conv2d_4/bias"],
+                     strides=(2, 2), activation="relu")
+        h = F.dense(F.flatten(h), p["dense_7/kernel"], p["dense_7/bias"],
+                    activation="relu")
+        return F.softmax(F.dense(h, p["dense_9/kernel"], p["dense_9/bias"]))
+
+    return htwk
+
+
+def twin_vgg19(p):
+    """VGG19 (``table1_models.vgg19_style``) as a plain function over
+    ``repro_torch.frontends.ops``, on the builder graph's weights ``p``:
+    five blocks of 3x3 convolutions and a max pool, three dense layers,
+    a softmax."""
+    from repro_torch.frontends import ops as F
+    layers = lambda kind: sorted({k.split("/")[0] for k in p
+                                  if k.startswith(kind + "_")},
+                                 key=lambda n: int(n.split("_")[1]))
+    convs, dense = layers("conv2d"), layers("dense")
+
+    def vgg19(input):
+        h, conv = input, iter(convs)
+        for n_convs in (2, 2, 4, 4, 4):
+            for _ in range(n_convs):
+                c = next(conv)
+                h = F.conv2d(h, p[f"{c}/kernel"], p[f"{c}/bias"],
+                             activation="relu")
+            h = F.maxpool(h)
+        h = F.flatten(h)
+        for d in dense[:-1]:
+            h = F.dense(h, p[f"{d}/kernel"], p[f"{d}/bias"],
+                        activation="relu")
+        last = dense[-1]
+        return F.softmax(F.dense(h, p[f"{last}/kernel"], p[f"{last}/bias"]))
+
+    return vgg19
+
+
+TWINS = {"C-HTWK": twin_htwk, "VGG19": twin_vgg19}
+
+
+def phase_frontends(torch, np, exes, inputs, dec_exes, cuda_feeds):
+    """The frontends on the card, at full widths.  C-HTWK and VGG19
+    written as functions over ``repro_torch.frontends.ops`` and traced
+    (their node and output names differ from the builder graphs', their
+    weights are the same arrays), compiled at exact and fast (batch 1 and
+    256) and C-HTWK at int8 (batch 256); ``ops.decode_attention`` at path
+    B's widths (batch 1); and C-HTWK and VGG19 compiled from an ``.npz``
+    path, from a ModelBuilder without ``.build()`` and from a bare
+    callable with ``example_inputs=`` on the card (exact, batch 1 and
+    256).  Each output bit-equal to the main path's program on the same
+    feeds, and each replay's launches (the profiler's, by kernel name)
+    equal to that program's.  Every count is set to 0 before these
+    programs are prepared and read after their calls."""
+    import repro_torch
+    from repro_torch.core import TensorSpec
+    from repro_torch.frontends import ops as F
+    from repro_torch.frontends.container import save_model
+    from repro_torch.table1_models import SUITE
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "frontends")
+    os.makedirs(out_dir, exist_ok=True)
+    cases = []   # (label, exe, main-path exe, batches, deterministic cuDNN)
+    for name in FRONTEND_MODELS:
+        g = SUITE[name]()
+        shape = tuple(g.inputs["input"].shape)
+        traced = repro_torch.trace(TWINS[name](g.params), shape)
+        for prec in ("exact", "fast"):
+            cases.append((f"traced {name} {prec}", repro_torch.compile(
+                traced, target="cuda", precision=prec, device=DEVICE),
+                exes[name, "cuda", prec], BATCHES, False))
+        if name == "C-HTWK":
+            cases.append((f"traced {name} int8", repro_torch.compile(
+                traced, target="cuda", precision="int8", calibrate=4,
+                device=DEVICE), exes[name, "cuda", "int8"], BATCHES[-1:],
+                True))
+        path = os.path.join(out_dir, f"{name}.npz")
+        save_model(g, path)
+        mb = repro_torch.ModelBuilder()
+        mb.graph = g.copy()
+        example = torch.as_tensor(inputs[name, 1], device=DEVICE)
+        for how, model, kw in (
+                ("container", path, {}),
+                ("builder", mb, {"outputs": list(g.outputs)}),
+                ("callable", TWINS[name](g.params),
+                 {"example_inputs": (example,)})):
+            cases.append((f"{how} {name} exact", repro_torch.compile(
+                model, target="cuda", device=DEVICE, **kw),
+                exes[name, "cuda", "exact"], BATCHES, False))
+    dec_graph = repro_torch.trace(
+        lambda q, k, v, lengths: F.decode_attention(q, k, v, lengths),
+        (DECODE["h"], DECODE["d"]), (DECODE["s"], DECODE["hkv"], DECODE["d"]),
+        (DECODE["s"], DECODE["hkv"], DECODE["d"]), TensorSpec((), "int32"))
+    dec = repro_torch.compile(dec_graph, target="cuda", device=DEVICE)
+
+    prev = torch.backends.cudnn.deterministic
+    failures, rows = [], []
+    launches = {k: 0 for k in KERNELS}
+    try:
+        # The path: counts set to 0, every program prepared (largest batch
+        # first; int8 under deterministic cuDNN, as path A's programs
+        # were captured), then each called once under the profiler.
+        reset_counts()
+        for _, exe, _, batches, det in cases:
+            torch.backends.cudnn.deterministic = det
+            for b in sorted(batches, reverse=True):
+                exe.ensure_compiled(b)
+        torch.backends.cudnn.deterministic = prev
+        dec.ensure_compiled(1)
+        torch.cuda.synchronize()
+        prepared = read_counts()
+        main_counts = {}
+        for label, exe, main, batches, det in cases:
+            torch.backends.cudnn.deterministic = det
+            for b in batches:
+                x = torch.as_tensor(inputs[label.split()[1], b],
+                                    device=DEVICE)
+                got, counts = profiled_call(lambda: exe(input=x))
+                key = (id(main), b)
+                if key not in main_counts:
+                    main_counts[key] = profiled_call(lambda: main(input=x))
+                want, want_counts = main_counts[key]
+                equal = (len(got) == len(want) == 1 and torch.equal(
+                    next(iter(got.values())), next(iter(want.values()))))
+                for k in KERNELS:
+                    launches[k] += counts[k]
+                ok = equal and counts == want_counts and any(counts.values())
+                if not ok:
+                    failures.append([label, b])
+                rows.append({"case": label, "batch": b, "bit_equal": equal,
+                             "launches": counts, "main_launches": want_counts,
+                             "ok": ok})
+        torch.backends.cudnn.deterministic = prev
+        feeds = cuda_feeds["exact", 1]
+        got, counts = profiled_call(lambda: dec(**feeds))
+        want = dec_exes["cuda", "exact"](**feeds)
+        equal = torch.equal(next(iter(got.values())),
+                            next(iter(want.values())))
+        for k in KERNELS:
+            launches[k] += counts[k]
+        want_counts = {k: int(k == "decode_attention") for k in KERNELS}
+        ok = equal and counts == want_counts
+        if not ok:
+            failures.append(["traced decode_attention", 1])
+        rows.append({"case": "traced decode_attention", "batch": 1,
+                     "shape": DECODE, "lengths": DECODE_LENGTHS[1],
+                     "bit_equal": equal, "launches": counts,
+                     "main_launches": want_counts, "ok": ok})
+        wrappers = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    # The wrappers counted the preparing calls alone (a warm-up and a
+    # captured call each): twice one replay's launches.
+    want_wrappers = {k: 0 for k in KERNELS}
+    for row in rows:
+        for k in KERNELS:
+            want_wrappers[k] += PREPARE_CALLS * row["launches"][k]
+    if (wrappers != prepared or wrappers != want_wrappers
+            or not all(launches.values())):
+        failures.append(["launches", launches, wrappers, want_wrappers])
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "frontends", "cases": rows, "launches": launches,
+          "wrapper_launches": wrappers, "wrapper_expected": want_wrappers,
+          "seconds": seconds, "failures": failures, "ok": not failures})
+    return [f"frontends phase failed: {failures}"] if failures else []
+
+
+def replay_cli(bundle, *extra):
+    """``python -m repro_torch.replay <bundle> --json`` in a fresh
+    process: (exit code, its JSON result or None, seconds, stderr)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.replay", bundle, "--json",
+         *extra], capture_output=True, text=True, env=env,
+        timeout=REPLAY_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    try:
+        result = json.loads(proc.stdout)
+    except ValueError:
+        result = None
+    return proc.returncode, result, seconds, proc.stderr[-2000:]
+
+
+def phase_replay(torch, np):
+    """Capture bundles on the card: VGG19 exact and C-HTWK int8 compiled
+    with ``autotune="full"``, a fresh cache directory and ``capture=``
+    into ``chiprun_out/bundles``, at batch 256 then 1; each replayed by
+    ``python -m repro_torch.replay --json`` in a fresh process, which
+    must exit 0 with no divergence (outputs bit-exact, selections with
+    their tactics equal); a copy with one byte of an ``io.npz`` flipped
+    must exit 2.  A decode_attention bundle is left out: its seeded
+    inputs cast a standard normal to int32 for ``lengths``, as the
+    reference's do, so it would replay lengths of 0 and below."""
+    import shutil
+    import repro_torch
+    from repro_torch.table1_models import SUITE
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "chiprun_out", "bundles")
+    work = os.path.join(ROOT, "build", "chip_smoke_replay")
+    for d in (root, work):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    failures, bundles = [], []
+    try:
+        for name, prec in REPLAY_BUNDLES:
+            bundle = os.path.join(root, f"{name}-{prec}")
+            t0 = time.perf_counter()
+            exe = repro_torch.compile(
+                SUITE[name](), target="cuda", precision=prec, device=DEVICE,
+                autotune="full", autotune_budget_ms=TUNE_BUDGET_MS,
+                cache_dir=os.path.join(work, f"{name}-{prec}"),
+                capture=bundle, calibrate=4 if prec == "int8" else None)
+            for b in PREPARE:
+                exe.ensure_compiled(b)
+            compile_s = time.perf_counter() - t0
+            files = [os.path.join(r, n) for r, _, ns in os.walk(bundle)
+                     for n in ns]
+            rc, result, replay_s, err = replay_cli(bundle)
+            ok = (rc == 0 and result is not None
+                  and result["divergences"] == []
+                  and result["device"] == DEVICE
+                  and result["fingerprint_match"]
+                  and sorted(result["batches"]) == sorted(BATCHES))
+            if not ok:
+                failures.append([name, prec, rc, result, err])
+            measured = [n for b in BATCHES for n in
+                        exe.cost_summary()["autotune"][b]["measured_nodes"]]
+            bundles.append(bundle)
+            emit_row = {
+                "bundle": os.path.relpath(bundle, ROOT), "model": name,
+                "precision": prec, "files": len(files),
+                "bytes": sum(os.path.getsize(f) for f in files),
+                "compile_s": compile_s,
+                "record_s_by_batch": exe._capture.seconds,
+                "measured_nodes": measured, "replay_exit": rc,
+                "replay_s": replay_s,
+                "divergences": result and result["divergences"],
+                "ok": ok}
+            emit({"phase": "replay", **emit_row})
+        # One byte of the first bundle's io.npz flipped, in a copy: the
+        # manifest's hash refuses it (exit 2) before anything runs.
+        tampered = os.path.join(work, "tampered")
+        shutil.copytree(bundles[0], tampered)
+        io_path = os.path.join(tampered, "batches", str(BATCHES[-1]),
+                               "io.npz")
+        with open(io_path, "r+b") as f:
+            f.seek(os.path.getsize(io_path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        rc, result, replay_s, err = replay_cli(tampered)
+        tamper_ok = rc == 2 and "tampered" in err
+        if not tamper_ok:
+            failures.append(["tampered", rc, err])
+        seconds = time.perf_counter() - t_phase
+        emit({"phase": "replay", "tampered": os.path.relpath(io_path, work),
+              "replay_exit": rc, "replay_s": replay_s,
+              "stderr": err.strip()[-300:], "seconds": seconds,
+              "failures": failures, "ok": not failures})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return [f"replay phase failed: {failures}"] if failures else []
+
+
 #: The default pipeline up to the quantize pass (its input graph).
 PRE_QUANTIZE = ("canonicalize", "fold_constants", "fuse_pad",
                 "fuse_activation", "fold_batchnorm", "fuse_activation.post_bn")
@@ -2238,6 +2543,8 @@ def main() -> int:
                            + list(dec_exes.values()))
     problems += phase_autotune(torch, np, exes, inputs)
     problems += phase_mixed(torch, np, exes, inputs)
+    problems += phase_frontends(torch, np, exes, inputs, dec_exes, cuda_feeds)
+    problems += phase_replay(torch, np)
     phase_time_models(torch, exes, inputs, per_model)
     phase_time_paths(torch, exes, inputs, dec_exes, dec_feeds, cuda_feeds)
     rows = phase_time_kernels(torch, np, exes)

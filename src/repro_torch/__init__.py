@@ -19,11 +19,21 @@ pads batches to warm buckets, ``cache_dir`` (or
 ``$REPRO_TORCH_CACHE_DIR``) keeps the pass pipeline's output across
 processes, and ``exe.serialize()`` / ``repro_torch.deserialize`` carry
 an executable as bytes.
+
+``repro_torch.compile`` also takes what a frontend
+(``repro_torch.frontends``) turns into a graph: a ``ModelBuilder``, an
+``.npz`` container path, or a plain function over
+``repro_torch.frontends.ops`` (``repro_torch.trace(fn, *specs)``, or
+``compile(fn, example_inputs=...)``).  ``capture=<dir>`` records a
+bundle of the compile that ``python -m repro_torch.replay <dir>``
+reproduces in a fresh process.
 """
 
 from .api import (Bucket, BucketPolicy, CompileOptions, Executable,
-                  ExecutableCache, available_targets, compile, deserialize,
-                  get_target, prune, register_target)
+                  ExecutableCache, available_frontends, available_targets,
+                  compile, deserialize, get_frontend, get_target, prune,
+                  register_frontend, register_target, resolve_cache_dir,
+                  trace)
 from .core import Graph, ModelBuilder, SimpleNN, run_pipeline
 
 __all__ = [
@@ -35,11 +45,16 @@ __all__ = [
     "Graph",
     "ModelBuilder",
     "SimpleNN",
+    "available_frontends",
     "available_targets",
     "compile",
     "deserialize",
+    "get_frontend",
     "get_target",
     "prune",
+    "register_frontend",
     "register_target",
+    "resolve_cache_dir",
     "run_pipeline",
+    "trace",
 ]

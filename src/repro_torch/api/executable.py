@@ -102,16 +102,16 @@ def unpack(data: bytes):
 def deserialize(data: bytes) -> Executable:
     """Reconstruct an Executable from :meth:`Executable.serialize` bytes.
 
-    The bytes may be untrusted: an embedded ``cache_dir`` or ``dump_ir``
-    is dropped (``cache_dir`` then falls back to the local
-    ``$REPRO_TORCH_CACHE_DIR``), as the reference does."""
+    The bytes may be untrusted: an embedded ``cache_dir``, ``dump_ir``
+    or ``capture`` directory is dropped (``cache_dir`` then falls back
+    to the local ``$REPRO_TORCH_CACHE_DIR``), as the reference does."""
     meta, body = unpack(data)
     try:
         options = CompileOptions.from_dict(meta["options"])
     except (KeyError, TypeError):
         raise ValueError("executable container without valid options") \
             from None
-    options = options.replace(cache_dir=None, dump_ir=None)
+    options = options.replace(cache_dir=None, dump_ir=None, capture=None)
     kind = meta.get("kind")
     if kind in ("graph", "bucketed"):
         from ..frontends.container import load_model

@@ -2,8 +2,8 @@
 
 The reference's field names, plus ``device``, which torch needs and
 JAX did not: the ``torch.device`` the compiled program runs on.  Fields
-whose feature the port has not reached yet (capture, distribution)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them,
+whose feature the port has not reached yet (distribution) raise
+``NotImplementedError`` naming the ROADMAP item that ports them,
 instead of being ignored.
 """
 
@@ -22,7 +22,6 @@ AUTOTUNE_MODES = ("off", "cached", "full")
 
 #: Field that must stay unset -> the ROADMAP item that ports the feature.
 _UNPORTED = {
-    "capture": "A.10: capture and replay",
     "mesh": "A.14: distribution",
     "sharding_rules": "A.14: distribution",
 }
@@ -104,8 +103,22 @@ class CompileOptions:
                    selection per batch); None falls back to
                    ``$REPRO_TORCH_CACHE_DIR``, and if that is unset the
                    disk cache is off.
-    capture, mesh, sharding_rules:
-                   must stay unset (ROADMAP A.10, A.14).
+    capture:       a directory: the ``jit``/``cuda`` compile records a
+                   capture bundle there (``repro_torch.api.capture``: the
+                   input graph, options, per-pass IR, every tactic-cache
+                   entry it used, and per batch size the selection and
+                   the outputs of seeded inputs), which ``python -m
+                   repro_torch.replay <dir>`` reproduces in a fresh
+                   process; None falls back to
+                   ``$REPRO_TORCH_CAPTURE_DIR`` (a root, one bundle per
+                   compile), and if that is unset nothing is recorded.
+                   Under capture the pass pipeline always runs (for its
+                   IR dumps and report): the executable cache's graph
+                   entry is not read, only stored.  A bundle is not a
+                   captured CUDA graph (``core/program.py``), though on
+                   a CUDA device the outputs it records are its replay's.
+    mesh, sharding_rules:
+                   must stay unset (ROADMAP A.14).
     """
 
     target: str = "jit"

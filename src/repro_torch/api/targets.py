@@ -19,7 +19,9 @@ built-ins mirror the reference's cast:
 Every target converts the weights to tensors on ``options.device`` once,
 when it is built, never per call.  ``jit`` and ``cuda`` look the pass
 pipeline's output up in the persistent executable cache (``cache.py``)
-before running it.  New backends register with::
+before running it, and record a capture bundle (``capture.py``) when
+``options.capture`` names one: then the pipeline always runs.  New
+backends register with::
 
     @register_target("my-backend")
     def build(graph, options):
@@ -45,6 +47,7 @@ from ..core.lowering import (LoweredGraph, LoweringContext, _rule_token,
                              device_params, lowering_fingerprint,
                              quant_params, resolve_device)
 from ..core.passes import PassManager, plan_memory, run_pipeline
+from ..core.passes.manager import _resolve_dump_ir
 from ..core.program import CapturedProgram, GraphPool
 from ..core.selection import KernelChoice, check_kernel_device, select_kernels
 from ..core.simple import SimpleNN
@@ -271,6 +274,13 @@ class JitExecutable(GraphExecutable):
     the pass pipeline) are tuned on a copy of the source graph before the
     pipeline runs, and each batch size's selection is refined by the
     tactic tuner (``repro_torch.autotune``).
+
+    With a capture directory (``CompileOptions.capture`` or
+    ``$REPRO_TORCH_CAPTURE_DIR``; ``capture_path``) the compile is
+    recorded into a bundle as it goes: the input graph and options at
+    construction, the per-pass IR and the pipeline's report after the
+    pipeline (which then always runs), and each batch size's selection
+    and seeded outputs once its program is ready.
     """
 
     def __init__(self, graph: Graph, options: CompileOptions,
@@ -280,6 +290,18 @@ class JitExecutable(GraphExecutable):
         if lowering_target == "cuda":
             check_kernel_device(self.device)
         t0 = time.perf_counter()
+        # Capture bundle (CompileOptions.capture or
+        # $REPRO_TORCH_CAPTURE_DIR; api/capture.py, not a captured CUDA
+        # graph): records the input graph now, then tees the IR dumps
+        # and records the pipeline and each batch size.  capture_path is
+        # the bundle's directory or None.
+        from .capture import CaptureSession, resolve_capture_dir
+        self.capture_path = resolve_capture_dir(options.capture, graph,
+                                                lowering_target)
+        self._capture = (CaptureSession(self.capture_path, graph, options,
+                                        lowering_target=lowering_target,
+                                        device=self.device)
+                         if self.capture_path else None)
         # ensure_compiled may be entered from a BucketedExecutable's
         # background worker while the request path runs; one lock keeps
         # the programs, the disk counters and compile_time coherent.
@@ -313,7 +335,11 @@ class JitExecutable(GraphExecutable):
         # measurement, and the calibration walk runs again).
         self._graph_disk = (self._disk if options.precision != "mixed"
                             else None)
-        loaded = self._load_graph() if self._graph_disk is not None else None
+        # A capture records the pipeline's IR dumps and report, so it
+        # runs the pipeline and reads no graph entry (it still stores one).
+        loaded = (self._load_graph()
+                  if self._graph_disk is not None and self._capture is None
+                  else None)
         if loaded is not None:
             self.graph, self.report = loaded
         else:
@@ -325,8 +351,16 @@ class JitExecutable(GraphExecutable):
             if req is not None:
                 graph = graph.copy()
                 graph.quant = req
+            dump_ir = options.dump_ir
+            if self._capture is not None:
+                # Tee the per-pass IR into the bundle beside any sink the
+                # caller asked for ($REPRO_DUMP_IR included).
+                dump_ir = _resolve_dump_ir(dump_ir) + (self._capture.ir_dir,)
             self.graph, self.report = run_pipeline(
-                graph, self._passes, dump_ir=options.dump_ir)
+                graph, self._passes, dump_ir=dump_ir)
+            if self._capture is not None:
+                self._capture.record_pipeline(self.report,
+                                              self._decisions_report)
             if self._graph_disk is not None:
                 self._store_graph()
         self.params = device_params(self.graph, self.device)
@@ -481,10 +515,35 @@ class JitExecutable(GraphExecutable):
                     for n, spec in self.graph.inputs.items()},
                     list(self._programs.values()))
             self._programs[batch_size] = prog
+            if self._capture is not None:
+                self._record(batch_size, prog, selection)
             # Seconds spent compiling: the pipeline (or its cache hit)
             # once, plus every batch size's selection and capture.
             self.compile_time += time.perf_counter() - t0
             return prog
+
+    def _record(self, batch_size: int, prog: Program,
+                selection: Dict[str, KernelChoice]) -> None:
+        """Record one batch size into the capture bundle: its selection,
+        its autotune report, and the seeded inputs through the program
+        just prepared (on a CUDA device, a replay of its captured graph),
+        the outputs copied to the host.  On the card this waits on the
+        calling stream only, never on the device: a device-wide
+        synchronise would fail a capture under way on another thread
+        (``core/program.py``).  A program captured again later (a pool
+        relayout) is not recorded again."""
+        from .capture import seeded_inputs
+        t0 = time.perf_counter()
+        ins = seeded_inputs(self.graph, batch_size)
+        args = [torch.as_tensor(ins[n],
+                                device=None if self.captures else self.device)
+                for n in self.graph.inputs]
+        out = self._run(prog, args, batch_size)
+        outs = {k: v.cpu().numpy() for k, v in out.items()}
+        self._capture.record_batch(
+            batch_size, selection, self._autotune_reports.get(batch_size),
+            ins, outs)
+        self._capture.seconds[batch_size] = time.perf_counter() - t0
 
     def input_buffers(self, batch_size: int) -> Dict[str, torch.Tensor]:
         """The static input tensors of the program captured for

@@ -15,6 +15,7 @@ weights from the same seed.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -171,3 +172,35 @@ class ModelBuilder:
             dict(outputs) if isinstance(outputs, dict) else list(outputs))
         return self.graph
 
+
+# ---------------------------------------------------------------------------
+# The container lives in repro_torch.frontends.container; these shims
+# keep the reference's old imports working (once-per-process
+# DeprecationWarning).
+_warned = False
+
+
+def _warn_once() -> None:
+    global _warned
+    if not _warned:
+        _warned = True
+        warnings.warn(
+            "repro_torch.core.keras_like.save_model/load_model moved to "
+            "repro_torch.frontends.container (and "
+            "repro_torch.compile('model.npz') loads containers directly "
+            "via the 'container' frontend)",
+            DeprecationWarning, stacklevel=3)
+
+
+def save_model(graph: Graph, path) -> None:
+    """DEPRECATED shim: use :func:`repro_torch.frontends.container.save_model`."""
+    _warn_once()
+    from ..frontends.container import save_model as _save
+    _save(graph, path)
+
+
+def load_model(path) -> Graph:
+    """DEPRECATED shim: use :func:`repro_torch.frontends.container.load_model`."""
+    _warn_once()
+    from ..frontends.container import load_model as _load
+    return _load(path)

@@ -121,7 +121,10 @@ class GraphPool:
 
 class CapturedProgram:
     """A :class:`LoweredGraph` captured as one CUDA graph for its batch,
-    into ``pool`` (a pool of its own when None).
+    into ``pool`` (a pool of its own when None).  Not to be confused
+    with a capture bundle (``api/capture.py::CaptureSession``), which
+    records a whole compile for ``python -m repro_torch.replay``; a
+    bundle recorded on the card holds this program's replayed outputs.
 
     Calling it maps input tensors (by graph input name) to fresh output
     tensors, like the eager program.  With ``rows`` below the batch the

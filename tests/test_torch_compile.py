@@ -157,11 +157,18 @@ def test_cuda_device_without_cuda_raises():
 @pytest.mark.parametrize("field,value,item", [
     ("mesh", "data=4", "A.14"),
     ("sharding_rules", (("batch", "data"),), "A.14"),
-    ("capture", "bundle", "A.10"),
 ])
 def test_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         repro_torch.CompileOptions(**{field: value}, device="cpu")
+
+
+def test_capture_option_is_accepted():
+    # Ported with A.10 (tests/test_torch_replay.py); where a compile is
+    # recorded does not change the program, so it keys no cache entry.
+    opts = repro_torch.CompileOptions(capture="bundle", device="cpu")
+    assert opts.capture == "bundle"
+    assert opts.cache_token() == opts.replace(capture=None).cache_token()
 
 
 @pytest.mark.parametrize("field,value", [

@@ -142,13 +142,18 @@ def test_from_reference_with_named_outputs():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of repro_torch imports without jax or the reference."""
+    """Every module of repro_torch imports without jax or the reference:
+    the frontends, the capture bundles and the replay CLI among them."""
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "for m in ('repro_torch.frontends.trace', 'repro_torch.frontends.builder',\n"
+        "          'repro_torch.api.capture', 'repro_torch.replay',\n"
+        "          'repro_torch.replay.__main__', 'repro_torch.core.compiler'):\n"
+        "    assert m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,
