@@ -12,6 +12,23 @@ JAX package.  Every phase prints one JSON line (also written to
                  and CUDA versions.
 2. ``build``     nvcc builds the kernels from ``src/repro_torch/csrc``;
                  seconds, and ptxas' registers/shared memory per kernel.
+   ``engine``    the LLM stack through ``repro_torch.compile(cfg,
+                 target="engine")``, in a child process (``python3
+                 chip_smoke.py --engine``) that has the card's memory to
+                 itself: (a) the seven transformer-family SMOKE configs on
+                 the card against the CPU, the same weights made on the
+                 CPU from a seed (f32 forward within 1e-4 x max(1,
+                 max|logits|), prefill plus 8 greedy steps giving the same
+                 tokens, bf16 forward within the 0.05 budget); (b)
+                 qwen2.5-14b whole (48 layers, made on the card): prefill
+                 and decode against the forward at f32, then prefill
+                 (4 x 512) and decode (batch 1 and 8; bf16 also at
+                 decode_32k's depth, batch 4) ms, tokens/s, busy share,
+                 bound and top device ops, over f32 masters ("exact") and
+                 bf16 weights; (c) mixtral-8x22b at its widths, 2 layers,
+                 decode against forward past its 4096-token ring.  No
+                 kernel of ``csrc/`` is on this path: the reference's LLM
+                 attention is jnp, computed here with torch ops.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
                  plan (paths, K splits, ragged and unaligned shapes).
@@ -2507,6 +2524,366 @@ def phase_time_decode(torch, dec_feeds):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The engine phase (a child process: ``python3 chip_smoke.py --engine``)
+# ---------------------------------------------------------------------------
+BF16_FLOPS_PER_S = 989e12        # bf16 tensor-core peak, dense
+#: The transformer-family configs the engine target runs (the other three
+#: families are ROADMAP A.12b).
+ENGINE_ARCHS = ("qwen2.5-14b", "deepseek-7b", "gemma3-27b", "minicpm-2b",
+                "deepseek-v3-671b", "mixtral-8x22b", "internvl2-2b")
+#: Card against CPU at f32, relative to max(1, max|logits|) (the
+#: reference's own f32 decode-vs-forward test holds 1e-4).
+ENGINE_F32_TOL = 1e-4
+#: Prefill and decode against the forward at the published widths, f32:
+#: sums over 5120-13824 terms in another order and 48 layers deep.
+ENGINE_DECODE_TOL = 1e-3
+ENGINE_SMOKE = (2, 24, 8)        # batch, prompt, greedy decode steps
+#: qwen2.5-14b: the consistency check, the prefill and decode rows, and
+#: decode_32k's depth (its batch of 128 cut to 4: a 25.77 GB K/V cache).
+QWEN_CHECK = (2, 64, 8)
+QWEN_PREFILL = (4, 512)
+QWEN_DECODE = (1, 8)
+QWEN_MAX_LEN = 2048
+QWEN_DECODE_PROMPT = 128
+QWEN_DEEP = (4, 32768)
+#: mixtral-8x22b at its widths, 2 of 56 layers: a prompt 6 short of the
+#: 4096 window, then 16 steps, so the ring cache wraps.
+MIXTRAL_LAYERS = 2
+MIXTRAL_CHECK = (1, 4090, 16)
+ENGINE_TIMEOUT_S = 600
+
+
+def _rel_err(got, want):
+    """(max |got - want|, max(1, max |want|)) as floats."""
+    want = want.float()
+    return (float((got.float().to(want.device) - want).abs().max()),
+            max(1.0, float(want.abs().max())))
+
+
+def _greedy(torch, model, params, batch, steps, max_len, device):
+    """Prefill then ``steps`` greedy decode steps: (tokens (B, steps),
+    logits (B, steps + 1, V) of prefill and each step)."""
+    b = batch["tokens"].shape[0]
+    cache = model.init_cache(b, max_len, device)
+    lg, cache = model.prefill(params, batch, cache)
+    logits, toks = [lg[:, -1]], []
+    for _ in range(steps):
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        lg, cache = model.decode_step(params, cache, tok)
+        logits.append(lg[:, -1])
+    return torch.cat(toks, 1), torch.stack(logits, 1), cache
+
+
+def _peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_engine_smoke(torch, np):
+    """(a) Each transformer-family SMOKE config through ``target="engine"``
+    on the card and on the CPU, with the same weights (made on the CPU
+    from a seed, moved to the card): f32 forward logits, prefill plus
+    greedy decode, and forward at the configured bf16."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    problems = []
+    b, s, steps = ENGINE_SMOKE
+    for arch in ENGINE_ARCHS:
+        t0 = time.perf_counter()
+        base = get_config(arch, smoke=True)
+        params = get_model(base).init(0, "cpu")
+        rng = np.random.default_rng(0)
+        batch = {"tokens":
+                 rng.integers(0, base.vocab, (b, s)).astype(np.int32)}
+        if base.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (b, base.num_image_tokens, base.vit_dim)).astype(np.float32)
+        row = {"phase": "engine", "case": "smoke", "arch": arch}
+        for dtype in ("float32", base.dtype):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            exes = {dev: repro_torch.compile(
+                cfg, repro_torch.CompileOptions(target="engine", device=dev),
+                params=params) for dev in ("cpu", DEVICE)}
+            torch.cuda.reset_peak_memory_stats()
+            want = exes["cpu"](**batch)["logits"]
+            got = exes[DEVICE](**batch)["logits"]
+            assert got.device.type == torch.device(DEVICE).type
+            err, scale = _rel_err(got, want)
+            tol = ENGINE_F32_TOL if dtype == "float32" else QUANT_BUDGET
+            row[f"{dtype}_forward_err"] = err
+            row[f"{dtype}_forward_limit"] = tol * scale
+            if err > tol * scale:
+                problems.append(f"engine {arch} {dtype} forward: card vs "
+                                f"CPU {err} > {tol * scale}")
+            if dtype == "float32":
+                out = {}
+                for dev, exe in exes.items():
+                    feed = {k: torch.as_tensor(v, device=dev)
+                            for k, v in batch.items()}
+                    out[dev] = _greedy(torch, exe.model, exe.params, feed,
+                                       steps, s + steps, dev)
+                same = torch.equal(out[DEVICE][0].cpu(), out["cpu"][0])
+                derr, _ = _rel_err(out[DEVICE][1], out["cpu"][1])
+                row.update(greedy_tokens=out[DEVICE][0].tolist(),
+                           greedy_equal=same, decode_err=derr)
+                if not same or derr > tol * scale:
+                    problems.append(f"engine {arch} greedy decode: tokens "
+                                    f"equal {same}, logits err {derr}")
+            row[f"{dtype}_peak_gb"] = _peak_gb(torch)
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+    return problems
+
+
+def _llm_rows(torch, exe, label, deep=False):
+    """Prefill and decode timings of an engine executable at the
+    published widths: host ms around synchronised calls, the device's
+    busy share (torch.profiler's device time over the host's), the
+    bound, and the top device ops of one decode step."""
+    cfg, model, params = exe.cfg, exe.model, exe.params
+    cost = exe.cost_summary()
+    wbytes = cost["param_bytes"]
+    kv_row = 2 * cfg.num_layers * cfg.n_kv_heads * cfg.head_dim * 2  # K+V bf16
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+
+    with torch.inference_mode():
+        b, s = QWEN_PREFILL
+        torch.cuda.reset_peak_memory_stats()
+        prompt = {"tokens": tokens(b, s)}
+        cache = model.init_cache(b, QWEN_MAX_LEN, DEVICE)
+        pf = lambda: model.prefill(params, prompt, cache)
+        ms = host_median_ms(pf, runs=3, warmup=1)
+        prof = device_profile(pf, iters=1)
+        dev_ms = sum(v[1] for v in prof.values())
+        flops = 2 * (cost["params"] - cfg.vocab * cfg.d_model) * b * s
+        attn = 2 * b * s * s * cfg.n_heads * cfg.head_dim  # causal q.k + p.v
+        t_bytes = (wbytes + b * s * kv_row) / HBM_BYTES_PER_S * 1e3
+        t_ops = (flops / BF16_FLOPS_PER_S + attn / F32_FLOPS_PER_S) * 1e3
+        row = {"phase": "engine", "case": "qwen2.5-14b", "precision": label,
+               "op": "prefill", "batch": b, "tokens": s, "ms": ms,
+               "tokens_per_s": b * s / ms * 1e3, "device_ms": dev_ms,
+               "busy_share": dev_ms / ms,
+               "launches": sum(v[0] for v in prof.values()),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "peak_gb": _peak_gb(torch)}
+        emit(row)
+        del cache, pf
+        points = [(bb, QWEN_DECODE_PROMPT, QWEN_MAX_LEN) for bb in QWEN_DECODE]
+        if deep:
+            points.append((QWEN_DEEP[0], None, QWEN_DEEP[1]))
+        for bb, prompt_len, max_len in points:
+            torch.cuda.reset_peak_memory_stats()
+            cache = model.init_cache(bb, max_len, DEVICE)
+            if prompt_len is None:        # decode_32k's depth: a filled cache
+                for name in ("c1", "c2"):
+                    for i in range(cfg.num_layers):
+                        cache[name][i].normal_(generator=gen)
+                cache["pos"].fill_(max_len - 12)
+            else:
+                model.prefill(params, {"tokens": tokens(bb, prompt_len)},
+                              cache)
+            tok = tokens(bb, 1)
+            step = lambda: model.decode_step(params, cache, tok)
+            ms = host_median_ms(step, runs=5 if prompt_len is None else 10,
+                                warmup=2)
+            prof = device_profile(step, iters=2)
+            busy = sum(v[1] for v in prof.values())
+            depth = int(cache["pos"][0])
+            kv = bb * depth * kv_row
+            bound = (wbytes + kv) / HBM_BYTES_PER_S * 1e3
+            top = sorted(prof.items(), key=lambda kv_: -kv_[1][1])[:10]
+            row = {"phase": "engine", "case": "qwen2.5-14b",
+                   "precision": label, "op": "decode", "batch": bb,
+                   "depth": depth, "ms": ms, "tokens_per_s": bb / ms * 1e3,
+                   "device_ms": busy, "busy_share": busy / ms,
+                   "launches": sum(v[0] for v in prof.values()),
+                   "bound_ms": bound, "bound_by": "bytes",
+                   "weight_gb": wbytes / 1e9, "kv_read_gb": kv / 1e9,
+                   "peak_gb": _peak_gb(torch),
+                   "top_ops": [{"name": k[:120], "launches": n, "ms": t}
+                               for k, (n, t) in top]}
+            emit(row)
+            del cache, step
+
+
+def phase_engine_qwen(torch):
+    """(b) qwen2.5-14b, the whole published config, made on the card:
+    decode against forward at f32, then the timing rows at bf16
+    activations with f32 masters ("exact") and bf16 weights ("bf16")."""
+    import dataclasses
+    import gc
+    import repro_torch
+    from repro_torch.configs import get_config
+    problems = []
+    cfg = get_config("qwen2.5-14b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    exe32 = repro_torch.compile(
+        dataclasses.replace(cfg, dtype="float32"),
+        repro_torch.CompileOptions(target="engine", device=DEVICE),
+        init_seed=0)
+    cost = exe32.cost_summary()
+    init_s = time.perf_counter() - t0
+    if cost["params"] != 14_770_033_664:
+        problems.append(f"qwen2.5-14b has {cost['params']} parameters")
+    b, s, steps = QWEN_CHECK
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        toks, logits, _ = _greedy(torch, exe32.model, exe32.params,
+                                  {"tokens": prompt}, steps, s + steps,
+                                  DEVICE)
+        full = exe32(tokens=torch.cat([prompt, toks], 1))["logits"]
+    want = full[:, s - 1:s + steps]
+    err, scale = _rel_err(logits, want)
+    same = torch.equal(toks, want[:, :steps].argmax(-1).to(torch.int32))
+    emit({"phase": "engine", "case": "qwen2.5-14b", "op": "decode_vs_forward",
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "params": cost["params"], "param_bytes_f32": cost["param_bytes"],
+          "batch": b, "prompt": s, "steps": steps, "max_abs_err": err,
+          "limit": ENGINE_DECODE_TOL * scale, "greedy_equal": same,
+          "tokens": toks.tolist(), "init_s": init_s,
+          "peak_gb": _peak_gb(torch),
+          "seconds": time.perf_counter() - t0})
+    if err > ENGINE_DECODE_TOL * scale or not same:
+        problems.append(f"qwen2.5-14b decode vs forward: err {err} "
+                        f"(limit {ENGINE_DECODE_TOL * scale}), greedy "
+                        f"tokens equal {same}")
+    del full, want, logits
+    # The config as published (bf16 activations) over the f32 masters:
+    # the same tensors, cast at each product as the reference does.
+    exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", device=DEVICE), params=exe32.params)
+    del exe32
+    _llm_rows(torch, exe, "exact")
+    del exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", precision="bf16", device=DEVICE), init_seed=0)
+    emit({"phase": "engine", "case": "qwen2.5-14b", "op": "bf16_compile",
+          "seconds": time.perf_counter() - t0,
+          "param_bytes": exe.cost_summary()["param_bytes"],
+          "quant": exe.quant_report, "peak_gb": _peak_gb(torch)})
+    _llm_rows(torch, exe, "bf16", deep=True)
+    del exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems
+
+
+def phase_engine_mixtral(torch):
+    """(c) mixtral-8x22b at its widths, 2 of 56 layers, f32 with moe_cf 8
+    (the reference's decode-vs-forward test): a 4090-token prompt and 16
+    greedy steps, past the 4096-token window, so the ring cache wraps."""
+    import dataclasses
+    import gc
+    import repro_torch
+    from repro_torch.configs import get_config
+    problems = []
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              num_layers=MIXTRAL_LAYERS, dtype="float32",
+                              moe_cf=8.0)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", device=DEVICE), init_seed=0)
+    b, s, steps = MIXTRAL_CHECK
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        toks, logits, cache = _greedy(torch, exe.model, exe.params,
+                                      {"tokens": prompt}, steps, s + steps,
+                                      DEVICE)
+        full = exe(tokens=torch.cat([prompt, toks], 1))["logits"]
+    want = full[:, s - 1:s + steps]
+    err, scale = _rel_err(logits, want)
+    same = torch.equal(toks, want[:, :steps].argmax(-1).to(torch.int32))
+    ring, last = cache["c1"].shape[2], int(cache["pos"][0])
+    emit({"phase": "engine", "case": "mixtral-8x22b",
+          "op": "decode_vs_forward", "layers": cfg.num_layers,
+          "reduced": "num_layers 56 -> 2",
+          "params": exe.cost_summary()["params"], "batch": b, "prompt": s,
+          "steps": steps, "ring": ring, "last_pos": last,
+          "max_abs_err": err, "limit": ENGINE_DECODE_TOL * scale,
+          "greedy_equal": same, "peak_gb": _peak_gb(torch),
+          "seconds": time.perf_counter() - t0})
+    if err > ENGINE_DECODE_TOL * scale or not same or last <= ring:
+        problems.append(f"mixtral decode vs forward: err {err} (limit "
+                        f"{ENGINE_DECODE_TOL * scale}), greedy tokens equal "
+                        f"{same}, ring {ring} last position {last}")
+    del exe, full, want, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems
+
+
+def engine_main() -> int:
+    """The engine phase, alone in this process so that it has the card's
+    memory to itself: qwen2.5-14b's f32 masters take 59.08 GB."""
+    import torch
+    import numpy as np
+    if not torch.cuda.is_available():
+        print("chip_smoke --engine: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on; the f32 comparisons need it off")
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "engine", "case": "start", "free_gb": free / 1e9,
+          "total_gb": total / 1e9})
+    problems = phase_engine_smoke(torch, np)
+    problems += phase_engine_qwen(torch)
+    problems += phase_engine_mixtral(torch)
+    if problems:
+        raise SystemExit("engine phase failed: " + "; ".join(problems))
+    return 0
+
+
+def phase_engine():
+    """Run the engine phase in a child process, killed after
+    ENGINE_TIMEOUT_S, and pass its lines on."""
+    import threading
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--engine"], cwd=ROOT, stdout=subprocess.PIPE,
+                            text=True)
+    watchdog = threading.Timer(ENGINE_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    problems = []
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            try:
+                emit(json.loads(line))
+            except ValueError:
+                print(line, flush=True)
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if seconds >= ENGINE_TIMEOUT_S:
+        problems.append(f"engine phase killed after {seconds:.0f} s")
+    if rc != 0:
+        problems.append(f"engine phase exited {rc}")
+    emit({"phase": "engine", "case": "done", "seconds": seconds, "rc": rc})
+    return problems
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2521,8 +2898,10 @@ def main() -> int:
                          "f32 comparisons need it off")
     phase_card(torch)
     phase_build()
+    engine_problems = phase_engine()
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
+    problems += engine_problems
     errs["fused_matmul_q8"], more = phase_check_q8(torch, np)
     problems += more
     errs["decode_attention"], more = phase_check_decode(torch, np)
@@ -2592,6 +2971,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--engine"]:
+        sys.exit(engine_main())
     try:
         rc = main()
     finally:

@@ -6,7 +6,8 @@
 
 One entry point (`compile`), one options object (`CompileOptions`), one
 result protocol (`Executable`), a named-target registry, the frontend
-registry and a persistent on-disk executable cache.  The legacy
+registry and a persistent on-disk executable cache.  The ``"engine"``
+target compiles the LLM configs (:mod:`.engine_adapter`).  The legacy
 ``CompiledModel`` (``repro_torch.core``) is a deprecated shim over this
 package.
 """
@@ -26,9 +27,21 @@ from .options import CompileOptions
 from .targets import (available_targets, get_target, register_target,
                       GraphExecutable, InterpretExecutable, JitExecutable)
 
+_GRAPH_TARGET_HINT = (
+    "graph-IR targets take a repro_torch.core.Graph; pass "
+    "CompileOptions(target='engine') to compile a framework-scale "
+    "ArchConfig/Model"
+)
+
 #: Keyword args routed to the frontend registry, not CompileOptions.
 _FRONTEND_KW = ("frontend", "specs", "example_inputs", "input_names",
                 "outputs")
+
+
+@register_target("engine")
+def _build_engine(model_or_cfg, options: CompileOptions, **kw):
+    from .engine_adapter import ModelExecutable  # lazy: pulls the model zoo
+    return ModelExecutable(model_or_cfg, options, **kw)
 
 
 def compile(model, options: Optional[CompileOptions] = None,
@@ -44,11 +57,13 @@ def compile(model, options: Optional[CompileOptions] = None,
     override ``CompileOptions`` fields (``repro_torch.compile(g,
     target="interpret", device="cpu")``).  With ``buckets=`` a
     ``jit``/``cuda`` compile is wrapped in a
-    :class:`~repro_torch.runtime.BucketedExecutable`.  An LLM config or
-    model (the reference's ``engine`` target) raises: that is ROADMAP
-    A.12.  A graph of the JAX package goes through
+    :class:`~repro_torch.runtime.BucketedExecutable`.  A framework-scale
+    ``ArchConfig``/``repro_torch.models.Model`` compiles with
+    ``target="engine"`` only (``params=`` / ``init_seed=`` go to the
+    engine adapter).  A graph of the JAX package goes through
     :func:`repro_torch.weights.from_reference` first.
     """
+    factory_kw = {k: kw.pop(k) for k in ("params", "init_seed") if k in kw}
     frontend_kw = {k: kw.pop(k) for k in _FRONTEND_KW if k in kw}
     if options is None:
         options = CompileOptions()
@@ -59,10 +74,13 @@ def compile(model, options: Optional[CompileOptions] = None,
         is_cfg = hasattr(model, "family") and hasattr(model, "name")
         is_model = hasattr(model, "cfg") and hasattr(model, "forward")
         if is_cfg or is_model:
-            raise NotImplementedError(
-                f"{type(model).__name__} looks like an LLM config or model; "
-                f"the engine target is not ported yet (ROADMAP A.12: LLM "
-                f"models and the engine target)")
+            if frontend_kw:
+                raise TypeError(f"unexpected args for the engine target: "
+                                f"{sorted(frontend_kw)}")
+            if options.target != "engine":
+                raise TypeError(
+                    f"target {options.target!r}: {_GRAPH_TARGET_HINT}")
+            return get_target("engine")(model, options, **factory_kw)
         if hasattr(model, "structure_hash") and hasattr(model, "nodes"):
             raise TypeError(
                 f"repro_torch.compile takes a repro_torch.core.Graph, got "
@@ -75,6 +93,12 @@ def compile(model, options: Optional[CompileOptions] = None,
         raise TypeError(f"unexpected args for graph models: "
                         f"{sorted(frontend_kw)}")
 
+    if options.target == "engine":
+        raise TypeError("target='engine' compiles ArchConfig/Model, "
+                        "not a graph IR; use 'jit'/'cuda'/'interpret'")
+    if factory_kw:
+        raise TypeError(f"unexpected args for graph targets: "
+                        f"{sorted(factory_kw)}")
     exe = get_target(options.target)(model, options)
     if options.buckets is not None:
         # Shape-polymorphic dispatch: one warm program per batch bucket,

@@ -125,7 +125,6 @@ def deserialize(data: bytes) -> Executable:
             "sharded executables are not ported yet (ROADMAP A.14: "
             "distribution)")
     if kind == "engine":
-        raise NotImplementedError(
-            "engine executables are not ported yet (ROADMAP A.12: LLM "
-            "models and the engine target)")
+        from .engine_adapter import deserialize_engine
+        return deserialize_engine(meta, body, options)
     raise ValueError(f"unknown executable kind {kind!r}")

@@ -87,11 +87,10 @@ def resolve(model, *, frontend: str = None, **kw) -> Graph:
         if fe.accepts(model):
             return fe.to_graph(model, **kw)
     raise TypeError(
-        f"cannot compile {type(model).__name__}: expected a Graph or a "
-        f"model accepted by a registered frontend "
-        f"({', '.join(available_frontends())}); LLM configs and models "
-        f"(the reference's engine target) are not ported yet (ROADMAP "
-        f"A.12: LLM models and the engine target). Bare callables compile "
+        f"cannot compile {type(model).__name__}: expected a Graph, an "
+        f"ArchConfig/Model (with target='engine'), or a model accepted "
+        f"by a registered frontend ({', '.join(available_frontends())}). "
+        f"Bare callables compile "
         f"via repro_torch.compile(fn, example_inputs=…) or "
         f"repro_torch.trace(fn, *specs); register new model formats with "
         f"@register_frontend")

@@ -1,4 +1,5 @@
-"""Carry a graph and its weights across from the JAX package.
+"""Carry a graph and its weights, or a model's params, across from the
+JAX package.
 
 :func:`from_reference` takes a graph of the reference package by duck
 typing (``.inputs``, ``.nodes``, ``.params`` as numpy arrays,
@@ -7,7 +8,8 @@ typing (``.inputs``, ``.nodes``, ``.params`` as numpy arrays,
 numpy parameters.  It never imports the reference.  Weights keep the
 reference's storage layout here (HWIO convolutions; dense "io" or
 "oi"); the targets move them to the device and to OIHW when they
-compile.
+compile.  :func:`params_from_reference` carries an LLM's param tree
+(``repro.models.get_model(cfg).init(key)``) to torch tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import torch
 
 from .core.graph import Graph, Node
 
@@ -40,3 +43,21 @@ def from_reference(ref) -> Graph:
     g.quant = copy.deepcopy(getattr(ref, "quant", None))
     g.dist = copy.deepcopy(getattr(ref, "dist", None))
     return g
+
+
+def _leaf_to_torch(leaf) -> torch.Tensor:
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":          # ml_dtypes.bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def params_from_reference(params):
+    """The port's copy of a reference model's param tree: the same nested
+    dict, keys, stacked ``(L, ...)`` shapes and dtypes, with torch
+    tensors (on the CPU) for its numpy, ``ml_dtypes.bfloat16`` or array
+    leaves.  ``repro_torch.compile(cfg, target="engine", params=...)``
+    moves them to its device."""
+    if isinstance(params, dict):
+        return {k: params_from_reference(v) for k, v in params.items()}
+    return _leaf_to_torch(params)

@@ -122,8 +122,20 @@ def test_deserialize_ignores_embedded_cache_dir(tmp_path):
 @pytest.mark.parametrize("kind,item", [("sharded", "A.14"),
                                        ("engine", "A.12")])
 def test_unported_kinds_raise(kind, item):
+    """What the port cannot load yet names its ROADMAP item: the sharded
+    kind (A.14), and an engine artifact of a family still to port (the
+    engine kind itself loads since A.12; its SSM/hybrid/audio families
+    are A.12b)."""
+    import dataclasses
     from repro_torch.api.executable import pack
-    blob = pack(kind, repro_torch.CompileOptions(device="cpu"), b"")
+    from repro_torch.configs import get_config
+    extra = None
+    if kind == "engine":
+        extra = {"cfg": dataclasses.asdict(get_config("mamba2-780m",
+                                                      smoke=True)),
+                 "leaf_dtypes": []}
+    blob = pack(kind, repro_torch.CompileOptions(device="cpu"), b"",
+                extra=extra)
     with pytest.raises(NotImplementedError, match=item):
         repro_torch.deserialize(blob)
 

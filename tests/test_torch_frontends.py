@@ -294,15 +294,23 @@ def test_compile_unknown_model_lists_frontends():
     msg = str(ei.value)
     for name in available_frontends():
         assert name in msg
-    assert "A.12" in msg                          # no engine in the port
+    assert "target='engine'" in msg               # LLM configs go there
 
 
 def test_compile_llm_config_names_the_roadmap():
+    """An LLM config compiles with target='engine' only (the reference's
+    TypeError otherwise); a family still to port names ROADMAP A.12b."""
     class Config:
         family, name = "dense", "qwen2.5-14b"
 
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(TypeError, match="engine"):
         _compile(Config())
+
+    class SSMConfig:
+        family, name = "ssm", "mamba2-780m"
+
+    with pytest.raises(NotImplementedError, match="A.12b"):
+        _compile(SSMConfig(), target="engine")
 
 
 def test_compile_builder_and_container_frontends(rng, tmp_path):
