@@ -123,6 +123,7 @@ it exits 2 at once.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -185,6 +186,9 @@ KERNELS = ("fused_matmul", "fast_act", "fused_matmul_q8", "decode_attention")
 #: each through the wrappers: the warm-up and the captured call
 #: (``core/program.py``).
 PREPARE_CALLS = 2
+#: The most times ``profiled_call`` profiles one call (it stops once two
+#: profiles in a row agree).
+PROFILE_TRIES = 6
 #: The CUDA kernels of each wrapper by symbol (``csrc/``), to count the
 #: launches on the card from the profiler's kernel names.
 #: decode_attention counts calls: its combine kernel runs once per call.
@@ -334,30 +338,36 @@ def device_ms(fn, iters: int = 20):
 
 
 def profiled_call(fn):
-    """``fn()`` once under ``torch.profiler``, synchronised: its result
-    and the launches on the card of each wrapper's kernels, counted from
-    the kernel names (KERNEL_SYMBOLS), inside graph replays too.  A
-    profile that recorded no kernel at all is taken again: now and then
-    one comes back empty, or with the call's copies and none of its
-    replay's kernels, while the outputs show the replay ran."""
+    """``fn()``, a replay of captured programs, under ``torch.profiler``,
+    synchronised: its result and the launches on the card of each
+    wrapper's kernels, counted from the kernel names (KERNEL_SYMBOLS),
+    inside graph replays too.  Now and then a profile comes back empty,
+    or with the call's copies and only part of its replay's kernels,
+    while the outputs show the replay ran.  A replay launches the same
+    kernels at every call, so the call is profiled again until two
+    profiles in a row hold kernels and agree, kernel by kernel (at most
+    PROFILE_TRIES times; a replay that launched other kernels at each
+    call would never agree, and its last profile is returned)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    prev = None
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         counts = {k: 0 for k in KERNELS}
-        kernels = 0
+        kernels = collections.Counter()
         for evt in prof.key_averages():
             if "CUDA" not in str(getattr(evt, "device_type", "")):
                 continue
             if not evt.key.startswith(("Memcpy", "Memset")):
-                kernels += evt.count
+                kernels[evt.key] += evt.count
             for kernel, symbols in KERNEL_SYMBOLS.items():
                 if any(sym in evt.key for sym in symbols):
                     counts[kernel] += evt.count
-        if kernels:
+        if kernels and kernels == prev:
             break
+        prev = kernels
     return out, counts
 
 
@@ -2084,7 +2094,8 @@ def phase_frontends(torch, np, exes, inputs, dec_exes, cuda_feeds):
                     launches[k] += counts[k]
                 ok = equal and counts == want_counts and any(counts.values())
                 if not ok:
-                    failures.append([label, b])
+                    failures.append([label, b, {"bit_equal": equal},
+                                     counts, want_counts])
                 rows.append({"case": label, "batch": b, "bit_equal": equal,
                              "launches": counts, "main_launches": want_counts,
                              "ok": ok})
@@ -2099,7 +2110,8 @@ def phase_frontends(torch, np, exes, inputs, dec_exes, cuda_feeds):
         want_counts = {k: int(k == "decode_attention") for k in KERNELS}
         ok = equal and counts == want_counts
         if not ok:
-            failures.append(["traced decode_attention", 1])
+            failures.append(["traced decode_attention", 1,
+                             {"bit_equal": equal}, counts, want_counts])
         rows.append({"case": "traced decode_attention", "batch": 1,
                      "shape": DECODE, "lengths": DECODE_LENGTHS[1],
                      "bit_equal": equal, "launches": counts,
@@ -2528,30 +2540,49 @@ def phase_time_decode(torch, dec_feeds):
 # The engine phase (a child process: ``python3 chip_smoke.py --engine``)
 # ---------------------------------------------------------------------------
 BF16_FLOPS_PER_S = 989e12        # bf16 tensor-core peak, dense
-#: The transformer-family configs the engine target runs (the other three
-#: families are ROADMAP A.12b).
+#: Every config the engine target runs, at SMOKE size in (a).
 ENGINE_ARCHS = ("qwen2.5-14b", "deepseek-7b", "gemma3-27b", "minicpm-2b",
-                "deepseek-v3-671b", "mixtral-8x22b", "internvl2-2b")
+                "deepseek-v3-671b", "mixtral-8x22b", "internvl2-2b",
+                "mamba2-780m", "recurrentgemma-9b", "whisper-base")
 #: Card against CPU at f32, relative to max(1, max|logits|) (the
 #: reference's own f32 decode-vs-forward test holds 1e-4).
 ENGINE_F32_TOL = 1e-4
 #: Prefill and decode against the forward at the published widths, f32:
-#: sums over 5120-13824 terms in another order and 48 layers deep.
+#: sums over 512-16384 terms in another order and up to 48 layers deep
+#: (mamba2's chunked SSD also takes exp of differences of f32 cumulative
+#: log-decays that reach ~10^3 within a 256-token chunk).
 ENGINE_DECODE_TOL = 1e-3
 ENGINE_SMOKE = (2, 24, 8)        # batch, prompt, greedy decode steps
-#: qwen2.5-14b: the consistency check, the prefill and decode rows, and
-#: decode_32k's depth (its batch of 128 cut to 4: a 25.77 GB K/V cache).
-QWEN_CHECK = (2, 64, 8)
-QWEN_PREFILL = (4, 512)
-QWEN_DECODE = (1, 8)
-QWEN_MAX_LEN = 2048
-QWEN_DECODE_PROMPT = 128
-QWEN_DEEP = (4, 32768)
+#: The configs run whole, as published, made on the card from seed 0:
+#: their parameter count, the consistency check (batch, prompt, greedy
+#: steps), and the deep decode point (batch, max_len, position): qwen's
+#: decode_32k (its batch of 128 cut to 4: a 25.77 GB K/V cache), and
+#: long_500k's last position for the two archs that run it
+#: (``LONG_CONTEXT_OK``).  mamba2's prompt is not a multiple of its
+#: 256-token chunk; recurrentgemma's 2040 tokens and 16 steps pass its
+#: 2048-row ring.
+ENGINE_WHOLE = {
+    "qwen2.5-14b": (14_770_033_664, (2, 64, 8), (4, 32768, 32768 - 12)),
+    "mamba2-780m": (780_148_992, (2, 300, 8), (1, 524288, 524287)),
+    "recurrentgemma-9b": (9_396_195_328, (1, 2040, 16), (1, 524288, 524287)),
+    "whisper-base": (70_686_208, (2, 64, 8), None),
+}
+#: The timing rows of each: prefill (batch, tokens), decode batches over
+#: a prompt of LLM_DECODE_PROMPT tokens in a cache of LLM_MAX_LEN rows.
+LLM_PREFILL = (4, 512)
+LLM_DECODE = (1, 8)
+LLM_MAX_LEN = 2048
+LLM_DECODE_PROMPT = 128
 #: mixtral-8x22b at its widths, 2 of 56 layers: a prompt 6 short of the
 #: 4096 window, then 16 steps, so the ring cache wraps.
 MIXTRAL_LAYERS = 2
 MIXTRAL_CHECK = (1, 4090, 16)
 ENGINE_TIMEOUT_S = 600
+#: Cache leaves laid out (..., batch, rows, ...) that a step reads only up
+#: to its position (K/V rows); whisper's cross K/V are read whole and
+#: never written; every other leaf but ``pos`` is state, read and written.
+_KV_LEAVES = ("c1", "c2", "attn_k", "attn_v", "k", "v")
+_CROSS_LEAVES = ("xk", "xv")
 
 
 def _rel_err(got, want):
@@ -2580,11 +2611,24 @@ def _peak_gb(torch) -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
+def _smoke_batch(np, cfg, b, s):
+    """Seeded tokens, and the family's extra input (patches, frames)."""
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.vit_dim)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def phase_engine_smoke(torch, np):
-    """(a) Each transformer-family SMOKE config through ``target="engine"``
-    on the card and on the CPU, with the same weights (made on the CPU
-    from a seed, moved to the card): f32 forward logits, prefill plus
-    greedy decode, and forward at the configured bf16."""
+    """(a) Each SMOKE config through ``target="engine"`` on the card and
+    on the CPU, with the same weights (made on the CPU from a seed, moved
+    to the card): f32 forward logits, prefill plus greedy decode, and
+    forward at the configured bf16."""
     import dataclasses
     import repro_torch
     from repro_torch.configs import get_config
@@ -2595,12 +2639,7 @@ def phase_engine_smoke(torch, np):
         t0 = time.perf_counter()
         base = get_config(arch, smoke=True)
         params = get_model(base).init(0, "cpu")
-        rng = np.random.default_rng(0)
-        batch = {"tokens":
-                 rng.integers(0, base.vocab, (b, s)).astype(np.int32)}
-        if base.family == "vlm":
-            batch["patches"] = rng.standard_normal(
-                (b, base.num_image_tokens, base.vit_dim)).astype(np.float32)
+        batch = _smoke_batch(np, base, b, s)
         row = {"phase": "engine", "case": "smoke", "arch": arch}
         for dtype in ("float32", base.dtype):
             cfg = dataclasses.replace(base, dtype=dtype)
@@ -2638,35 +2677,103 @@ def phase_engine_smoke(torch, np):
     return problems
 
 
-def _llm_rows(torch, exe, label, deep=False):
+def _cache_bytes(cache, rows, state_passes):
+    """Bytes moved to and from a cache: the K/V rows up to ``rows`` (each
+    ring clamped to its length), whisper's cross K/V whole, and every
+    state leaf ``state_passes`` times (2 for a decode step, which reads
+    and rewrites it; 1 for a prefill, which writes it)."""
+    total = 0
+    for name, t in cache.items():
+        n = t.numel() * t.element_size()
+        if name in _KV_LEAVES:
+            total += n * min(rows, t.shape[2]) // t.shape[2]
+        elif name in _CROSS_LEAVES:
+            total += n
+        elif name != "pos":
+            total += state_passes * n
+    return total
+
+
+def _prefill_flops(cfg, params, b, s):
+    """(bf16 tensor-core operations, f32 operations) of a prefill of b x s
+    tokens: 2 per weight per token it multiplies (whisper's encoder and
+    cross K/V over its frames; neither the embedding table nor the head,
+    which runs on one position), and the attention's q.k and p.v
+    (causal: half; local: the window) or the SSD's chunk products, in
+    f32 (the configs' attention compute dtype).  Dense families only:
+    a MoE's experts would count whole."""
+    import math
+    from repro_torch.models.common import tree_leaves
+    n = lambda t: sum(math.prod(l.shape) for l in tree_leaves(t))
+    h, hd = cfg.n_heads, cfg.head_dim
+    if cfg.family == "audio":
+        nf = cfg.n_frames
+        cross_kv = n(params["dec"]["cross"]["wk"]) + n(
+            params["dec"]["cross"]["wv"])
+        mm = 2 * b * (n(params["enc"]) * nf + cross_kv * nf
+                      + (n(params["dec"]) - cross_kv) * s)
+        att = 4 * b * h * hd * (cfg.encoder_layers * nf * nf
+                                + cfg.num_layers * (s * s / 2 + s * nf))
+        return mm, att
+    tables = n(params["embed"]) + n(params.get("head", {}))
+    mm = 2 * b * s * (n(params) - tables)
+    if cfg.family == "ssm":
+        from repro_torch.models import ssm
+        q = min(cfg.ssm_chunk, s)
+        nh, dh, ds = ssm.n_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
+        chunks = -(-s // q)
+        per_chunk = 2 * q * q * ds + 2 * nh * q * q * dh + 4 * q * nh * ds * dh
+        return mm, b * chunks * per_chunk * cfg.num_layers
+    if cfg.family == "hybrid":
+        layers, w = cfg.num_layers // 3, min(s, cfg.window)
+    else:
+        layers, w = cfg.num_layers, s
+    return mm, 4 * b * h * hd * layers * (s * w - w * w / 2)
+
+
+def _decode_step(model, params, cache, tok, pos0):
+    """One decode step on ``cache`` (each taken at position ``pos0``
+    unless it is None), bound to its own cache and token."""
+    def step():
+        if pos0 is not None:
+            cache["pos"].fill_(pos0)
+        return model.decode_step(params, cache, tok)
+    return step
+
+
+def _llm_rows(torch, exe, label, deep=None):
     """Prefill and decode timings of an engine executable at the
     published widths: host ms around synchronised calls, the device's
     busy share (torch.profiler's device time over the host's), the
-    bound, and the top device ops of one decode step."""
+    bound, and the top device ops of one decode step.  ``deep`` is a
+    decode point (batch, max_len, position) over a cache filled with
+    normals, each step taken at that position."""
     cfg, model, params = exe.cfg, exe.model, exe.params
     cost = exe.cost_summary()
     wbytes = cost["param_bytes"]
-    kv_row = 2 * cfg.num_layers * cfg.n_kv_heads * cfg.head_dim * 2  # K+V bf16
     gen = torch.Generator(device=DEVICE).manual_seed(1)
 
-    def tokens(b, s):
-        return torch.randint(0, cfg.vocab, (b, s), generator=gen,
-                             device=DEVICE, dtype=torch.int32)
+    def prompt(b, s):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                         device=DEVICE, dtype=torch.int32)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((b, cfg.n_frames, cfg.d_model),
+                                          generator=gen, device=DEVICE)
+        return batch
 
     with torch.inference_mode():
-        b, s = QWEN_PREFILL
+        b, s = LLM_PREFILL
         torch.cuda.reset_peak_memory_stats()
-        prompt = {"tokens": tokens(b, s)}
-        cache = model.init_cache(b, QWEN_MAX_LEN, DEVICE)
-        pf = lambda: model.prefill(params, prompt, cache)
+        batch = prompt(b, s)
+        cache = model.init_cache(b, LLM_MAX_LEN, DEVICE)
+        pf = lambda: model.prefill(params, batch, cache)
         ms = host_median_ms(pf, runs=3, warmup=1)
         prof = device_profile(pf, iters=1)
         dev_ms = sum(v[1] for v in prof.values())
-        flops = 2 * (cost["params"] - cfg.vocab * cfg.d_model) * b * s
-        attn = 2 * b * s * s * cfg.n_heads * cfg.head_dim  # causal q.k + p.v
-        t_bytes = (wbytes + b * s * kv_row) / HBM_BYTES_PER_S * 1e3
-        t_ops = (flops / BF16_FLOPS_PER_S + attn / F32_FLOPS_PER_S) * 1e3
-        row = {"phase": "engine", "case": "qwen2.5-14b", "precision": label,
+        mm, att = _prefill_flops(cfg, params, b, s)
+        t_bytes = (wbytes + _cache_bytes(cache, s, 1)) / HBM_BYTES_PER_S * 1e3
+        t_ops = (mm / BF16_FLOPS_PER_S + att / F32_FLOPS_PER_S) * 1e3
+        row = {"phase": "engine", "case": cfg.name, "precision": label,
                "op": "prefill", "batch": b, "tokens": s, "ms": ms,
                "tokens_per_s": b * s / ms * 1e3, "device_ms": dev_ms,
                "busy_share": dev_ms / ms,
@@ -2674,56 +2781,70 @@ def _llm_rows(torch, exe, label, deep=False):
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "peak_gb": _peak_gb(torch)}
+        if cfg.family == "audio":
+            row["frames"] = cfg.n_frames
         emit(row)
-        del cache, pf
-        points = [(bb, QWEN_DECODE_PROMPT, QWEN_MAX_LEN) for bb in QWEN_DECODE]
+        del cache, pf, batch
+        points = [(bb, LLM_MAX_LEN, None) for bb in LLM_DECODE]
         if deep:
-            points.append((QWEN_DEEP[0], None, QWEN_DEEP[1]))
-        for bb, prompt_len, max_len in points:
+            points.append(deep)
+        short = None        # the short-depth step at the deep point's batch
+        for bb, max_len, pos0 in points:
             torch.cuda.reset_peak_memory_stats()
             cache = model.init_cache(bb, max_len, DEVICE)
-            if prompt_len is None:        # decode_32k's depth: a filled cache
-                for name in ("c1", "c2"):
-                    for i in range(cfg.num_layers):
-                        cache[name][i].normal_(generator=gen)
-                cache["pos"].fill_(max_len - 12)
-            else:
-                model.prefill(params, {"tokens": tokens(bb, prompt_len)},
-                              cache)
-            tok = tokens(bb, 1)
-            step = lambda: model.decode_step(params, cache, tok)
-            ms = host_median_ms(step, runs=5 if prompt_len is None else 10,
+            if pos0 is None:
+                model.prefill(params, prompt(bb, LLM_DECODE_PROMPT), cache)
+            else:           # a deep point: every leaf filled with normals
+                for leaf in cache.values():
+                    if leaf.is_floating_point():
+                        for part in leaf:          # a layer at a time
+                            part.normal_(generator=gen)
+            step = _decode_step(model, params, cache, prompt(bb, 1)["tokens"],
+                                pos0)
+            ms = host_median_ms(step, runs=10 if pos0 is None else 5,
                                 warmup=2)
             prof = device_profile(step, iters=2)
             busy = sum(v[1] for v in prof.values())
-            depth = int(cache["pos"][0])
-            kv = bb * depth * kv_row
-            bound = (wbytes + kv) / HBM_BYTES_PER_S * 1e3
+            depth = int(cache["pos"][0]) - 1     # the last step's position
+            moved = _cache_bytes(cache, depth + 1, 2)
             top = sorted(prof.items(), key=lambda kv_: -kv_[1][1])[:10]
-            row = {"phase": "engine", "case": "qwen2.5-14b",
+            row = {"phase": "engine", "case": cfg.name,
                    "precision": label, "op": "decode", "batch": bb,
                    "depth": depth, "ms": ms, "tokens_per_s": bb / ms * 1e3,
                    "device_ms": busy, "busy_share": busy / ms,
                    "launches": sum(v[0] for v in prof.values()),
-                   "bound_ms": bound, "bound_by": "bytes",
-                   "weight_gb": wbytes / 1e9, "kv_read_gb": kv / 1e9,
+                   "bound_ms": (wbytes + moved) / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes",
+                   "weight_gb": wbytes / 1e9, "cache_gb": moved / 1e9,
                    "peak_gb": _peak_gb(torch),
                    "top_ops": [{"name": k[:120], "launches": n, "ms": t}
                                for k, (n, t) in top]}
+            if pos0 is None and deep and bb == deep[0]:
+                short = step
+            elif pos0 is not None and short is not None:
+                # The deep step against the short one in turns (short,
+                # deep, deep, short): host medians move between windows.
+                turns = [host_median_ms(f, runs=5, warmup=1)
+                         for f in (short, step, step, short)]
+                row["turns_ms"] = {"short": [turns[0], turns[3]],
+                                   "deep": [turns[1], turns[2]]}
             emit(row)
             del cache, step
 
 
-def phase_engine_qwen(torch):
-    """(b) qwen2.5-14b, the whole published config, made on the card:
-    decode against forward at f32, then the timing rows at bf16
-    activations with f32 masters ("exact") and bf16 weights ("bf16")."""
+def phase_engine_whole(torch, arch):
+    """(b) qwen2.5-14b, (d) mamba2-780m, (e) recurrentgemma-9b and (f)
+    whisper-base, each the whole published config made on the card from
+    seed 0: prefill and greedy decode against the forward at f32, then
+    the timing rows at bf16 activations with f32 masters ("exact") and
+    with bf16 weights ("bf16")."""
     import dataclasses
     import gc
     import repro_torch
     from repro_torch.configs import get_config
     problems = []
-    cfg = get_config("qwen2.5-14b")
+    want_params, (b, s, steps), deep = ENGINE_WHOLE[arch]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     exe32 = repro_torch.compile(
@@ -2732,33 +2853,47 @@ def phase_engine_qwen(torch):
         init_seed=0)
     cost = exe32.cost_summary()
     init_s = time.perf_counter() - t0
-    if cost["params"] != 14_770_033_664:
-        problems.append(f"qwen2.5-14b has {cost['params']} parameters")
-    b, s, steps = QWEN_CHECK
+    if cost["params"] != want_params:
+        problems.append(f"{arch} has {cost['params']} parameters, not "
+                        f"{want_params}")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen,
-                           device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=DEVICE, dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, cfg.n_frames, cfg.d_model),
+                                      generator=gen, device=DEVICE)
     with torch.inference_mode():
-        toks, logits, _ = _greedy(torch, exe32.model, exe32.params,
-                                  {"tokens": prompt}, steps, s + steps,
-                                  DEVICE)
-        full = exe32(tokens=torch.cat([prompt, toks], 1))["logits"]
+        toks, logits, cache = _greedy(torch, exe32.model, exe32.params,
+                                      batch, steps, s + steps, DEVICE)
+        full = exe32(**dict(batch, tokens=torch.cat(
+            [batch["tokens"], toks], 1)))["logits"]
     want = full[:, s - 1:s + steps]
     err, scale = _rel_err(logits, want)
     same = torch.equal(toks, want[:, :steps].argmax(-1).to(torch.int32))
-    emit({"phase": "engine", "case": "qwen2.5-14b", "op": "decode_vs_forward",
-          "layers": cfg.num_layers, "d_model": cfg.d_model,
-          "params": cost["params"], "param_bytes_f32": cost["param_bytes"],
-          "batch": b, "prompt": s, "steps": steps, "max_abs_err": err,
-          "limit": ENGINE_DECODE_TOL * scale, "greedy_equal": same,
-          "tokens": toks.tolist(), "init_s": init_s,
-          "peak_gb": _peak_gb(torch),
-          "seconds": time.perf_counter() - t0})
-    if err > ENGINE_DECODE_TOL * scale or not same:
-        problems.append(f"qwen2.5-14b decode vs forward: err {err} "
-                        f"(limit {ENGINE_DECODE_TOL * scale}), greedy "
-                        f"tokens equal {same}")
-    del full, want, logits
+    last = int(cache["pos"][0])
+    row = {"phase": "engine", "case": arch, "op": "decode_vs_forward",
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": cost["params"], "param_bytes_f32": cost["param_bytes"],
+           "batch": b, "prompt": s, "steps": steps, "last_pos": last,
+           "max_abs_err": err, "limit": ENGINE_DECODE_TOL * scale,
+           "greedy_equal": same, "tokens": toks.tolist(), "init_s": init_s,
+           "peak_gb": _peak_gb(torch)}
+    ok = err <= ENGINE_DECODE_TOL * scale and same
+    if cfg.family == "ssm":
+        row["chunk"] = cfg.ssm_chunk
+        ok &= s % cfg.ssm_chunk != 0            # the padded chunk ran
+    if cfg.family == "hybrid":
+        row["ring"] = cache["attn_k"].shape[2]
+        ok &= last > row["ring"]                # the ring wrapped
+    if cfg.family == "audio":
+        row["frames"] = cfg.n_frames
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    if not ok:
+        problems.append(f"{arch} decode vs forward: err {err} (limit "
+                        f"{ENGINE_DECODE_TOL * scale}), greedy tokens equal "
+                        f"{same}, last position {last}")
+    del full, want, logits, cache
     # The config as published (bf16 activations) over the f32 masters:
     # the same tensors, cast at each product as the reference does.
     exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
@@ -2772,11 +2907,11 @@ def phase_engine_qwen(torch):
     torch.cuda.reset_peak_memory_stats()
     exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
         target="engine", precision="bf16", device=DEVICE), init_seed=0)
-    emit({"phase": "engine", "case": "qwen2.5-14b", "op": "bf16_compile",
+    emit({"phase": "engine", "case": arch, "op": "bf16_compile",
           "seconds": time.perf_counter() - t0,
           "param_bytes": exe.cost_summary()["param_bytes"],
           "quant": exe.quant_report, "peak_gb": _peak_gb(torch)})
-    _llm_rows(torch, exe, "bf16", deep=True)
+    _llm_rows(torch, exe, "bf16", deep=deep)
     del exe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2844,8 +2979,10 @@ def engine_main() -> int:
     emit({"phase": "engine", "case": "start", "free_gb": free / 1e9,
           "total_gb": total / 1e9})
     problems = phase_engine_smoke(torch, np)
-    problems += phase_engine_qwen(torch)
+    problems += phase_engine_whole(torch, "qwen2.5-14b")
     problems += phase_engine_mixtral(torch)
+    for arch in ("mamba2-780m", "recurrentgemma-9b", "whisper-base"):
+        problems += phase_engine_whole(torch, arch)
     if problems:
         raise SystemExit("engine phase failed: " + "; ".join(problems))
     return 0

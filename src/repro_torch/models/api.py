@@ -10,10 +10,11 @@ The port of ``repro.models.api``.  ``get_model(cfg)`` returns a
     decode_step(params, cache, tokens)  -> (logits, cache)
     prefill_chunk(params, tokens, cache, start, length) -> (logits, cache)
 
-The transformer families (``dense``, ``moe``, ``vlm``) are ported; the
-other three (``ssm``, ``hybrid``, ``audio``) are ROADMAP A.12b and
-raise.  ``loss`` waits for training (A.15), ``param_axes`` and
-``cache_axes`` for distribution (A.14).
+All six families are ported: ``dense``, ``moe`` and ``vlm``
+(``transformer``), ``ssm`` (``ssm``, mamba2), ``hybrid`` (``rglru``,
+recurrentgemma) and ``audio`` (``whisper``, whose ``forward`` and
+``prefill`` take the ``frames`` input).  ``loss`` waits for training
+(A.15), ``param_axes`` and ``cache_axes`` for distribution (A.14).
 """
 
 from __future__ import annotations
@@ -25,19 +26,15 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import common as C
-from . import transformer
+from . import rglru, ssm, transformer, whisper
 
 _FAMILY_MODULES = {
     "dense": transformer,
     "moe": transformer,
     "vlm": transformer,
-}
-
-#: Families of the reference whose modules are not ported yet.
-_UNPORTED_FAMILIES = {
-    "ssm": "models/ssm.py (mamba2)",
-    "hybrid": "models/rglru.py (recurrentgemma)",
-    "audio": "models/whisper.py (whisper)",
+    "ssm": ssm,
+    "hybrid": rglru,
+    "audio": whisper,
 }
 
 
@@ -61,15 +58,20 @@ class Model:
             "logical param axes serve sharding, which is not ported yet "
             "(ROADMAP A.14: distribution)")
 
+    def _extra(self, batch, device) -> Dict[str, Any]:
+        """The family's non-token input: ``patches`` (vlm) or ``frames``
+        (audio), on ``device``."""
+        if self.cfg.family == "audio":
+            return {"frames": _as_tensor(batch.get("frames"), device)}
+        patches = batch.get("patches") if self.cfg.family == "vlm" else None
+        return {"patches": _as_tensor(patches, device)}
+
     # -- forward -------------------------------------------------------
     def forward(self, params, batch: Dict[str, Any]):
-        patches = None
-        if self.cfg.family == "vlm":
-            patches = batch.get("patches")
         device = params["embed"].device
         return self.mod.forward(self.cfg, params,
                                 _as_tensor(batch["tokens"], device),
-                                patches=_as_tensor(patches, device))
+                                **self._extra(batch, device))
 
     def loss(self, params, batch):
         raise NotImplementedError(
@@ -86,10 +88,9 @@ class Model:
 
     def prefill(self, params, batch: Dict[str, Any], cache):
         device = params["embed"].device
-        patches = batch.get("patches") if self.cfg.family == "vlm" else None
         return self.mod.prefill(self.cfg, params,
                                 _as_tensor(batch["tokens"], device), cache,
-                                patches=_as_tensor(patches, device))
+                                **self._extra(batch, device))
 
     def decode_step(self, params, cache, tokens):
         return self.mod.decode_step(
@@ -118,10 +119,6 @@ class Model:
 
 
 def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_UNPORTED_FAMILIES[cfg.family]} is ROADMAP A.12b")
     if cfg.family not in _FAMILY_MODULES:
         raise KeyError(f"unknown family {cfg.family!r}")
     return Model(cfg, _FAMILY_MODULES[cfg.family])

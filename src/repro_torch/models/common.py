@@ -129,6 +129,10 @@ def zeros_init(init: Init, shape, dtype) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch_dtype(dtype), device=init.device)
 
 
+def ones_init(init: Init, shape, dtype) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch_dtype(dtype), device=init.device)
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------

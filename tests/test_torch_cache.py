@@ -123,19 +123,21 @@ def test_deserialize_ignores_embedded_cache_dir(tmp_path):
                                        ("engine", "A.12")])
 def test_unported_kinds_raise(kind, item):
     """What the port cannot load yet names its ROADMAP item: the sharded
-    kind (A.14), and an engine artifact of a family still to port (the
-    engine kind itself loads since A.12; its SSM/hybrid/audio families
-    are A.12b)."""
-    import dataclasses
+    kind (A.14).  The engine kind loads since A.12, and since A.12b for
+    every family: a mamba2 blob, which named A.12b before, loads back to
+    the same params and logits."""
     from repro_torch.api.executable import pack
     from repro_torch.configs import get_config
-    extra = None
     if kind == "engine":
-        extra = {"cfg": dataclasses.asdict(get_config("mamba2-780m",
-                                                      smoke=True)),
-                 "leaf_dtypes": []}
-    blob = pack(kind, repro_torch.CompileOptions(device="cpu"), b"",
-                extra=extra)
+        cfg = get_config("mamba2-780m", smoke=True)
+        exe = repro_torch.compile(cfg, target="engine", device="cpu")
+        back = repro_torch.deserialize(exe.serialize())
+        assert back.cfg == cfg
+        toks = np.arange(12, dtype=np.int32).reshape(2, 6)
+        assert torch.equal(back(tokens=toks)["logits"],
+                           exe(tokens=toks)["logits"])
+        return
+    blob = pack(kind, repro_torch.CompileOptions(device="cpu"), b"")
     with pytest.raises(NotImplementedError, match=item):
         repro_torch.deserialize(blob)
 

@@ -11,8 +11,9 @@ JAX package's, on the CPU.
   logits;
 * ``param_count`` of the seven transformer-family configs at their
   published widths (meta device, nothing allocated);
-* the families still to port (ROADMAP A.12b) and the pieces that wait
-  for A.13-A.15 raise, naming their item.
+* the SSM, hybrid and audio families (ported after the others) build,
+  count and compile (their parity is ``test_torch_families.py``); the
+  pieces that wait for A.13-A.15 raise, naming their item.
 """
 
 import dataclasses
@@ -40,7 +41,6 @@ from repro_torch.weights import params_from_reference
 
 ARCHS = ["qwen2.5-14b", "deepseek-7b", "gemma3-27b", "minicpm-2b",
          "deepseek-v3-671b", "mixtral-8x22b", "internvl2-2b"]
-UNPORTED = ["mamba2-780m", "recurrentgemma-9b", "whisper-base"]
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
@@ -324,15 +324,33 @@ def test_fold_norms_skips_other_families():
 # ---------------------------------------------------------------------------
 # What waits for later items
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
+                                  "whisper-base"])
 def test_unported_families_name_a12b(arch):
+    """The families that raised naming ROADMAP A.12b until they were
+    ported: ``get_model``, ``param_count`` (the reference's) and an
+    engine compile on the CPU each succeed, and the compile answers a
+    call with the family's inputs (whisper's ``frames`` too).  They have
+    no chunked prefill, and sharding and training still name A.14 and
+    A.15."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        cfg.param_count()
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        _engine(cfg)
+    m = get_model(cfg)
+    assert m.cfg == cfg and not m.supports_chunked_prefill()
+    for fn, item in ((m.param_axes, "A.14"), (m.cache_axes, "A.14"),
+                     (lambda: m.loss({}, {}), "A.15")):
+        with pytest.raises(NotImplementedError, match=item):
+            fn()
+    assert cfg.param_count() == ref_config(arch, smoke=True).param_count()
+    exe = _engine(cfg)
+    assert exe.cost_summary()["params"] == cfg.param_count()
+    batch = {"tokens": _tokens(cfg)}
+    if cfg.family == "audio":
+        batch["frames"] = np.zeros((2, cfg.n_frames, cfg.d_model),
+                                   np.float32)
+    assert exe.signature.input_names == tuple(batch)
+    logits = exe(**batch)["logits"]
+    assert logits.shape == (2, 12, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_later_items_raise_naming_them():
@@ -361,6 +379,8 @@ def test_new_modules_import_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.configs, repro_torch.models, "
         "repro_torch.inference, repro_torch.api.engine_adapter\n"
+        "import repro_torch.models.ssm, repro_torch.models.rglru, "
+        "repro_torch.models.whisper\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -299,18 +299,20 @@ def test_compile_unknown_model_lists_frontends():
 
 def test_compile_llm_config_names_the_roadmap():
     """An LLM config compiles with target='engine' only (the reference's
-    TypeError otherwise); a family still to port names ROADMAP A.12b."""
+    TypeError otherwise); an SSM config, which named ROADMAP A.12b until
+    its family was ported, compiles there."""
     class Config:
         family, name = "dense", "qwen2.5-14b"
 
     with pytest.raises(TypeError, match="engine"):
         _compile(Config())
 
-    class SSMConfig:
-        family, name = "ssm", "mamba2-780m"
-
-    with pytest.raises(NotImplementedError, match="A.12b"):
-        _compile(SSMConfig(), target="engine")
+    from repro_torch.configs import get_config
+    ssm = get_config("mamba2-780m", smoke=True)
+    with pytest.raises(TypeError, match="engine"):
+        _compile(ssm)
+    exe = _compile(ssm, target="engine")
+    assert exe.cost_summary()["family"] == "ssm"
 
 
 def test_compile_builder_and_container_frontends(rng, tmp_path):

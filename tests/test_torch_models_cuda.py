@@ -1,12 +1,15 @@
 """The engine target on the card against the CPU (needs an NVIDIA GPU).
 
 The ``cuda``-marked twins of ``chip_smoke.py``'s engine phase (a): each
-transformer-family ``SMOKE`` config compiled with ``target="engine"`` on
-the card and on the CPU over the same weights (made on the CPU from a
-seed): f32 forward logits within 1e-4 x max(1, max|logits|) with TF32
-off, prefill plus 8 greedy decode steps giving the same tokens, and the
-configured bf16 forward within the reference's 0.05 budget.  This file
-imports no JAX, so it runs on a machine without it::
+of the ten ``SMOKE`` configs compiled with ``target="engine"`` on the
+card and on the CPU over the same weights (made on the CPU from a seed):
+f32 forward logits within 1e-4 x max(1, max|logits|) with TF32 off,
+prefill plus 8 greedy decode steps giving the same tokens, and the
+configured bf16 forward within the reference's 0.05 budget.  The twins
+of (d)-(f) at SMOKE size: mamba2, recurrentgemma and whisper decode
+against their own forward on the card at f32, over a prompt that is not
+a multiple of mamba2's chunk and runs past recurrentgemma's window.
+This file imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_models_cuda.py
 """
@@ -22,7 +25,8 @@ from repro_torch.configs import get_config
 from repro_torch.models import get_model
 
 ARCHS = ["qwen2.5-14b", "deepseek-7b", "gemma3-27b", "minicpm-2b",
-         "deepseek-v3-671b", "mixtral-8x22b", "internvl2-2b"]
+         "deepseek-v3-671b", "mixtral-8x22b", "internvl2-2b",
+         "mamba2-780m", "recurrentgemma-9b", "whisper-base"]
 F32_TOL = 1e-4
 BF16_BUDGET = 0.05
 B, S, STEPS = 2, 24, 8
@@ -49,12 +53,15 @@ def _pair(arch, dtype, device):
         params=params) for dev in ("cpu", device)]
 
 
-def _batch(cfg):
+def _batch(cfg, s=S):
     rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, s)).astype(np.int32)}
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
             (B, cfg.num_image_tokens, cfg.vit_dim)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -99,3 +106,36 @@ def test_card_forward_bf16_within_budget(card, arch):
     err = float((got.cpu() - want).abs().max())
     limit = BF16_BUDGET * max(1.0, float(want.abs().max()))
     assert err <= limit, (arch, err, limit)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
+                                  "whisper-base"])
+def test_card_decode_matches_forward_f32(card, arch):
+    """Prefill 37 tokens, then 8 greedy steps on the card: each step's
+    logits within 1e-4 x max(1, max|logits|) of the forward's over the
+    prompt and the tokens chosen, and the forward's argmax the tokens."""
+    _, gpu = _pair(arch, "float32", card)
+    cfg, prompt = gpu.cfg, 37
+    if cfg.family == "ssm":
+        assert prompt % cfg.ssm_chunk
+    if cfg.family == "hybrid":
+        assert prompt > cfg.window
+    batch = _batch(cfg, prompt)
+    model, params = gpu.model, gpu.params
+    feed = {k: torch.as_tensor(v, device=card) for k, v in batch.items()}
+    cache = model.init_cache(B, prompt + STEPS, card)
+    lg, cache = model.prefill(params, feed, cache)
+    logits, toks = [lg[:, -1]], []
+    for _ in range(STEPS):
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        lg, cache = model.decode_step(params, cache, tok)
+        logits.append(lg[:, -1])
+    toks = torch.cat(toks, 1)
+    full = gpu(**dict(batch, tokens=torch.cat(
+        [feed["tokens"], toks], 1).cpu().numpy()))["logits"]
+    want = full[:, prompt - 1:]
+    err = float((torch.stack(logits, 1) - want).abs().max())
+    limit = F32_TOL * max(1.0, float(want.abs().max()))
+    assert err <= limit, (arch, err, limit)
+    assert torch.equal(toks, want[:, :STEPS].argmax(-1).to(torch.int32))
