@@ -29,6 +29,25 @@ JAX package.  Every phase prints one JSON line (also written to
                  decode against forward past its 4096-token ring.  No
                  kernel of ``csrc/`` is on this path: the reference's LLM
                  attention is jnp, computed here with torch ops.
+   ``serve``     the serve scheduler (``repro_torch.serve``), in a child
+                 process (``python3 chip_smoke.py --serve``): (a) the ten
+                 SMOKE configs at f32 served on the card and on the CPU
+                 over the same weights, batch and length buckets, chunked
+                 prefill and a prefix cache where the family has them,
+                 requests arriving mid-run: tokens equal, logits within
+                 1e-4 x max(1, max|logits|), every card decode step one
+                 replay of a captured CUDA graph; (b) qwen2.5-14b whole
+                 at bf16 with ``fold=True``, 8 slots, 32 requests (64-1024
+                 prompt tokens, 8 sharing a head, 64 new tokens): tokens/s,
+                 TTFT, captured against eager step ms, launches and busy
+                 share of one replay, bucket and prefix counters, peak
+                 memory; a replay bit-equal to eager ``decode_step`` on a
+                 clone of the cache, no buffer moved and no byte
+                 allocated over 6 steady steps, and the same requests at
+                 a fixed shape (tokens compared, not asserted); (c)
+                 mamba2-780m whole at f32, 300-token prompts across a
+                 padded SSD chunk: served logits within 1e-3 x max(1,
+                 max|logits|) of the forward's, tokens its argmax.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
                  plan (paths, K splits, ragged and unaligned shapes).
@@ -2988,15 +3007,15 @@ def engine_main() -> int:
     return 0
 
 
-def phase_engine():
-    """Run the engine phase in a child process, killed after
-    ENGINE_TIMEOUT_S, and pass its lines on."""
+def phase_child(flag: str, timeout_s: float, name: str):
+    """Run a phase in a child process (``python3 chip_smoke.py <flag>``),
+    killed after ``timeout_s``, and pass its lines on."""
     import threading
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--engine"], cwd=ROOT, stdout=subprocess.PIPE,
+                             flag], cwd=ROOT, stdout=subprocess.PIPE,
                             text=True)
-    watchdog = threading.Timer(ENGINE_TIMEOUT_S, proc.kill)
+    watchdog = threading.Timer(timeout_s, proc.kill)
     watchdog.start()
     problems = []
     try:
@@ -3013,12 +3032,502 @@ def phase_engine():
             proc.kill()
             proc.wait()
     seconds = time.perf_counter() - t0
-    if seconds >= ENGINE_TIMEOUT_S:
-        problems.append(f"engine phase killed after {seconds:.0f} s")
+    if seconds >= timeout_s:
+        problems.append(f"{name} phase killed after {seconds:.0f} s")
     if rc != 0:
-        problems.append(f"engine phase exited {rc}")
-    emit({"phase": "engine", "case": "done", "seconds": seconds, "rc": rc})
+        problems.append(f"{name} phase exited {rc}")
+    emit({"phase": name, "case": "done", "seconds": seconds, "rc": rc})
     return problems
+
+
+def phase_engine():
+    """The engine phase in its child process."""
+    return phase_child("--engine", ENGINE_TIMEOUT_S, "engine")
+
+
+# ---------------------------------------------------------------------------
+# The serve phase (a child process: ``python3 chip_smoke.py --serve``)
+# ---------------------------------------------------------------------------
+#: (a) each SMOKE config served on the card and on the CPU: the
+#: scheduler's options (buckets from BucketPolicy.default over them;
+#: chunked prefill and the prefix cache switch themselves off where the
+#: family has no incremental prefill), the requests (count, prompt
+#: lengths, new tokens; uids 0, 2 and 4 share an 8-token head), how many
+#: arrive after the second step, and the f32 logits limit.
+SERVE_SMOKE = dict(slots=3, max_len=32, prefill_chunk=8, prefix_cache=2)
+SERVE_SMOKE_REQUESTS = (5, (3, 12), 5)
+SERVE_SMOKE_LATE = 2
+SERVE_SMOKE_TOL = 1e-4
+#: (b) qwen2.5-14b whole at bf16: the options, and the requests (count,
+#: prompt lengths, how many share a head, its length, new tokens).
+SERVE_QWEN = dict(slots=8, max_len=2048, prefill_chunk=256, prefix_cache=4,
+                  admission="fcfs")
+SERVE_QWEN_REQUESTS = (32, (64, 1024), 8, 512, 64)
+#: Steady-state steps over which no buffer may move and no byte may be
+#: allocated, over SERVE_QWEN's slots full of prompts of this length;
+#: timed runs of one step, captured and eager, per turn.
+SERVE_STEADY_STEPS = 6
+SERVE_STEADY_PROMPT = 64
+SERVE_TIMED_RUNS = 10
+#: (c) mamba2-780m whole at f32: requests, prompt length, new tokens, and
+#: the options (a chunk of 256 and length buckets ask for what an SSM
+#: switches off: its state does not grow with max_len).
+SERVE_MAMBA = (4, 300, 8)
+SERVE_MAMBA_OPTS = dict(slots=4, max_len=512, prefill_chunk=256)
+SERVE_TIMEOUT_S = 420
+
+
+class _Recorder:
+    """A sampler that keeps every logits row it is handed (on the host:
+    on the card a decode step's logits are overwritten by the next
+    replay) and returns the argmax."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def __call__(self, logits, temperature, *, uid, index):
+        row = logits.detach().float().cpu()
+        self.rows[(uid, index)] = row
+        return int(row.argmax(-1)[0])
+
+
+def _steps(sched):
+    """The scheduler's decode steps: each bucket's, or the fixed one."""
+    if sched._decode_engine is None:
+        return [sched._decode]
+    return [sched._decode_engine.peek(b)
+            for b in sched._decode_engine.warm_buckets()]
+
+
+def _replays_cover_steps(sched):
+    """(every step a captured graph, its calls summed == decode steps)."""
+    steps = _steps(sched)
+    return (all(s.graph is not None for s in steps),
+            sum(s.calls for s in steps) == sched.metrics.decode_steps)
+
+
+def _serve_smoke_requests(np, cfg):
+    from repro_torch.serve import Request
+    n, (lo, hi), new = SERVE_SMOKE_REQUESTS
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab, 8).astype(np.int32)
+    reqs = []
+    for uid in range(n):
+        p = rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+        p = p.astype(np.int32)
+        if uid % 2 == 0:
+            p = np.concatenate([head, p])[:SERVE_SMOKE["max_len"] - new - 1]
+        inputs = None
+        if cfg.family == "audio":
+            inputs = {"frames": rng.standard_normal(
+                (cfg.n_frames, cfg.d_model)).astype(np.float32)}
+        if cfg.family == "vlm":
+            inputs = {"patches": rng.standard_normal(
+                (cfg.num_image_tokens, cfg.vit_dim)).astype(np.float32)}
+        reqs.append(Request(uid=uid, prompt=p, max_new_tokens=new,
+                            inputs=inputs))
+    return reqs
+
+
+def phase_serve_smoke(torch, np):
+    """(a) Each SMOKE config at f32 served on the card and on the CPU over
+    the same weights (made on the CPU from a seed): buckets on (every
+    bucket captured first, so both take the same buckets), chunked
+    prefill and a prefix cache where the family has them, requests
+    arriving after the second step.  Tokens equal, every logits row
+    within SERVE_SMOKE_TOL x max(1, max|logits|), every card step a
+    replay."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.runtime import BucketPolicy
+    from repro_torch.serve import SchedulerOptions
+    problems = []
+    for arch in ENGINE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = get_model(cfg).init(0, "cpu")
+        reqs = _serve_smoke_requests(np, cfg)
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+                target="engine", device=dev), params=params)
+            rec = _Recorder()
+            sched = repro_torch.serve(exe, SchedulerOptions(
+                buckets=BucketPolicy.default(
+                    max_batch=SERVE_SMOKE["slots"],
+                    max_len=SERVE_SMOKE["max_len"], min_len=8),
+                **SERVE_SMOKE), sampler=rec, engine_worker="manual")
+            sched.wait_warm()
+            for r in reqs[:-SERVE_SMOKE_LATE]:
+                sched.submit(r)
+            sched.step()
+            sched.step()
+            for r in reqs[-SERVE_SMOKE_LATE:]:
+                sched.submit(r)
+            sched.run()
+            runs[dev] = (dict(sched.generated), rec.rows, sched.summary(),
+                         _replays_cover_steps(sched),
+                         sched._pool.bytes if sched._pool else 0)
+            sched.shutdown()
+        toks, rows, summ, (captured, covered), pool = runs[DEVICE]
+        same = toks == runs["cpu"][0]
+        err = limit = 0.0
+        for key, want in runs["cpu"][1].items():
+            e, scale = _rel_err(rows[key], want)
+            if e > err:
+                err = e
+            limit = max(limit, SERVE_SMOKE_TOL * scale)
+            if e > SERVE_SMOKE_TOL * scale:
+                problems.append(f"serve {arch} uid {key[0]} token {key[1]}:"
+                                f" logits {e} > {SERVE_SMOKE_TOL * scale}")
+        dec = summ["runtime"]["decode"]
+        emit({"phase": "serve", "case": "smoke", "arch": arch,
+              "tokens_equal": same, "max_abs_err": err, "limit": limit,
+              "rows": len(rows), "decode_steps": summ["decode_steps"],
+              "every_step_a_replay": captured and covered,
+              "warm_buckets": dec["warm_buckets"],
+              "bucket_hits": dec["bucket_hits"],
+              "chunked_prefill": summ.get("chunked_prefill"),
+              "prefix_cache": summ.get("prefix_cache"),
+              "length_buckets": "prefill" in summ["runtime"],
+              "graph_pool_bytes": pool,
+              "seconds": time.perf_counter() - t0})
+        if not same or set(rows) != set(runs["cpu"][1]):
+            problems.append(f"serve {arch}: card tokens {toks} against the "
+                            f"CPU's {runs['cpu'][0]}")
+        if not (captured and covered):
+            problems.append(f"serve {arch}: a decode step was not a replay")
+    return problems
+
+
+def _qwen_requests(np, cfg):
+    """SERVE_QWEN_REQUESTS from seed 0: the sharers' prompts are the head
+    and a tail of at least one token, the others are drawn whole."""
+    from repro_torch.serve import Request
+    n, (lo, hi), sharers, head_len, new = SERVE_QWEN_REQUESTS
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab, head_len).astype(np.int32)
+    share = set(rng.choice(n, sharers, replace=False).tolist())
+    reqs = []
+    for uid in range(n):
+        plen = int(rng.integers(head_len + 1 if uid in share else lo,
+                                hi + 1))
+        p = rng.integers(0, cfg.vocab, plen).astype(np.int32)
+        if uid in share:
+            p[:head_len] = head
+        reqs.append(Request(uid=uid, prompt=p, max_new_tokens=new))
+    return reqs, sorted(share)
+
+
+def _tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_serve_qwen(torch, np):
+    """(b) qwen2.5-14b whole at bf16 (made on the card) served through
+    ``repro_torch.serve(exe, ...)`` with ``fold=True``: throughput, TTFT,
+    captured against eager step time, launches and busy share of one
+    replay, bucket and prefix counters, peak memory; one captured step
+    bit-equal to eager ``decode_step`` on a clone of the cache; no buffer
+    moved and no byte allocated over steady-state steps; then the same
+    requests at a fixed shape (one full-slots step), tokens compared."""
+    import gc
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import Bucket, BucketPolicy
+    from repro_torch.serve import Request, Scheduler, SchedulerOptions
+    problems = []
+    cfg = get_config("qwen2.5-14b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", precision="bf16", device=DEVICE), init_seed=0)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    compile_peak = _peak_gb(torch)
+    torch.cuda.reset_peak_memory_stats()
+    weights = torch.cuda.memory_allocated()
+    opts = SchedulerOptions(buckets=BucketPolicy.default(
+        max_batch=SERVE_QWEN["slots"], max_len=SERVE_QWEN["max_len"]),
+        **SERVE_QWEN)
+    t0 = time.perf_counter()
+    sched = repro_torch.serve(exe, opts)
+    build_s = time.perf_counter() - t0
+    held = {id(t) for t in tree_leaves(exe.params)}
+    fold_bytes = _tensor_bytes(t for t in tree_leaves(sched.params)
+                               if id(t) not in held)
+    reqs, share = _qwen_requests(np, cfg)
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    serve_s = time.perf_counter() - t0
+    served = {u: list(t) for u, t in sched.generated.items()}
+    summ = sched.summary()
+    warm = sched.wait_warm(300.0)
+    captured, covered = _replays_cover_steps(sched)
+    dec = summ["runtime"]["decode"]
+    row = {"phase": "serve", "case": "qwen2.5-14b", "op": "serve",
+           "precision": "bf16", "params": exe.cost_summary()["params"],
+           "requests": len(reqs), "prompt_tokens": int(sum(
+               len(r.prompt) for r in reqs)), "sharers": share,
+           "options": {k: str(v) for k, v in opts.to_dict().items()},
+           "compile_s": compile_s, "build_s": build_s, "serve_s": serve_s,
+           "tokens_per_s": summ["tokens_per_s"],
+           "total_new_tokens": summ["total_new_tokens"],
+           "ttft_p50_ms": summ["ttft_p50"] * 1e3,
+           "ttft_p99_ms": summ["ttft_p99"] * 1e3,
+           "decode_steps": summ["decode_steps"],
+           "mean_batch_occupancy": summ["mean_batch_occupancy"],
+           "prefill_chunks": summ["prefill_chunks"],
+           "decode_buckets": {k: dec[k] for k in (
+               "bucket_hits", "bucket_misses", "fallback_serves",
+               "background_compiles", "compile_stalls", "warm_buckets",
+               "compile_ms")},
+           "chunk_stalls": summ["runtime"]["chunk"]["compile_stalls"],
+           "prefix_cache": summ["prefix_cache"],
+           "every_step_a_replay": captured and covered,
+           "all_buckets_warm": warm,
+           # Growth of memory_reserved over each capture; a capture in
+           # the background also counts what the serving thread took
+           # meanwhile, so only the full-slots one (at build) is the pool's.
+           "capture_reserved_gb": {str(s.batch): s.pool_bytes / 1e9
+                                   for s in _steps(sched)},
+           "capture_s": {str(s.batch): s.capture_s for s in _steps(sched)},
+           "fold_report": sched.fold_report,
+           "weights_gb": weights / 1e9, "fold_gb": fold_bytes / 1e9,
+           "cache_gb": _tensor_bytes(sched.slot_manager.cache.values()) / 1e9,
+           "peak_gb": _peak_gb(torch), "compile_peak_gb": compile_peak}
+    emit(row)
+    if dec["compile_stalls"] or not (captured and covered) or not warm:
+        problems.append(f"serve qwen: {dec['compile_stalls']} decode stalls,"
+                        f" every step a replay {captured and covered}, "
+                        f"buckets warm {warm}")
+    if summ["completed"] != len(reqs) or not summ["prefix_cache"]["hits"]:
+        problems.append(f"serve qwen: {summ['completed']} completed, prefix "
+                        f"cache {summ['prefix_cache']}")
+
+    # One step of each bucket captured against eager, in turns, and one
+    # replay under the profiler.
+    sm = sched.slot_manager
+    for b in (1, SERVE_QWEN["slots"]):
+        step = sched._decode_engine.peek(Bucket(b))
+        turns = [host_median_ms(f, runs=SERVE_TIMED_RUNS, warmup=2)
+                 for f in (step, step.eager, step.eager, step)]
+        prof = device_profile(step, iters=3)
+        dev_ms = sum(ms for _, ms in prof.values())
+        launches = sum(n for n, _ in prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+        emit({"phase": "serve", "case": "qwen2.5-14b", "op": "decode_step",
+              "batch": b, "captured_ms": [turns[0], turns[3]],
+              "eager_ms": [turns[1], turns[2]], "device_ms": dev_ms,
+              "replay_launches": launches,
+              "busy_share": dev_ms / min(turns[0], turns[3]),
+              "tokens_per_s": b / min(turns[0], turns[3]) * 1e3,
+              "top_ops": [{"name": k[:100], "launches": n, "ms": ms}
+                          for k, (n, ms) in top]})
+
+    # One prefill chunk as the scheduler runs it (eager): its host and
+    # device time and launches.
+    chunk = SERVE_QWEN["prefill_chunk"]
+    with torch.inference_mode():
+        one = exe.model.init_cache(1, SERVE_QWEN["max_len"], DEVICE)
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab, (1, chunk)).astype(np.int32), device=DEVICE)
+        run_chunk = lambda: exe.model.prefill_chunk(sched.params, toks, one,
+                                                    0, chunk)
+        ms = host_median_ms(run_chunk, runs=SERVE_TIMED_RUNS, warmup=2)
+        prof = device_profile(run_chunk, iters=3)
+    dev_ms = sum(ms_ for _, ms_ in prof.values())
+    emit({"phase": "serve", "case": "qwen2.5-14b", "op": "prefill_chunk",
+          "tokens": chunk, "ms": ms, "device_ms": dev_ms,
+          "launches": sum(n for n, _ in prof.values()),
+          "busy_share": dev_ms / ms, "chunks_served": summ["prefill_chunks"]})
+    del one, toks, run_chunk
+
+    # The full-slots replay against eager decode_step on a clone of the
+    # cache, sliced the same way (the same strides).
+    step = sched._decode_engine.peek(Bucket(SERVE_QWEN["slots"]))
+    with torch.inference_mode():
+        clone = {k: v.clone() for k, v in sm.cache.items()}
+        want = exe.model.decode_step(
+            sched.params, sm.rows(step.batch, clone), step.tokens)[0].clone()
+        got = step().clone()
+        torch.cuda.synchronize()
+        logits_equal = torch.equal(got, want)
+        cache_equal = all(torch.equal(sm.cache[k], clone[k]) for k in clone)
+    del clone, want, got
+
+    # Steady state: 8 requests in flight, no admission, no retirement.
+    new = SERVE_STEADY_STEPS + 4
+    rng = np.random.default_rng(1)
+    for i in range(SERVE_QWEN["slots"]):
+        sched.submit(Request(uid=1000 + i, max_new_tokens=new,
+                             prompt=rng.integers(
+                                 0, cfg.vocab, SERVE_STEADY_PROMPT).astype(
+                                 np.int32)))
+    sched.step()
+    sched.step()
+    ptrs = sm.buffer_pointers()
+    torch.cuda.current_stream().synchronize()
+    allocated = torch.cuda.memory_allocated()
+    moved, step_ms = 0, []
+    for _ in range(SERVE_STEADY_STEPS):
+        t = time.perf_counter()
+        sched.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        moved += sm.buffer_pointers() != ptrs
+    torch.cuda.current_stream().synchronize()
+    grew = torch.cuda.memory_allocated() - allocated
+    active = sched.num_active()
+    sched.run()
+    emit({"phase": "serve", "case": "qwen2.5-14b", "op": "steady_state",
+          "replay_logits_equal": logits_equal,
+          "replay_cache_equal": cache_equal, "active": active,
+          "steps": SERVE_STEADY_STEPS, "steps_moving_a_buffer": moved,
+          "allocated_growth_bytes": grew, "scheduler_step_ms": step_ms})
+    if not (logits_equal and cache_equal):
+        problems.append(f"serve qwen: replay vs eager on a clone: logits "
+                        f"equal {logits_equal}, cache equal {cache_equal}")
+    if moved or grew or active != SERVE_QWEN["slots"]:
+        problems.append(f"serve qwen steady state: {moved} steps moved a "
+                        f"buffer, {grew} bytes allocated, {active} active")
+
+    # The same requests at a fixed shape: one full-slots step.
+    params = sched.params
+    sched.shutdown()
+    del sched, sm, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fixed = Scheduler(exe.model, params, SchedulerOptions(
+        fold=False, **SERVE_QWEN))
+    for r in reqs:
+        fixed.submit(r)
+    fixed.run()
+    agree, first_diff = 0, {}
+    for uid, toks in served.items():
+        other = fixed.generated[uid]
+        if toks == other:
+            agree += 1
+        else:
+            first_diff[uid] = next(i for i, (x, y) in enumerate(
+                zip(toks, other)) if x != y)
+    emit({"phase": "serve", "case": "qwen2.5-14b", "op": "fixed_shape",
+          "requests_equal": agree, "requests": len(served),
+          "first_difference": first_diff,
+          "tokens_per_s": fixed.summary()["tokens_per_s"],
+          "seconds": time.perf_counter() - t0, "peak_gb": _peak_gb(torch)})
+    fixed.shutdown()
+    del fixed, params, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems
+
+
+def phase_serve_mamba(torch, np):
+    """(c) mamba2-780m whole at f32, served: prompts of 300 tokens cross a
+    padded 256-token SSD chunk; chunking and length buckets switch
+    themselves off (the state does not grow with max_len).  Each
+    generated position's served logits within ENGINE_DECODE_TOL of the
+    forward's over the prompt plus the served tokens, and the tokens
+    its argmax."""
+    import dataclasses
+    import gc
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Bucket, BucketPolicy
+    from repro_torch.serve import Request, SchedulerOptions
+    problems = []
+    n, plen, new = SERVE_MAMBA
+    cfg = dataclasses.replace(get_config("mamba2-780m"), dtype="float32")
+    t0 = time.perf_counter()
+    exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", device=DEVICE), init_seed=0)
+    rec = _Recorder()
+    sched = repro_torch.serve(exe, SchedulerOptions(
+        buckets=BucketPolicy.default(max_batch=SERVE_MAMBA_OPTS["slots"],
+                                     max_len=SERVE_MAMBA_OPTS["max_len"]),
+        **SERVE_MAMBA_OPTS), sampler=rec)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (n, plen)).astype(np.int32)
+    for uid in range(n):
+        sched.submit(Request(uid=uid, prompt=prompts[uid],
+                             max_new_tokens=new))
+    sched.run()
+    summ = sched.summary()
+    sched.wait_warm(120.0)
+    captured, covered = _replays_cover_steps(sched)
+    step = sched._decode_engine.peek(Bucket(SERVE_MAMBA_OPTS["slots"]))
+    turns = [host_median_ms(f, runs=SERVE_TIMED_RUNS, warmup=2)
+             for f in (step, step.eager, step.eager, step)]
+    dev_ms = sum(ms for _, ms in device_profile(step, iters=3).values())
+    served = np.array([sched.generated[u] for u in range(n)], np.int32)
+    with torch.inference_mode():
+        full = exe(tokens=np.concatenate([prompts, served[:, :-1]], 1))[
+            "logits"][:, plen - 1:]
+    err, limit, same = 0.0, 0.0, True
+    for uid in range(n):
+        for i in range(new):
+            e, scale = _rel_err(rec.rows[(uid, i)], full[uid, i:i + 1])
+            err, limit = max(err, e), max(limit, ENGINE_DECODE_TOL * scale)
+            if e > ENGINE_DECODE_TOL * scale:
+                problems.append(f"serve mamba2 uid {uid} token {i}: {e} > "
+                                f"{ENGINE_DECODE_TOL * scale}")
+        same &= served[uid].tolist() == full[uid].argmax(-1).tolist()
+    emit({"phase": "serve", "case": "mamba2-780m", "op": "served_vs_forward",
+          "requests": n, "prompt": plen, "new_tokens": new,
+          "ssd_chunk": cfg.ssm_chunk, "max_abs_err": err, "limit": limit,
+          "tokens_equal_forward_argmax": same,
+          "chunked_prefill": summ["chunked_prefill"],
+          "length_buckets": "prefill" in summ["runtime"],
+          "every_step_a_replay": captured and covered,
+          "decode_steps": summ["decode_steps"],
+          "tokens_per_s": summ["tokens_per_s"],
+          "step_batch": step.batch, "captured_ms": [turns[0], turns[3]],
+          "eager_ms": [turns[1], turns[2]], "device_ms": dev_ms,
+          "seconds": time.perf_counter() - t0, "peak_gb": _peak_gb(torch)})
+    if not same or not (captured and covered) \
+            or summ["chunked_prefill"]["enabled"] \
+            or "prefill" in summ["runtime"] or plen % cfg.ssm_chunk == 0:
+        problems.append(f"serve mamba2: tokens equal {same}, every step a "
+                        f"replay {captured and covered}, "
+                        f"{summ['chunked_prefill']}")
+    sched.shutdown()
+    del sched, exe, full, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return problems
+
+
+def serve_main() -> int:
+    """The serve phase, alone in this process so that it has the card's
+    memory to itself (qwen2.5-14b's f32 init peaks near 59 GB)."""
+    import torch
+    import numpy as np
+    if not torch.cuda.is_available():
+        print("chip_smoke --serve: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on; the f32 comparisons need it off")
+    t0 = time.perf_counter()
+    problems = phase_serve_smoke(torch, np)
+    emit({"phase": "serve", "case": "smoke_done",
+          "seconds": time.perf_counter() - t0})
+    problems += phase_serve_qwen(torch, np)
+    problems += phase_serve_mamba(torch, np)
+    if problems:
+        raise SystemExit("serve phase failed: " + "; ".join(problems))
+    return 0
+
+
+def phase_serve():
+    """The serve phase in its child process."""
+    return phase_child("--serve", SERVE_TIMEOUT_S, "serve")
 
 
 def main() -> int:
@@ -3035,7 +3544,7 @@ def main() -> int:
                          "f32 comparisons need it off")
     phase_card(torch)
     phase_build()
-    engine_problems = phase_engine()
+    engine_problems = phase_engine() + phase_serve()
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
     problems += engine_problems
@@ -3110,6 +3619,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--engine"]:
         sys.exit(engine_main())
+    if sys.argv[1:] == ["--serve"]:
+        sys.exit(serve_main())
     try:
         rc = main()
     finally:

@@ -27,14 +27,22 @@ an executable as bytes.
 ``compile(fn, example_inputs=...)``).  ``capture=<dir>`` records a
 bundle of the compile that ``python -m repro_torch.replay <dir>``
 reproduces in a fresh process.
+
+An LLM config compiles with ``target="engine"``, and
+``repro_torch.serve(exe, repro_torch.SchedulerOptions(...))`` serves it
+with continuous batching, one captured CUDA graph per decode batch
+bucket on the card (:mod:`repro_torch.serve`).
 """
 
 from .api import (Bucket, BucketPolicy, CompileOptions, Executable,
-                  ExecutableCache, available_frontends, available_targets,
-                  compile, deserialize, get_frontend, get_target, prune,
-                  register_frontend, register_target, resolve_cache_dir,
-                  trace)
+                  ExecutableCache, SchedulerOptions, available_frontends,
+                  available_targets, compile, deserialize, get_frontend,
+                  get_target, prune, register_frontend, register_target,
+                  resolve_cache_dir, trace)
 from .core import Graph, ModelBuilder, SimpleNN, run_pipeline
+# The callable module: repro_torch.serve(exe, ...) and
+# repro_torch.serve.Scheduler resolve to the same object.
+from . import serve
 
 __all__ = [
     "Bucket",
@@ -44,6 +52,7 @@ __all__ = [
     "ExecutableCache",
     "Graph",
     "ModelBuilder",
+    "SchedulerOptions",
     "SimpleNN",
     "available_frontends",
     "available_targets",
@@ -56,5 +65,6 @@ __all__ = [
     "register_target",
     "resolve_cache_dir",
     "run_pipeline",
+    "serve",
     "trace",
 ]

@@ -7,7 +7,8 @@
 One entry point (`compile`), one options object (`CompileOptions`), one
 result protocol (`Executable`), a named-target registry, the frontend
 registry and a persistent on-disk executable cache.  The ``"engine"``
-target compiles the LLM configs (:mod:`.engine_adapter`).  The legacy
+target compiles the LLM configs (:mod:`.engine_adapter`), and
+:func:`serve` schedules requests over such an executable.  The legacy
 ``CompiledModel`` (``repro_torch.core``) is a deprecated shim over this
 package.
 """
@@ -21,9 +22,11 @@ from ..core.graph import Graph, Signature
 from ..frontends import available_frontends, get_frontend, register_frontend
 from ..frontends.trace import trace
 from ..runtime.buckets import Bucket, BucketPolicy
+from ..serve.options import SchedulerOptions
 from .cache import ExecutableCache, prune, resolve_cache_dir
 from .executable import Executable, deserialize
 from .options import CompileOptions
+from .serve import serve
 from .targets import (available_targets, get_target, register_target,
                       GraphExecutable, InterpretExecutable, JitExecutable)
 
@@ -132,5 +135,7 @@ __all__ = [
     "register_frontend",
     "register_target",
     "resolve_cache_dir",
+    "SchedulerOptions",
+    "serve",
     "trace",
 ]

@@ -11,9 +11,9 @@ stack and the paper's CNN compiler are driven the same way:
 
 Params are made on ``options.device`` from ``init_seed``, or carried in
 with ``params=`` (e.g. :func:`repro_torch.weights.params_from_reference`)
-and moved there.  Execution is eager: capturing the decode step as a
-CUDA graph belongs to the serve scheduler (ROADMAP A.13), as does
-``serve()``.
+and moved there.  Execution is eager; ``exe.serve(...)`` hands the
+executable to the serve scheduler (:mod:`repro_torch.serve`), which
+captures its decode step as one CUDA graph per batch bucket.
 """
 
 from __future__ import annotations
@@ -130,9 +130,11 @@ class ModelExecutable(Executable):
         return {"logits": logits}
 
     def serve(self, options=None, **kw):
-        raise NotImplementedError(
-            "serving an engine executable needs the scheduler, which is "
-            "not ported yet (ROADMAP A.13: serve)")
+        """A continuous-batching :class:`repro_torch.serve.Scheduler`
+        over this executable (``repro_torch.serve(self, options,
+        **kw)``)."""
+        from .serve import serve
+        return serve(self, options, **kw)
 
     # ------------------------------------------------------------------
     def cost_summary(self):

@@ -234,11 +234,16 @@ def _retire(pool: GraphPool) -> None:
 
 
 def capture(fn: Callable[[], object], device: torch.device,
-            pool: GraphPool) -> Tuple[torch.cuda.CUDAGraph, object, int]:
+            pool: GraphPool, warmup: Optional[Callable[[], object]] = None
+            ) -> Tuple[torch.cuda.CUDAGraph, object, int]:
     """Warm ``fn()`` up on a side stream, then capture one call of it into
     ``pool``: ``(graph, what the captured call returned, bytes the
     capture added to the pool)``.  Used for programs and for the
-    autotuner's measurements alike."""
+    autotuner's measurements alike.  ``warmup`` replaces ``fn`` in the
+    warm-up, for a ``fn`` that writes state a real call must not touch
+    (the serve scheduler's decode step, which writes the live KV cache:
+    its warm-up runs the same step on scratch tensors of the same
+    shapes, and only the recording names the live cache)."""
     with _CAPTURE_LOCK, torch.cuda.device(device), torch.inference_mode():
         # One warm-up stream per device (captures hold the lock): a new
         # stream would make cuBLAS/cuDNN set up workspaces for it, which
@@ -248,7 +253,7 @@ def capture(fn: Callable[[], object], device: torch.device,
             side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            fn()
+            (fn if warmup is None else warmup)()
         torch.cuda.current_stream(device).wait_stream(side)
         # torch.cuda.graph empties the allocator's cache as it starts;
         # doing it first makes the reserved bytes before and after the

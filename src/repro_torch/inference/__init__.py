@@ -1,16 +1,17 @@
-"""Inference helpers (the port of ``repro.inference``)."""
+"""Inference helpers (the port of ``repro.inference``): the load-time
+norm fold and the deprecated ``Engine`` shim over
+:mod:`repro_torch.serve`."""
 
 from .fold_norms import fold_norms
 
 
-class Engine:
-    """The reference's deprecated continuous-batching shim over its serve
-    scheduler; it comes with the scheduler (ROADMAP A.13)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "inference.Engine wraps the serve scheduler, which is not "
-            "ported yet (ROADMAP A.13: serve)")
+def __getattr__(name):
+    # Lazy: the shim pulls in the scheduler, which imports fold_norms
+    # from this package.
+    if name == "Engine":
+        from .engine import Engine
+        return Engine
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = ["Engine", "fold_norms"]

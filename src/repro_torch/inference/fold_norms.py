@@ -20,12 +20,21 @@ import torch
 
 def _scale_rows(w: torch.Tensor, scale: torch.Tensor,
                 axis: int) -> torch.Tensor:
-    """w scaled by ``scale`` along ``axis`` (the fan-in dim).  2-D scales
-    are (L, D) for layer-stacked weights (L on dim 0, D on ``axis``)."""
+    """w scaled by ``scale`` along ``axis`` (the fan-in dim), computed in
+    f32 and rounded to w's dtype.  2-D scales are (L, D) for
+    layer-stacked weights (L on dim 0, D on ``axis``): those are scaled
+    one layer at a time, into the result, so the f32 temporaries are one
+    layer's (qwen2.5-14b's stacked ``wi_gate`` whole would take 13.6 GB
+    for its f32 copy and as much for the product).  The product is
+    elementwise, so the result is the whole-tensor product's bit for
+    bit."""
+    if scale.ndim == 2:
+        out = torch.empty_like(w)
+        for i in range(w.shape[0]):
+            out[i] = _scale_rows(w[i], scale[i], axis - 1)
+        return out
     shape = [1] * w.ndim
     shape[axis] = w.shape[axis]
-    if scale.ndim == 2:
-        shape[0] = w.shape[0]
     return (w.float() * scale.reshape(shape).float()).to(w.dtype)
 
 

@@ -13,7 +13,9 @@ The port of ``repro.runtime``:
   graph, one captured program per batch bucket, dispatched by input
   shape and pre-warmed from the persistent executable cache.
 
-The serving scheduler that also buckets lengths is ROADMAP A.13.
+The serving scheduler (:mod:`repro_torch.serve`) builds on the same
+pieces: one captured decode step per batch bucket, and padded prefill
+per length bucket (``SchedulerOptions(buckets=...)``).
 """
 
 from .buckets import Bucket, BucketPolicy, powers_of_two

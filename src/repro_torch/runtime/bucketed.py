@@ -42,7 +42,8 @@ class BucketedExecutable(Executable):
             raise ValueError(
                 "graph executables have fixed per-example shapes; "
                 "BucketPolicy.len_buckets applies to serving "
-                "(ROADMAP A.13), not CompileOptions")
+                "(repro_torch.serve, SchedulerOptions(buckets=...)), not "
+                "CompileOptions")
         self.inner = inner
         self.policy = policy
         self.options = inner.options

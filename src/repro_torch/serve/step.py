@@ -1,0 +1,103 @@
+"""The decode step of one batch bucket, over the persistent batched cache.
+
+The counterpart of the reference's jitted decode program that takes the
+whole batched cache donated (``repro.serve.scheduler``'s
+``decode_body``/``build_decode``): there XLA slices the first ``b``
+rows, decodes them and writes them back into the donated buffer inside
+one compiled program.  Here the step runs ``model.decode_step`` over
+views of rows ``[0, b)`` of every cache leaf, each along its own batch
+axis (:meth:`~repro_torch.serve.slots.SlotManager.rows`), so the model's
+in-place K/V and state writes are the write-back.
+
+Its inputs are the static ``(slots, 1)`` int32 token tensor (the
+scheduler copies the host's last tokens into it before each call), the
+params and the cache, all persistent; its output is the bucket's
+logits, ``(b, 1, vocab)``.
+
+On a CUDA device the step is captured once as a CUDA graph into the
+scheduler's :class:`~repro_torch.core.program.GraphPool`, and each call
+is one replay, whose logits tensor is the same static tensor every
+time: the caller reads it before the next replay.  The capture's
+warm-up runs the same step over scratch rows of a cache of the same
+shapes and strides, never the live cache: a decode step writes K/V at
+``pos`` and advances ``pos``, so warming up on the live cache would
+corrupt every active slot, and a smaller bucket is captured while
+requests are served.  On the CPU the step is the same function, called
+eagerly.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from ..core.program import GraphPool, capture
+from .slots import SlotManager
+
+
+class DecodeStep:
+    """``model.decode_step`` over rows ``[0, batch)`` of ``slots``' cache
+    and of the static ``tokens``, captured on a CUDA device."""
+
+    def __init__(self, model, params, slots: SlotManager,
+                 tokens: torch.Tensor, batch: int,
+                 pool: Optional[GraphPool] = None) -> None:
+        if not 0 < batch <= slots.slots:
+            raise ValueError(f"batch {batch} outside 1..{slots.slots}")
+        self.model = model
+        self.params = params
+        self.batch = batch
+        self.device = tokens.device
+        self.rows = slots.rows(batch)
+        self.tokens = tokens[:batch]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.pool = pool
+        #: Seconds of the warm-up and capture; bytes the capture added to
+        #: the pool (CUDA only).
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        #: Steps run through :meth:`__call__` (replays on a CUDA device).
+        self.calls = 0
+        if self.device.type != "cuda":
+            return
+        if pool is None:
+            raise ValueError("a decode step on a CUDA device captures into "
+                             "a GraphPool")
+
+        def warmup():
+            scratch = model.init_cache(slots.slots, slots.max_len,
+                                       self.device)
+            model.decode_step(params, slots.rows(batch, scratch),
+                              torch.zeros_like(self.tokens))
+
+        t0 = time.perf_counter()
+        self.graph, self.logits, self.pool_bytes = capture(
+            self.eager, self.device, pool, warmup=warmup)
+        self.capture_s = time.perf_counter() - t0
+
+    def eager(self) -> torch.Tensor:
+        """One step run op by op (what the graph recorded)."""
+        with torch.inference_mode():
+            return self.model.decode_step(self.params, self.rows,
+                                          self.tokens)[0]
+
+    def __call__(self) -> torch.Tensor:
+        """One step: the graph's replay on a CUDA device (the static
+        logits tensor, valid until the next replay of the pool), the
+        eager step on the CPU."""
+        self.calls += 1
+        if self.graph is None:
+            return self.eager()
+        pool = self.pool
+        stream = torch.cuda.current_stream(self.device)
+        with pool.lock:
+            if pool.done is None:
+                pool.done = torch.cuda.Event()
+            else:
+                stream.wait_event(pool.done)
+            self.graph.replay()
+            pool.done.record(stream)
+        return self.logits

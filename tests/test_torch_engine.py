@@ -8,12 +8,14 @@ JAX package's, on the CPU.
   ``cost_summary()``;
 * ``serialize``/``deserialize`` bit-equal, a leaf-count mismatch raises;
 * ``fold_norms`` gives the reference's folded leaves and keeps the
-  logits;
+  logits, and its per-layer scaling equals the whole-tensor product;
 * ``param_count`` of the seven transformer-family configs at their
   published widths (meta device, nothing allocated);
 * the SSM, hybrid and audio families (ported after the others) build,
   count and compile (their parity is ``test_torch_families.py``); the
-  pieces that wait for A.13-A.15 raise, naming their item.
+  pieces that wait for A.14-A.15 raise, naming their item; ``serve()``
+  returns a scheduler and the deprecated ``Engine`` delegates to one
+  (the scheduler's parity is ``test_torch_serve.py``).
 """
 
 import dataclasses
@@ -314,6 +316,39 @@ def test_fold_norms_matches_reference(arch):
                                rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "deepseek-v3-671b"])
+def test_fold_norms_per_layer_equals_whole_tensor_fold(arch, dtype,
+                                                       monkeypatch):
+    """``_scale_rows`` scales a stacked weight one layer at a time; the
+    result is the whole-tensor product's bit for bit, for a dense model
+    and a MoE with shared experts (MLA projections too), at f32 and at
+    bf16 weights."""
+    import importlib
+    mod = importlib.import_module("repro_torch.inference.fold_norms")
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(1)
+    params = PC.tree_map(
+        lambda t: (t + torch.as_tensor(0.1 * rng.standard_normal(
+            tuple(t.shape)), dtype=t.dtype)).to(dtype),
+        get_model(cfg).init(0, "cpu"))
+    per_layer, rep = fold_norms(cfg, params)
+
+    def whole(w, scale, axis):
+        shape = [1] * w.ndim
+        shape[axis] = w.shape[axis]
+        if scale.ndim == 2:
+            shape[0] = w.shape[0]
+        return (w.float() * scale.reshape(shape).float()).to(w.dtype)
+
+    monkeypatch.setattr(mod, "_scale_rows", whole)
+    want, want_rep = fold_norms(cfg, params)
+    assert rep == want_rep and rep["folds"] > 0
+    for (path, a), b in zip(PC.tree_flatten(per_layer),
+                            PC.tree_leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
 def test_fold_norms_skips_other_families():
     cfg = get_config("mamba2-780m", smoke=True)
     params = {"x": torch.zeros(2)}
@@ -368,10 +403,20 @@ def test_later_items_raise_naming_them():
     for fn in (m.param_axes, m.cache_axes):
         with pytest.raises(NotImplementedError, match="A.14"):
             fn()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _engine(cfg, params=params).serve()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        Engine(m, params)
+    # A.13 is in: serve() returns a scheduler, and the deprecated Engine
+    # warns once and delegates to one.
+    from repro_torch.serve import Request, Scheduler
+    import repro_torch.inference.engine as legacy
+    sched = _engine(cfg, params=params).serve(slots=2, max_len=32)
+    assert isinstance(sched, Scheduler) and sched.options.slots == 2
+    legacy._warned = False
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        eng = Engine(m, params, slots=1, max_len=32)
+    assert isinstance(eng.scheduler, Scheduler)
+    assert eng.cache is eng.scheduler.slot_manager.cache
+    eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=3))
+    assert [len(c.tokens) for c in eng.run()] == [3]
+    assert eng.done == eng.scheduler.done
 
 
 def test_new_modules_import_neither_jax_nor_repro():
