@@ -44,13 +44,37 @@ JAX package.  Every phase prints one JSON line (also written to
                  memory; a replay bit-equal to eager ``decode_step`` on a
                  clone of the cache, no buffer moved and no byte
                  allocated over 6 steady steps, and the same requests at
-                 a fixed shape (tokens compared, not asserted); (c)
+                 a fixed shape giving the same tokens, every request;
+                 a probe of each decode product's rows at M = 1, 2, 4, 8
+                 against M = 8, bare and under ``step_rows`` (equal as
+                 the step runs them), and of whole decode steps: each bucket's row 0 against the
+                 full-slots step's, captured and eager, and where eager
+                 rows first part; (c)
                  mamba2-780m whole at f32, 300-token prompts across a
                  padded SSD chunk: served logits within 1e-3 x max(1,
                  max|logits|) of the forward's, tokens its argmax.
+   ``shard``     sharded compilation (``repro_torch.dist``), in a child
+                 process (``python3 chip_smoke.py --shard``): (a)
+                 ``mesh="data=1,model=1"`` on the ``cuda`` target, the six
+                 CNNs at exact and three at int8 (batch 1 and 256) and
+                 the decode graph (batch 8), bit-equal to the unsharded
+                 captured programs, every call a replay; (b) two rank
+                 processes on the card over gloo (``--shard-rank``),
+                 ``model=2`` and then ``data=2``: C-HTWK, C-BH and VGG19
+                 at exact and int8, batch 1 and 256, against the
+                 unsharded program of this process (f32 within 1e-5 x
+                 max(1, max|out|), int8 bit-equal; under ``data=2`` each
+                 rank's rows bit-equal to the unsharded program on those
+                 rows), each rank's B1/B2 launches from the profiler
+                 (> 0) and host ms per call; (d) a ``"sharded"``
+                 artifact in a fresh process (placement replayed, cache
+                 hit, bit-equal); (e) ``MeshUnavailableError`` for
+                 ``data=2,model=2`` in one process.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
-                 plan (paths, K splits, ragged and unaligned shapes).
+                 plan (paths, K splits, ragged and unaligned shapes);
+                 fused_matmul_q8's int32-sums mode at VGG19 dense_41's
+                 row shard under model=2 and at M=1.
 4. ``main``      the six Table-1 CNNs through ``repro_torch.compile(...,
                  target="cuda")`` at batch 1 and 256: ``exact`` against
                  ``interpret`` on the card, ``fast`` against the same
@@ -367,27 +391,35 @@ def profiled_call(fn):
     profiles in a row hold kernels and agree, kernel by kernel (at most
     PROFILE_TRIES times; a replay that launched other kernels at each
     call would never agree, and its last profile is returned)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     prev = None
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        counts = {k: 0 for k in KERNELS}
-        kernels = collections.Counter()
-        for evt in prof.key_averages():
-            if "CUDA" not in str(getattr(evt, "device_type", "")):
-                continue
-            if not evt.key.startswith(("Memcpy", "Memset")):
-                kernels[evt.key] += evt.count
-            for kernel, symbols in KERNEL_SYMBOLS.items():
-                if any(sym in evt.key for sym in symbols):
-                    counts[kernel] += evt.count
+        out, counts, kernels = _profile_once(fn)
         if kernels and kernels == prev:
             break
         prev = kernels
     return out, counts
+
+
+def _profile_once(fn):
+    """``fn()`` under ``torch.profiler``, synchronised, once: its result,
+    each wrapper's kernel launches (KERNEL_SYMBOLS) and every kernel's
+    launches by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {k: 0 for k in KERNELS}
+    kernels = collections.Counter()
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        if not evt.key.startswith(("Memcpy", "Memset")):
+            kernels[evt.key] += evt.count
+        for kernel, symbols in KERNEL_SYMBOLS.items():
+            if any(sym in evt.key for sym in symbols):
+                counts[kernel] += evt.count
+    return out, counts, kernels
 
 
 def eager_call(exe, feeds):
@@ -618,6 +650,11 @@ def fast_act_check(torch, np, fn, rng):
             "ok": f32_equal and bf16_equal}
 
 
+#: The int32-sums mode's shapes: VGG19 dense_41's row shard under
+#: model=2 (K 128 over 2 ranks), at batch 256 and 1.
+Q8_SUMS_SHAPES = [(256, 64, 128), (1, 64, 128)]
+
+
 def phase_check_q8(torch, np):
     """fused_matmul_q8 against its plain version at the int8 path's shapes
     and a ragged one, both layouts, every epilogue; then its quantize of
@@ -701,7 +738,32 @@ def phase_check_q8(torch, np):
         tie_ok &= ok
         tie_rows.append({"scale": float(s), "ties": int(len(ties)),
                          "values": int(t), "equal": ok})
+    # The int32-sums mode (a row-parallel site of a sharded compile): at
+    # VGG19 dense_41's row shard under model=2 and at M=1, bit-equal to
+    # its plain version and across two calls.
+    sums_rows, sums_ok = [], True
+    for m, k, n in Q8_SUMS_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(dev)
+        for layout in ("io", "oi"):
+            wq = torch.from_numpy(rng.integers(
+                -127, 128, (k, n) if layout == "io" else (n, k),
+                dtype=np.int8)).to(dev)
+            got = fused_matmul_q8(x, wq, None, x_scale=0.02, w_layout=layout,
+                                  sums=True)
+            again = fused_matmul_q8(x, wq, None, x_scale=0.02,
+                                    w_layout=layout, sums=True)
+            want = fm_ref.q8_sums_ref(qmath.quantize_q8(x, 0.02), wq,
+                                      w_layout=layout)
+            ok = bool(torch.equal(got, want) and torch.equal(got, again)
+                      and got.dtype == torch.int32)
+            sums_ok &= ok
+            sums_rows.append({"M": m, "K": k, "N": n, "layout": layout,
+                              "bit_equal": ok,
+                              "plan": fm_k.plan_q8(m, k, n, w_layout=layout)
+                              .describe()})
     emit({"phase": "check", "kernel": "fused_matmul_q8", "cases": cases,
+          "int32_sums_mode": sums_rows,
           "bit_equal_cases": equal_cases, "max_abs_err": worst,
           "bit_equal_for": list(Q8_BIT_EQUAL), "atol_others": Q8_ATOL,
           "bit_equal_to_split_ref": split_equal,
@@ -710,9 +772,10 @@ def phase_check_q8(torch, np):
           "quantize_ties": tie_rows, "plans": plans,
           "failures": failures[:20]})
     problems = []
-    if failures or not tie_ok or not n_ties:
+    if failures or not tie_ok or not n_ties or not sums_ok:
         problems.append(f"fused_matmul_q8 checks failed: {len(failures)} "
-                        f"cases, quantize ties equal: {tie_ok}")
+                        f"cases, quantize ties equal: {tie_ok}, int32 "
+                        f"sums mode equal: {sums_ok}")
     return worst, problems
 
 
@@ -3222,8 +3285,149 @@ def _qwen_requests(np, cfg):
     return reqs, sorted(share)
 
 
+#: The functions of ``models/common.py`` whose outputs the step probe
+#: records, in call order, to find where two steps' rows first part.
+STEP_PROBE_OPS = ("rms_norm", "col_parallel_in", "apply_rope",
+                  "decode_attention_jnp", "row_parallel_out", "silu",
+                  "lm_logits")
+
+
+def _step_probe(torch, sched):
+    """Whole decode steps over the live cache, from one saved state: row
+    0's logits of each bucket's captured step and of its eager step
+    (``step_rows`` as the step sets it) against the full-slots step's;
+    and the bare eager step (no ``step_rows``) at each bucket against
+    the full-slots one, op by op (STEP_PROBE_OPS, row 0 of each output):
+    the first op whose row 0 differs."""
+    from repro_torch.models import common as C
+    from repro_torch.runtime import Bucket
+    sm = sched.slot_manager
+    steps = {b: sched._decode_engine.peek(Bucket(b))
+             for b in sorted(PROBE_ROWS, reverse=True)}
+    top = max(PROBE_ROWS)
+    saved = {k: v.clone() for k, v in sm.cache.items()}
+    tokens = steps[top].tokens
+
+    def restore():
+        for k, v in sm.cache.items():
+            v.copy_(saved[k])
+
+    def recorded(b):
+        trace, real = [], {n: getattr(C, n) for n in STEP_PROBE_OPS}
+
+        def wrap(name, fn):
+            def inner(*a, **kw):
+                out = fn(*a, **kw)
+                first = out[0] if isinstance(out, list) else out
+                trace.append((name, first[:1].float().cpu()))
+                return out
+            return inner
+        try:
+            for n, fn in real.items():
+                setattr(C, n, wrap(n, fn))
+            restore()
+            logits = sched.model.decode_step(sched.params, sm.rows(b),
+                                             tokens[:b])[0][:1].float().cpu()
+        finally:
+            for n, fn in real.items():
+                setattr(C, n, fn)
+        return logits, trace
+
+    out = {}
+    with torch.inference_mode():
+        row0 = {}
+        for b, step in steps.items():
+            restore()
+            captured = step()[:1].float().cpu()
+            restore()
+            eager = step.eager()[:1].float().cpu()
+            row0[b] = (captured, eager)
+        bare = {b: recorded(b) for b in steps}
+        restore()
+    for b in steps:
+        first = None
+        for i, ((name, x), (_, y)) in enumerate(zip(bare[b][1],
+                                                   bare[top][1])):
+            if not torch.equal(x, y):
+                first = {"op": name, "call": i,
+                         "max_abs_diff": float((x - y).abs().max())}
+                break
+        out[b] = {
+            "captured_vs_full": float((row0[b][0] - row0[top][0])
+                                      .abs().max()),
+            "eager_vs_full": float((row0[b][1] - row0[top][1]).abs().max()),
+            "captured_vs_eager": float((row0[b][0] - row0[b][1])
+                                       .abs().max()),
+            "bare_eager_vs_full": float((bare[b][0] - bare[top][0])
+                                        .abs().max()),
+            "bare_first_difference": first}
+    del saved
+    return out
+
+
 def _tensor_bytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+#: Row counts of the row-independence probe, each against the largest.
+PROBE_ROWS = (1, 2, 4, 8)
+#: The probe's ops that the decode step runs under ``step_rows`` (padded
+#: to the full slot count); it runs the rest bare.
+STEP_ROWS_OPS = ("head_f32", "rms_norm", "rms_norm_f32")
+
+
+def _row_probe(torch, cfg, params):
+    """Each decode product of qwen2.5-14b's layer 0 (bf16: q/k/v, the
+    attention's output, the MLP's gate/up/down, through
+    ``models/common.py``'s ``col_parallel_in``/``row_parallel_out``), its
+    f32 head (``lm_logits``) and an RMS norm, at M = PROBE_ROWS rows of
+    seeded inputs: each row's max |difference| from the same row at the
+    largest M, bare and under ``step_rows`` (the decode step pads the
+    norms and the head, and runs the products bare)."""
+    from repro_torch.models import common as C
+    lp = C.layer_view(params["layers"], 0)
+    attn, ffn = lp["attn"], lp["ffn"]
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    top = max(PROBE_ROWS)
+
+    def x(width):
+        return torch.randn((top, 1, width), generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    d = cfg.d_model
+    attn_in, ffn_in = x(attn["wo"].shape[0]), x(ffn["wo"].shape[0])
+    xd = x(d)
+    ops = {
+        "wq": (lambda a: C.col_parallel_in(a, (attn["wq"],))[0], xd),
+        "wk": (lambda a: C.col_parallel_in(a, (attn["wk"],))[0], xd),
+        "wv": (lambda a: C.col_parallel_in(a, (attn["wv"],))[0], xd),
+        "attn_wo": (lambda a: C.row_parallel_out(a, attn["wo"]), attn_in),
+        "wi_gate": (lambda a: C.col_parallel_in(a, (ffn["wi_gate"],))[0],
+                    xd),
+        "wi_up": (lambda a: C.col_parallel_in(a, (ffn["wi_up"],))[0], xd),
+        "mlp_wo": (lambda a: C.row_parallel_out(a, ffn["wo"]), ffn_in),
+        "head_f32": (lambda a: C.lm_logits(a, head), xd),
+        "rms_norm": (lambda a: C.rms_norm(a, lp["ln1"], cfg.norm_eps), xd),
+        # The FFN's norm takes the residual sum in f32 (_ffn_block): its
+        # squares are not exact, so the order of the sum shows.
+        "rms_norm_f32": (lambda a: C.rms_norm(a, lp["ln2"], cfg.norm_eps),
+                         xd.float() + x(d).float()),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (fn, inp) in ops.items():
+            row = {}
+            for padded in (False, True):
+                with C.step_rows(top if padded else 0):
+                    want = fn(inp).float()
+                    diffs = {}
+                    for m in PROBE_ROWS:
+                        got = fn(inp[:m].contiguous()).float()
+                        diffs[m] = float((got - want[:m]).abs().max())
+                row["padded" if padded else "bare"] = diffs
+            out[name] = row
+    return out
 
 
 def phase_serve_qwen(torch, np):
@@ -3257,6 +3461,14 @@ def phase_serve_qwen(torch, np):
     t0 = time.perf_counter()
     sched = repro_torch.serve(exe, opts)
     build_s = time.perf_counter() - t0
+    probe = _row_probe(torch, cfg, sched.params)
+    emit({"phase": "serve", "case": "qwen2.5-14b", "op": "row_probe",
+          "rows": list(PROBE_ROWS), "max_abs_diff_vs_largest": probe})
+    unequal = [n for n, r in probe.items() if any(r[
+        "padded" if n in STEP_ROWS_OPS else "bare"].values())]
+    if unequal:
+        problems.append(f"serve qwen: as the decode step runs them, the "
+                        f"rows of {unequal} depend on the row count")
     held = {id(t) for t in tree_leaves(exe.params)}
     fold_bytes = _tensor_bytes(t for t in tree_leaves(sched.params)
                                if id(t) not in held)
@@ -3310,6 +3522,13 @@ def phase_serve_qwen(torch, np):
     if summ["completed"] != len(reqs) or not summ["prefix_cache"]["hits"]:
         problems.append(f"serve qwen: {summ['completed']} completed, prefix "
                         f"cache {summ['prefix_cache']}")
+
+    probe = _step_probe(torch, sched)
+    emit({"phase": "serve", "case": "qwen2.5-14b", "op": "step_probe",
+          "row0_max_abs_diff": probe})
+    if any(r["captured_vs_full"] for r in probe.values()):
+        problems.append(f"serve qwen: a bucket's captured step gives row 0 "
+                        f"other logits than the full-slots step: {probe}")
 
     # One step of each bucket captured against eager, in turns, and one
     # replay under the profiler.
@@ -3422,6 +3641,10 @@ def phase_serve_qwen(torch, np):
           "first_difference": first_diff,
           "tokens_per_s": fixed.summary()["tokens_per_s"],
           "seconds": time.perf_counter() - t0, "peak_gb": _peak_gb(torch)})
+    if agree != len(served):
+        problems.append(f"serve qwen: bucketed and fixed-shape tokens differ "
+                        f"for {len(served) - agree} of {len(served)} "
+                        f"requests (first differences {first_diff})")
     fixed.shutdown()
     del fixed, params, exe
     gc.collect()
@@ -3530,6 +3753,330 @@ def phase_serve():
     return phase_child("--serve", SERVE_TIMEOUT_S, "serve")
 
 
+# ---------------------------------------------------------------------------
+# The shard phase (a child process: ``python3 chip_smoke.py --shard``)
+# ---------------------------------------------------------------------------
+#: (a) a single-device mesh against the unsharded captured program.
+SHARD_BATCHES = (1, 256)
+#: (b) two rank processes on the one card over gloo, each mesh in turn:
+#: the models and precisions, f32's limit (relative to max(1, max|out|)),
+#: and the calls timed per rank.
+SHARD_MESHES = ("model=2", "data=2")
+SHARD_MODELS = INT8_MODELS
+SHARD_PRECISIONS = ("exact", "int8")
+SHARD_F32_LIMIT = 1e-5
+SHARD_TIMED_RUNS = 10
+SHARD_RANK_TIMEOUT_S = 75
+SHARD_TIMEOUT_S = 150
+SHARD_DIR = os.path.join(ROOT, "build", "chip_smoke_shard")
+
+SHARD_ROUND_TRIP = """
+import json, sys
+sys.path.insert(0, {src!r})
+import numpy as np, torch
+import repro_torch
+torch.backends.cudnn.deterministic = True
+exe = repro_torch.deserialize(open({blob!r}, "rb").read())
+data = np.load({feeds!r})
+out = exe(input=data["input"])
+want = np.load({want!r})
+summary = exe.cost_summary()
+print(json.dumps({{"type": type(exe).__name__,
+                  "reused": summary["sharding"]["reused"],
+                  "captured": summary["programs"][256]["captured"],
+                  "cache": {{k: v for k, v in exe.cache_info().items()
+                            if k != "dir"}},
+                  "equal": all(np.array_equal(v.cpu().numpy(), want[k])
+                               for k, v in out.items())}}))
+"""
+
+
+def _shard_feeds(np, graph, batch, seed):
+    rng = np.random.default_rng(seed)
+    return {n: rng.standard_normal((batch,) + tuple(sp.shape)).astype(
+        np.float32) for n, sp in graph.inputs.items()}
+
+
+def _host_outputs(out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def shard_single_device(torch, np):
+    """(a) ``mesh="data=1,model=1"`` on the ``cuda`` target: the six CNNs
+    at exact (batch 1 and 256), C-HTWK, C-BH and VGG19 at int8, path B's
+    decode graph at batch 8; each call a replay of a captured program,
+    bit-equal to the unsharded captured program of the same options."""
+    import repro_torch
+    from repro_torch.core.program import CapturedProgram
+    from repro_torch.table1_models import SUITE
+    problems = []
+    cases = [(n, "exact") for n in SUITE] + [(n, "int8") for n in INT8_MODELS]
+    for name, prec in cases:
+        g = SUITE[name]()
+        opts = repro_torch.CompileOptions(target="cuda", precision=prec,
+                                          device=DEVICE)
+        base = repro_torch.compile(g, opts)
+        exe = repro_torch.compile(g, opts.replace(mesh="data=1,model=1"))
+        for b in sorted(SHARD_BATCHES, reverse=True):
+            x = _shard_feeds(np, g, b, 40 + b)
+            equal = outputs_equal(base(**x), exe(**x))
+            replay = isinstance(exe.ensure_compiled(b), CapturedProgram)
+            emit({"phase": "shard", "case": "single_device", "model": name,
+                  "precision": prec, "batch": b, "bit_equal": equal,
+                  "replay": replay})
+            if not (equal and replay):
+                problems.append(f"shard (a) {name} {prec} batch {b}: "
+                                f"bit-equal {equal}, replay {replay}")
+    g = decode_graph(repro_torch)
+    opts = repro_torch.CompileOptions(target="cuda", device=DEVICE)
+    base = repro_torch.compile(g, opts)
+    exe = repro_torch.compile(g, opts.replace(mesh="data=1,model=1"))
+    b = 8
+    q, k, v, lens = decode_inputs(torch, b, DECODE["h"], DECODE["hkv"],
+                                  DECODE["d"], DECODE["s"],
+                                  DECODE_LENGTHS[b], 30 + b)
+    feeds = {"q": q, "k": k, "v": v, "lengths": lens}
+    equal = outputs_equal(base(**feeds), exe(**feeds))
+    replay = isinstance(exe.ensure_compiled(b), CapturedProgram)
+    emit({"phase": "shard", "case": "single_device", "model": "decode",
+          "precision": "exact", "batch": b, "bit_equal": equal,
+          "replay": replay})
+    if not (equal and replay):
+        problems.append(f"shard (a) decode batch {b}: bit-equal {equal}, "
+                        f"replay {replay}")
+    del base, exe, feeds, q, k, v
+    torch.cuda.empty_cache()
+    return problems
+
+
+def shard_rank_main(rank: int, world: int, mesh: str, work: str) -> int:
+    """One rank of (b): every model and precision on ``mesh``, against
+    the parent's unsharded outputs in ``work``; one JSON row a case on
+    stdout.  Every rank makes the same calls in the same order (the
+    collectives pair up across ranks)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.table1_models import SUITE
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous",
+                            rank=rank, world_size=world)
+    want = np.load(os.path.join(work, "unsharded.npz"))
+    try:
+        for name in SHARD_MODELS:
+            g = SUITE[name]()
+            for prec in SHARD_PRECISIONS:
+                exe = repro_torch.compile(g, repro_torch.CompileOptions(
+                    target="cuda", precision=prec, device=DEVICE, mesh=mesh))
+                summary = exe.cost_summary()["sharding"]
+                for b in sorted(SHARD_BATCHES, reverse=True):
+                    x = _shard_feeds(np, g, b, 40 + b)
+                    out = _host_outputs(exe(**x))
+                    key = f"{name} {prec} {b}"
+                    ref = {k: want[f"{key} {k}"] for k in out}
+                    err = max(float(np.abs(out[k] - ref[k]).max())
+                              for k in out)
+                    scale = max(1.0, max(float(np.abs(ref[k]).max())
+                                         for k in out))
+                    k_rows, i, _ = exe._data_split(b)
+                    n = b // k_rows
+                    rows = {k: want[f"{key} rows{k_rows}.{i} {k}"]
+                            for k in out} if k_rows > 1 else ref
+                    rows_equal = all(np.array_equal(
+                        out[k][i * n:(i + 1) * n], rows[k]) for k in out)
+                    # A rank's calls talk to the other rank, so both
+                    # profile the same number of calls (profiled_call
+                    # repeats until two profiles agree).
+                    counts = {}
+                    for _ in range(2):
+                        _, c, _ = _profile_once(lambda: exe(**x))
+                        counts = {k: max(v, counts.get(k, 0))
+                                  for k, v in c.items()}
+                    times = []
+                    for _ in range(SHARD_TIMED_RUNS):
+                        t = time.perf_counter()
+                        exe(**x)
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t) * 1e3)
+                    print(json.dumps({
+                        "phase": "shard", "case": "rank", "mesh": mesh,
+                        "rank": rank, "coords": summary["coords"],
+                        "model": name, "precision": prec, "batch": b,
+                        "max_abs_err": err, "limit": SHARD_F32_LIMIT * scale,
+                        "bit_equal": err == 0.0, "rows_split": k_rows,
+                        "rows_bit_equal": rows_equal,
+                        "launches": {"fused_matmul": counts["fused_matmul"],
+                                     "fused_matmul_q8":
+                                         counts["fused_matmul_q8"]},
+                        "host_ms": statistics.median(times),
+                        "captured": summary["captured"],
+                        "staged_through_host":
+                            summary["staged_through_host"],
+                        "collectives": summary["collectives"]["counts"],
+                        "sliced_params": len(summary["sliced_params"])}),
+                        flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def shard_two_ranks(torch, np):
+    """(b) two rank processes on the one card over gloo, ``model=2`` and
+    then ``data=2``: C-HTWK, C-BH and VGG19 at exact and int8, batch 1
+    and 256, against the unsharded program run here."""
+    import shutil
+    import threading
+    import repro_torch
+    from repro_torch.table1_models import SUITE
+    problems = []
+    want, host_ms = {}, {}
+    for name in SHARD_MODELS:
+        g = SUITE[name]()
+        for prec in SHARD_PRECISIONS:
+            exe = repro_torch.compile(g, repro_torch.CompileOptions(
+                target="cuda", precision=prec, device=DEVICE))
+            for b in sorted(SHARD_BATCHES, reverse=True):
+                x = _shard_feeds(np, g, b, 40 + b)
+                key = f"{name} {prec} {b}"
+                for k, v in _host_outputs(exe(**x)).items():
+                    want[f"{key} {k}"] = v
+                if b % 2 == 0:
+                    for i in range(2):
+                        part = {n: a[i * b // 2:(i + 1) * b // 2]
+                                for n, a in x.items()}
+                        for k, v in _host_outputs(exe(**part)).items():
+                            want[f"{key} rows2.{i} {k}"] = v
+                host_ms[key] = host_median_ms(lambda: exe(**x),
+                                              runs=SHARD_TIMED_RUNS)
+    for mesh in SHARD_MESHES:
+        work = os.path.join(SHARD_DIR, mesh.replace("=", ""))
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        np.savez(os.path.join(work, "unsharded.npz"), **want)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank",
+             str(r), "2", mesh, work], cwd=ROOT, stdout=subprocess.PIPE,
+            text=True) for r in range(2)]
+        timers = [threading.Timer(SHARD_RANK_TIMEOUT_S, p.kill)
+                  for p in procs]
+        for t in timers:
+            t.start()
+        rows = []
+        try:
+            for p in procs:
+                out, _ = p.communicate()
+                rows += [json.loads(line) for line in out.splitlines()
+                         if line.startswith("{")]
+        finally:
+            for t in timers:
+                t.cancel()
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        expected = 2 * len(SHARD_MODELS) * len(SHARD_PRECISIONS) \
+            * len(SHARD_BATCHES)
+        if rcs != [0, 0] or len(rows) != expected:
+            problems.append(f"shard (b) {mesh}: ranks exited {rcs} with "
+                            f"{len(rows)} of {expected} rows")
+        for row in rows:
+            key = f"{row['model']} {row['precision']} {row['batch']}"
+            row["unsharded_host_ms"] = host_ms[key]
+            emit(row)
+            kernel = ("fused_matmul_q8" if row["precision"] == "int8"
+                      else "fused_matmul")
+            if mesh == "data=2":
+                ok = row["rows_bit_equal"]
+            elif row["precision"] == "int8":
+                ok = row["bit_equal"]
+            else:
+                ok = row["max_abs_err"] <= row["limit"]
+            if not ok or row["launches"][kernel] <= 0:
+                problems.append(
+                    f"shard (b) {mesh} rank {row['rank']} {key}: err "
+                    f"{row['max_abs_err']} (limit {row['limit']}), rows "
+                    f"bit-equal {row['rows_bit_equal']}, {kernel} "
+                    f"launches {row['launches'][kernel]}")
+        shutil.rmtree(work, ignore_errors=True)
+    return problems
+
+
+def shard_round_trip(torch, np):
+    """(d) a ``"sharded"`` artifact in a fresh process on the card: the
+    placement replayed, the executable cache hit, bit-equal; (e)
+    ``MeshUnavailableError`` for ``data=2,model=2`` in one process."""
+    import shutil
+    import repro_torch
+    from repro_torch.dist import MeshUnavailableError
+    from repro_torch.table1_models import SUITE
+    problems = []
+    work = os.path.join(SHARD_DIR, "round_trip")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    g = SUITE["VGG19"]()
+    exe = repro_torch.compile(g, repro_torch.CompileOptions(
+        target="cuda", precision="int8", device=DEVICE,
+        mesh="data=1,model=1", cache_dir=os.path.join(work, "cache")))
+    x = _shard_feeds(np, g, 256, 7)
+    np.savez(os.path.join(work, "want.npz"), **_host_outputs(exe(**x)))
+    np.savez(os.path.join(work, "feeds.npz"), **x)
+    with open(os.path.join(work, "exe.bin"), "wb") as f:
+        f.write(exe.serialize())
+    env = dict(os.environ, REPRO_TORCH_CACHE_DIR=os.path.join(work, "cache"))
+    res = subprocess.run([sys.executable, "-c", SHARD_ROUND_TRIP.format(
+        src=os.path.join(ROOT, "src"), blob=os.path.join(work, "exe.bin"),
+        feeds=os.path.join(work, "feeds.npz"),
+        want=os.path.join(work, "want.npz"))], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    try:
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        got = {"error": res.stderr[-2000:]}
+    emit({"phase": "shard", "case": "round_trip", **got})
+    if not (got.get("equal") and got.get("reused") and got.get("captured")
+            and got.get("cache", {}).get("misses") == 0):
+        problems.append(f"shard (d) round trip: {got}")
+    try:
+        repro_torch.compile(g, repro_torch.CompileOptions(
+            target="cuda", device=DEVICE, mesh="data=2,model=2"))
+        missing = None
+    except MeshUnavailableError as e:
+        missing = list(e.missing_axes)
+    emit({"phase": "shard", "case": "mesh_unavailable",
+          "mesh": "data=2,model=2", "missing_axes": missing})
+    if missing != ["data", "model"]:
+        problems.append(f"shard (e): missing axes {missing}")
+    shutil.rmtree(work, ignore_errors=True)
+    return problems
+
+
+def shard_main() -> int:
+    """The shard phase, in its own process: it starts rank processes
+    that share the card."""
+    import torch
+    import numpy as np
+    if not torch.cuda.is_available():
+        print("chip_smoke --shard: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    problems = shard_single_device(torch, np)
+    emit({"phase": "shard", "case": "single_device_done",
+          "seconds": time.perf_counter() - t0})
+    problems += shard_two_ranks(torch, np)
+    problems += shard_round_trip(torch, np)
+    if problems:
+        raise SystemExit("shard phase failed: " + "; ".join(problems))
+    return 0
+
+
+def phase_shard():
+    """The shard phase in its child process."""
+    return phase_child("--shard", SHARD_TIMEOUT_S, "shard")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3544,7 +4091,7 @@ def main() -> int:
                          "f32 comparisons need it off")
     phase_card(torch)
     phase_build()
-    engine_problems = phase_engine() + phase_serve()
+    engine_problems = phase_engine() + phase_serve() + phase_shard()
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
     problems += engine_problems
@@ -3621,6 +4168,11 @@ if __name__ == "__main__":
         sys.exit(engine_main())
     if sys.argv[1:] == ["--serve"]:
         sys.exit(serve_main())
+    if sys.argv[1:] == ["--shard"]:
+        sys.exit(shard_main())
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4], sys.argv[5]))
     try:
         rc = main()
     finally:

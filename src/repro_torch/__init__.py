@@ -32,10 +32,15 @@ An LLM config compiles with ``target="engine"``, and
 ``repro_torch.serve(exe, repro_torch.SchedulerOptions(...))`` serves it
 with continuous batching, one captured CUDA graph per decode batch
 bucket on the card (:mod:`repro_torch.serve`).
+
+``CompileOptions(mesh="data=2,model=2")`` compiles a graph for a device
+mesh over the ``torch.distributed`` process group
+(:mod:`repro_torch.dist`: ``MeshSpec``, ``ShardedExecutable``).
 """
 
 from .api import (Bucket, BucketPolicy, CompileOptions, Executable,
-                  ExecutableCache, SchedulerOptions, available_frontends,
+                  ExecutableCache, MeshSpec, MeshUnavailableError,
+                  SchedulerOptions, available_frontends,
                   available_targets, compile, deserialize, get_frontend,
                   get_target, prune, register_frontend, register_target,
                   resolve_cache_dir, trace)
@@ -51,6 +56,8 @@ __all__ = [
     "Executable",
     "ExecutableCache",
     "Graph",
+    "MeshSpec",
+    "MeshUnavailableError",
     "ModelBuilder",
     "SchedulerOptions",
     "SimpleNN",

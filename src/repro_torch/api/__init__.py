@@ -19,6 +19,7 @@ from typing import Optional
 
 from .. import frontends
 from ..core.graph import Graph, Signature
+from ..dist.mesh import MeshSpec, MeshUnavailableError
 from ..frontends import available_frontends, get_frontend, register_frontend
 from ..frontends.trace import trace
 from ..runtime.buckets import Bucket, BucketPolicy
@@ -60,7 +61,9 @@ def compile(model, options: Optional[CompileOptions] = None,
     override ``CompileOptions`` fields (``repro_torch.compile(g,
     target="interpret", device="cpu")``).  With ``buckets=`` a
     ``jit``/``cuda`` compile is wrapped in a
-    :class:`~repro_torch.runtime.BucketedExecutable`.  A framework-scale
+    :class:`~repro_torch.runtime.BucketedExecutable`; with ``mesh=`` a
+    ``jit``/``cuda`` compile is a :class:`repro_torch.dist.ShardedExecutable`
+    (every rank of the process group compiles it).  A framework-scale
     ``ArchConfig``/``repro_torch.models.Model`` compiles with
     ``target="engine"`` only (``params=`` / ``init_seed=`` go to the
     engine adapter).  A graph of the JAX package goes through
@@ -102,7 +105,15 @@ def compile(model, options: Optional[CompileOptions] = None,
     if factory_kw:
         raise TypeError(f"unexpected args for graph targets: "
                         f"{sorted(factory_kw)}")
-    exe = get_target(options.target)(model, options)
+    if options.mesh is not None and options.target in ("jit", "cuda"):
+        # Sharded compilation (repro_torch.dist): the mesh is a compile
+        # input; placement is propagated by the pass pipeline and the
+        # result still subclasses JitExecutable, so bucketing below keeps
+        # working.
+        from ..dist.executable import ShardedExecutable
+        exe = ShardedExecutable(model, options)
+    else:
+        exe = get_target(options.target)(model, options)
     if options.buckets is not None:
         # Shape-polymorphic dispatch: one warm program per batch bucket,
         # cold buckets captured in the background (repro_torch.runtime).
@@ -124,6 +135,8 @@ __all__ = [
     "GraphExecutable",
     "InterpretExecutable",
     "JitExecutable",
+    "MeshSpec",
+    "MeshUnavailableError",
     "Signature",
     "available_frontends",
     "available_targets",

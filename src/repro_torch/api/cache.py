@@ -155,6 +155,26 @@ class ExecutableCache:
         return {"dir": self.root, "hits": self.hits, "misses": self.misses}
 
 
+def _load_manifests(root: str):
+    """Map manifest path -> member entry file names, for every
+    ``*.manifest.json`` a :class:`~repro_torch.dist.ShardedExecutable`
+    wrote beside its entries.  An unreadable manifest counts as empty
+    (and so is cleaned up as dangling)."""
+    out = {}
+    for path in Path(root).iterdir():
+        if not path.name.endswith(".manifest.json"):
+            continue
+        members = []
+        try:
+            with open(path) as f:
+                members = [f"{k}{SUFFIX}"
+                           for k in json.load(f).get("members", [])]
+        except (OSError, ValueError, AttributeError, TypeError):
+            pass
+        out[path] = members
+    return out
+
+
 def prune(max_bytes: int, cache_dir: Optional[str] = None) -> dict:
     """Size-capped LRU sweep of the executable cache.
 
@@ -163,9 +183,14 @@ def prune(max_bytes: int, cache_dir: Optional[str] = None) -> dict:
     clears orphaned ``.tmp`` files of interrupted writes.  Entries are
     whole files written by an atomic rename and removed whole, and a
     file that vanishes mid-sweep is skipped, so a reader racing the
-    sweep sees a valid entry or a clean miss.  (The reference's grouping
-    of sharded executables' manifests has nothing to group here until
-    ROADMAP A.14.)
+    sweep sees a valid entry or a clean miss.
+
+    A sharded executable groups its entries under a ``*.manifest.json``;
+    the sweep treats each group as ONE LRU unit — its recency is its
+    hottest member's, and eviction removes the members and the manifest
+    together — so a pruned cache never holds a manifest pointing at
+    missing entries, nor a sharded executable's entries in part.
+    Manifests whose members are all gone are removed up front.
 
     Returns ``{"dir", "before_bytes", "after_bytes", "removed"}``.
     """
@@ -175,27 +200,54 @@ def prune(max_bytes: int, cache_dir: Optional[str] = None) -> dict:
     report = {"dir": root, "before_bytes": 0, "after_bytes": 0, "removed": 0}
     if not root or not os.path.isdir(root):
         return report
-    entries = []                           # (mtime, size, path)
+    manifests = _load_manifests(root)
+    grouped = {m for members in manifests.values() for m in members}
+    entries = []                           # (mtime, size, [paths]): LRU units
     for path in Path(root).iterdir():
         try:
             if path.suffix == ".tmp":      # orphaned partial write
                 path.unlink()
                 report["removed"] += 1
                 continue
-            if path.suffix != SUFFIX or not path.is_file():
+            if (path.suffix != SUFFIX or path.name in grouped
+                    or not path.is_file()):
                 continue
             st = path.stat()
         except OSError:
             continue                       # vanished mid-sweep: skip
-        entries.append((st.st_mtime, st.st_size, path))
+        entries.append((st.st_mtime, st.st_size, [path]))
+    for mpath, members in manifests.items():
+        group, mtime, size = [], 0.0, 0
+        for member in members:
+            try:
+                st = (Path(root) / member).stat()
+            except OSError:
+                continue                   # member already gone
+            group.append(Path(root) / member)
+            mtime = max(mtime, st.st_mtime)
+            size += st.st_size
+        try:
+            if not group:                  # dangling manifest: clean up
+                mpath.unlink()
+                report["removed"] += 1
+                continue
+            size += mpath.stat().st_size
+        except OSError:
+            continue
+        entries.append((mtime, size, group + [mpath]))
     total = sum(size for _, size, _ in entries)
     report["before_bytes"] = total
-    for _, size, path in sorted(entries):  # oldest (coldest) first
+    for _, size, paths in sorted(entries):  # oldest (coldest) first
         if total <= max_bytes:
             break
-        try:
-            path.unlink()
-        except OSError:
+        removed = False
+        for path in paths:                 # a group goes whole: members
+            try:                           # first, the manifest last
+                path.unlink()
+                removed = True
+            except OSError:
+                continue
+        if not removed:
             continue
         total -= size
         report["removed"] += 1

@@ -66,6 +66,11 @@ class ModelExecutable(Executable):
 
     def __init__(self, model_or_cfg, options: CompileOptions, *,
                  params=None, init_seed: int = 0) -> None:
+        if options.mesh is not None or options.sharding_rules:
+            raise NotImplementedError(
+                "the engine target's sharded models are not ported yet "
+                "(ROADMAP A.14b: sharded models); mesh= compiles graphs "
+                "on the jit and cuda targets")
         if isinstance(model_or_cfg, Model):
             self.model = model_or_cfg
         elif hasattr(model_or_cfg, "cfg") and hasattr(model_or_cfg,

@@ -121,9 +121,14 @@ def deserialize(data: bytes) -> Executable:
         # cache, and buckets present there pre-warm at construction.
         return api_compile(load_model(io.BytesIO(body)), options)
     if kind == "sharded":
-        raise NotImplementedError(
-            "sharded executables are not ported yet (ROADMAP A.14: "
-            "distribution)")
+        # The source graph and the resolved placement (specs and edit
+        # log): the propagation pass replays it instead of deriving it,
+        # so the node list and graph.dist come out as the serializing
+        # process had them and a warm executable cache hits.
+        from ..dist.executable import ShardedExecutable
+        from ..frontends.container import load_model
+        return ShardedExecutable(load_model(io.BytesIO(body)), options,
+                                 resolved=meta["dist"])
     if kind == "engine":
         from .engine_adapter import deserialize_engine
         return deserialize_engine(meta, body, options)

@@ -1,10 +1,9 @@
 """CompileOptions — the one options surface for ``repro_torch.compile``.
 
 The reference's field names, plus ``device``, which torch needs and
-JAX did not: the ``torch.device`` the compiled program runs on.  Fields
-whose feature the port has not reached yet (distribution) raise
-``NotImplementedError`` naming the ROADMAP item that ports them,
-instead of being ignored.
+JAX did not: the ``torch.device`` the compiled program runs on.
+Options are frozen, comparable and JSON-serializable, so they double as
+part of the persistent executable-cache key.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
+from ..dist.mesh import MeshSpec
 from ..runtime.buckets import BucketPolicy
 
 PRECISIONS = ("exact", "fast", "f32", "bf16", "int8", "mixed")
@@ -20,11 +20,20 @@ PRECISIONS = ("exact", "fast", "f32", "bf16", "int8", "mixed")
 QUANT_PRECISIONS = ("f32", "bf16", "int8", "mixed")
 AUTOTUNE_MODES = ("off", "cached", "full")
 
-#: Field that must stay unset -> the ROADMAP item that ports the feature.
-_UNPORTED = {
-    "mesh": "A.14: distribution",
-    "sharding_rules": "A.14: distribution",
-}
+
+
+def _normalize_rules(rules) -> Tuple[Tuple[str, object], ...]:
+    """Canonical, hashable form of a sharding-rules override: sorted
+    ``(logical, axes-tuple-or-None)`` pairs.  Accepts a mapping or a
+    pair sequence (the ``from_dict`` round trip)."""
+    items = rules.items() if hasattr(rules, "items") else rules
+    out = []
+    for k, v in items:
+        if v is None or isinstance(v, str):
+            out.append((str(k), v))
+        else:
+            out.append((str(k), tuple(str(a) for a in v)))
+    return tuple(sorted(out))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +126,24 @@ class CompileOptions:
                    entry is not read, only stored.  A bundle is not a
                    captured CUDA graph (``core/program.py``), though on
                    a CUDA device the outputs it records are its replay's.
-    mesh, sharding_rules:
-                   must stay unset (ROADMAP A.14).
+    mesh:          a :class:`repro_torch.dist.MeshSpec` (or any spelling
+                   its ``coerce`` accepts: ``"data=2,model=2"``, a dict of
+                   sizes) making device placement a compile-time input.
+                   The ``"jit"``/``"cuda"`` targets then produce a
+                   :class:`repro_torch.dist.ShardedExecutable`: its graph
+                   carries per-tensor partition specs and explicit
+                   collective nodes, and it runs over the default
+                   ``torch.distributed`` process group, one rank a device
+                   (a single-device mesh needs none and stays
+                   bit-identical to the unsharded path).  The ``engine``
+                   target's sharded models are ROADMAP A.14b and raise.
+                   ``None`` = the unsharded compile.
+    sharding_rules: overrides on the logical-axis rules table
+                   (``repro_torch.distributed.sharding.DEFAULT_RULES``)
+                   the propagation pass reads — a mapping or pairs of
+                   ``logical axis -> mesh axis (or axes, or None to force
+                   replication)``.  Only meaningful with ``mesh=``.  Both
+                   fields are part of the persistent cache key.
     """
 
     target: str = "jit"
@@ -135,7 +160,7 @@ class CompileOptions:
     autotune: str = "off"
     autotune_budget_ms: Optional[float] = 1000.0
     capture: Optional[str] = None
-    mesh: Optional[object] = None
+    mesh: Optional[MeshSpec] = None
     sharding_rules: Optional[Tuple[Tuple[str, object], ...]] = None
     device: str = "cuda"
 
@@ -174,11 +199,11 @@ class CompileOptions:
             raise ValueError(
                 "batch_buckets (legacy, lazy) and buckets (runtime "
                 "engine cache) are mutually exclusive")
-        for field, item in _UNPORTED.items():
-            value = getattr(self, field)
-            if value is not None and value != ():
-                raise NotImplementedError(
-                    f"CompileOptions.{field} is not ported yet (ROADMAP {item})")
+        if self.mesh is not None and not isinstance(self.mesh, MeshSpec):
+            object.__setattr__(self, "mesh", MeshSpec.coerce(self.mesh))
+        if self.sharding_rules is not None:
+            object.__setattr__(self, "sharding_rules",
+                               _normalize_rules(self.sharding_rules))
         if self.passes is not None:
             object.__setattr__(self, "passes", tuple(self.passes))
         object.__setattr__(self, "device", str(self.device))

@@ -61,9 +61,9 @@ def serve(executable, options: Optional[SchedulerOptions] = None, *,
     device its params are on.  Remaining keyword args override
     ``SchedulerOptions`` fields (``repro_torch.serve(exe, slots=8)``);
     ``sampler`` and ``clock`` are injection points for tests
-    (deterministic token streams, fake time).  A mesh is ROADMAP A.14:
+    (deterministic token streams, fake time).  A mesh is ROADMAP A.14b:
     ``SchedulerOptions(mesh=...)`` raises, as ``CompileOptions(mesh=...)``
-    does.
+    does on the ``engine`` target.
     """
     model = getattr(executable, "model", None)
     params = getattr(executable, "params", None)

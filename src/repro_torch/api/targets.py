@@ -389,6 +389,7 @@ class JitExecutable(GraphExecutable):
             meta, body = entry
             try:
                 graph = load_model(io.BytesIO(body))
+                graph.dist = meta.get("dist")
                 report = dict(meta["report"], plan=plan_memory(graph))
             except Exception:
                 graph = None     # unreadable: compile as if it missed
@@ -402,8 +403,12 @@ class JitExecutable(GraphExecutable):
         except (TypeError, ValueError):
             return               # not containerisable: stay uncached
         report = {k: v for k, v in self.report.items() if k != "plan"}
-        self._disk.store(self._source_key(),
-                         {"kind": "graph", "report": report}, buf.getvalue())
+        meta = {"kind": "graph", "report": report}
+        if self.graph.dist:
+            # The container keeps no placement: a sharded graph's specs
+            # and edit log ride in the entry's JSON line.
+            meta["dist"] = self.graph.dist
+        self._disk.store(self._source_key(), meta, buf.getvalue())
 
     @staticmethod
     def _selection_token(selection: Dict[str, KernelChoice]) -> str:
@@ -505,7 +510,8 @@ class JitExecutable(GraphExecutable):
             ctx = LoweringContext(
                 params=self.params, batch_size=batch_size,
                 precision=self.options.precision,
-                target=self.lowering_target, selection=selection)
+                target=self.lowering_target, selection=selection,
+                **self._lowering_extras())
             prog = LoweredGraph(self.graph, ctx)
             if self.captures:
                 if self._pool is None:
@@ -521,6 +527,11 @@ class JitExecutable(GraphExecutable):
             # once, plus every batch size's selection and capture.
             self.compile_time += time.perf_counter() - t0
             return prog
+
+    def _lowering_extras(self) -> dict:
+        """Extra :class:`LoweringContext` fields (the mesh and shardings
+        of a sharded compile); the unsharded base adds nothing."""
+        return {}
 
     def _record(self, batch_size: int, prog: Program,
                 selection: Dict[str, KernelChoice]) -> None:

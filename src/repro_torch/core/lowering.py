@@ -88,6 +88,27 @@ class LoweringContext:
         default_factory=fm_kernel.SplitCounters, compare=False, repr=False)
     selection: Mapping[str, KernelChoice] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+    #: Sharded compiles (``repro_torch.dist``): the live mesh
+    #: (``dist.collectives.LiveMesh``: the ``DeviceMesh``, this rank's
+    #: coordinates, the axes' process groups; None without one or on a
+    #: single-device mesh), the resolved per-tensor axis lists of
+    #: ``graph.dist["shardings"]``, the mesh's {axis name: size} and
+    #: this rank's {axis name: coordinate}.  Empty/None = unsharded.
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False,
+                                               repr=False)
+    shardings: Mapping[str, list] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+    mesh_axis_sizes: Mapping[str, int] = dataclasses.field(
+        default_factory=dict)
+    coords: Mapping[str, int] = dataclasses.field(default_factory=dict)
+
+    def split_axes(self, tensor: str) -> Tuple[str, ...]:
+        """The live mesh axes that split ``tensor``'s last dim on this
+        rank (its local form is this rank's slice); () when whole."""
+        entry = self.shardings.get(tensor)
+        if self.mesh is None or not entry or len(entry) < 2:
+            return ()
+        return self.mesh.canonical(entry[-1] or ())
 
     def plan(self, node: Node, **shape):
         """The plan the tactic of the selection's choice for ``node``
@@ -311,16 +332,16 @@ def _lower_constant(node, ins, ctx):
 def _dense_impl(node, ins, ctx, use_kernel: bool):
     """A dense node at its ``quant.mode``: on the kernel path every node
     launches ``fused_matmul_q8`` (int8) or ``fused_matmul`` (f32, bf16
-    operands), elsewhere their plain versions run the same arithmetic."""
+    operands), elsewhere their plain versions run the same arithmetic.
+    On a live mesh a column-parallel node runs its slice of the output
+    channels (its weights were sliced at compile time) as is, and a
+    row-parallel one (its input's channels split) runs
+    :func:`_row_parallel_dense`."""
+    axes = ctx.split_axes(node.inputs[0])
+    if axes:
+        return _row_parallel_dense(node, ins, ctx, use_kernel, axes)
     w = ctx.params[node.params["kernel"]]
-    b = ctx.params[node.params["bias"]] if "bias" in node.params else None
-    layout = node.attrs.get("kernel_layout", "io")
-    pa = node.epilogue_attrs.get("post_affine")
-    scale = ctx.params[pa[0]] if pa else None
-    offset = ctx.params[pa[1]] if pa else None
-    fn = node.epilogue if node.epilogue not in (None, "linear") else None
-    if fn == "softmax":
-        fn = None  # handled below (two-pass, not fusable in-kernel)
+    b, scale, offset, fn, layout = _dense_epilogue(node, ctx)
     kw = dict(fn=fn, fast=ctx.precision == "fast", w_layout=layout,
               attrs=node.epilogue_attrs)
     kernel_kw = dict(kw, counters=ctx.counters)
@@ -349,11 +370,80 @@ def _dense_impl(node, ins, ctx, use_kernel: bool):
         else:
             y = fm_ref.fused_matmul_ref(x.float(), w.float(), b, scale,
                                         offset, **kw)
+    return _dense_tail(node, ctx, y)
+
+
+def _dense_epilogue(node, ctx):
+    """A dense node's epilogue operands: (bias, scale, offset, fn, kernel
+    layout); fn None for linear, and for softmax, which
+    :func:`_dense_tail` applies after the product (two-pass, not fusable
+    in a kernel)."""
+    b = ctx.params[node.params["bias"]] if "bias" in node.params else None
+    pa = node.epilogue_attrs.get("post_affine")
+    scale = ctx.params[pa[0]] if pa else None
+    offset = ctx.params[pa[1]] if pa else None
+    fn = node.epilogue if node.epilogue not in (None, "linear",
+                                                "softmax") else None
+    return b, scale, offset, fn, node.attrs.get("kernel_layout", "io")
+
+
+def _dense_tail(node, ctx, y):
+    """What follows a dense node's epilogue: the padded channels cut
+    back, then the softmax epilogue."""
     if "orig_cout" in node.attrs:
         y = y[..., : node.attrs["orig_cout"]]
     if node.epilogue == "softmax":
         y = ctx.act("softmax", y, node.epilogue_attrs)
     return y
+
+
+def _row_parallel_dense(node, ins, ctx, use_kernel: bool, axes):
+    """A dense whose contraction runs over channels split across the
+    ranks of ``axes``: this rank's rows of the weight against its slice
+    of x with the epilogue off, the partial sums all-reduced over
+    ``axes``, then the epilogue once, as the unsharded node applies it
+    after its whole sum.  An int8 site sums its exact int32 products
+    (each rank quantizes its slice of x with the same ``x_scale``, so
+    the integers are the unsharded ones) and dequantizes after the
+    reduce: bit-equal to the unsharded node.  An f32 or bf16 site sums
+    f32 partial sums, in another order than one product would."""
+    from ..dist.collectives import all_reduce
+    b, scale, offset, fn, layout = _dense_epilogue(node, ctx)
+    x = ins[0]
+    qm = node.attrs.get("quant.mode")
+    k = x.shape[-1]
+    if qm == "int8":
+        wq = ctx.params[quant_key(node, "wq")]
+        n = wq.shape[1] if layout == "io" else wq.shape[0]
+        shape = dict(m=x.numel() // max(k, 1), k=k, n=n, w_layout=layout)
+        if use_kernel:
+            acc = fused_matmul_q8(
+                x.contiguous(), wq, None, x_scale=node.attrs["quant.x_scale"],
+                w_layout=layout, sums=True, counters=ctx.counters,
+                plan=ctx.plan(node, **shape))
+        else:
+            acc = fm_ref.q8_sums_ref(
+                qmath.quantize_q8(x, ctx.params[quant_key(node, "x_scale")]),
+                wq, w_layout=layout)
+        y = all_reduce(acc, axes, ctx.mesh).float() \
+            * ctx.params[quant_key(node, "deq")]
+    else:
+        w = ctx.params[node.params["kernel"]]
+        if qm == "bf16":
+            x, w = x.to(torch.bfloat16), ctx.params[quant_key(node, "w")]
+        n = w.shape[1] if layout == "io" else w.shape[0]
+        if use_kernel:
+            part = fused_matmul(
+                x.contiguous(), w, w_layout=layout, counters=ctx.counters,
+                plan=ctx.plan(node, itemsize=x.element_size(), m=x.numel()
+                              // max(k, 1), k=k, n=n, w_layout=layout))
+        else:
+            part = fm_ref.fused_matmul_ref(x.float(), w.float(),
+                                           w_layout=layout)
+        y = all_reduce(part, axes, ctx.mesh)
+    return _dense_tail(node, ctx, fm_ref.epilogue_chain(
+        y, b, scale, offset, fn, ctx.precision == "fast",
+        node.epilogue_attrs))
 
 
 @register_lowering("dense")

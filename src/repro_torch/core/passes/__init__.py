@@ -15,7 +15,8 @@ reference's:
 7. quantize               — no-op without a request on ``graph.quant``
                             (the calibrated modes are ROADMAP A.5)
 8. optimize_layout        — compile-time weight re-layout (§3.3)
-9. propagate_sharding     — no-op without a mesh (ROADMAP A.14)
+9. propagate_sharding     — per-tensor partition specs + collectives
+                            (no-op without a mesh; repro_torch.dist)
 
 followed by ``plan_memory`` as the pipeline finalizer.
 """

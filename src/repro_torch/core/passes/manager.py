@@ -260,6 +260,18 @@ class PassManager:
                 f"pass {name!r} changed the model's output signature: "
                 f"{want_outputs} -> {got}"
             )
+        if getattr(graph, "dist", None):
+            # Sharded compile: re-check the distribution annotations after
+            # every pass, like shape inference; a pass that breaks a
+            # collective's mesh axes or (after propagation) leaves a
+            # tensor without a resolved spec is rejected, the pass named.
+            from ...dist.propagate import ShardingError, check_shardings
+            try:
+                check_shardings(graph)
+            except ShardingError as e:
+                raise PassVerificationError(
+                    f"pass {name!r} broke the sharding annotations: {e}"
+                ) from e
 
     def run(self, graph: Graph) -> Tuple[Graph, Dict]:
         """Run the pipeline; returns (optimized graph, report).  The

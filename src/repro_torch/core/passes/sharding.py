@@ -1,8 +1,12 @@
-"""propagate_sharding — registered where the reference registers it.
+"""propagate_sharding — the distribution pass, as a registry citizen.
 
-A no-op for graphs without a ``dist`` annotation, which keeps the
-default pipeline identical to the reference's for unsharded compiles.
-Sharded graphs raise until ROADMAP A.14 ports ``repro.dist``.
+The thin pipeline wrapper around :mod:`repro_torch.dist.propagate`,
+registered where the reference registers it: after every optimization
+pass (placement is decided on the final graph, so fusion and layout
+rewrites never reason about collective nodes).  A no-op for graphs
+without a ``dist`` annotation, which keeps the default pipeline the
+reference's for unsharded compiles.  ``repro_torch.dist`` is imported
+lazily: only sharded compiles load it.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from .manager import register_pass
                       "fuse_activation", "fold_batchnorm",
                       "fuse_activation.post_bn", "optimize_layout"))
 def propagate_sharding(graph: Graph) -> Tuple[Graph, Dict]:
-    """No-op (``{"sharded": False}``) for unsharded graphs."""
+    """Resolve per-tensor shardings and insert collectives
+    (repro_torch.dist); no-op (``{"sharded": False}``) for unsharded
+    graphs."""
     if not getattr(graph, "dist", None):
         return graph, {"sharded": False}
-    raise NotImplementedError(
-        "sharded graphs are not ported yet (ROADMAP A.14: distribution)")
+    from ...dist.propagate import propagate_shardings
+    return graph, propagate_shardings(graph)

@@ -3,7 +3,7 @@
 // before the single store of the output element (the paper's §3.4).
 //
 // Each step rounds like its plain torch version
-// (repro_torch/kernels/fused_matmul/ref.py::_epilogue_chain): explicitly
+// (repro_torch/kernels/fused_matmul/ref.py::epilogue_chain): explicitly
 // rounded intrinsics, never contracted into an FMA, so an int8 site,
 // whose dequantized value is exact, stores the plain version's bits for
 // none/relu/relu6/leaky_relu/hard_sigmoid and the affine, and for the

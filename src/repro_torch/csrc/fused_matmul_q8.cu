@@ -23,7 +23,9 @@
 //   wq    int8 "io": (K, N) row-major; "oi": (N, K) row-major, contracted
 //         on K in place.  Quantized once, when the program is compiled.
 //   deq   (N,) f32; bias, scale, offset: (N,) f32 or null
-//   out   (M, N) f32
+//   out   (M, N) f32; in the sums mode (int32 (M, N)) the exact sums
+//         themselves, no dequantize and no epilogue: a row-parallel site
+//         of a sharded compile all-reduces them, then dequantizes
 //
 // Bound on the H100: at the compiler's main-path shapes (M = batch of
 // 1..256, K <= 256, N <= 128) neither bytes nor operations are: the
@@ -144,7 +146,7 @@ __device__ __forceinline__ Col load_col(int n, int N, const float* deq,
                                         const float* offset) {
   Col c{0.0f, 0.0f, 1.0f, 0.0f};
   if (n < N) {
-    c.deq = __ldg(deq + n);
+    if (deq != nullptr) c.deq = __ldg(deq + n);
     if (bias != nullptr) c.bias = __ldg(bias + n);
     if (scale != nullptr) {
       c.scale = __ldg(scale + n);
@@ -221,7 +223,20 @@ struct Args {
   int* part;
   int* counters;
   int x_al, w_al;
+  // The sums mode: out holds the int32 sums themselves, no dequantize and
+  // no epilogue (a row-parallel site all-reduces them before both).
+  int sums;
 };
+
+// The stored value of one output: the exact sum (sums mode) or finish().
+__device__ __forceinline__ void store(const Args& a, size_t e, int acc,
+                                      const Col& c, bool has_bias,
+                                      bool has_affine) {
+  if (a.sums)
+    reinterpret_cast<int*>(a.out)[e] = acc;
+  else
+    a.out[e] = finish(acc, c, has_bias, has_affine, a.act, a.alpha, a.fast);
+}
 
 // ---------------------------------------------------------------------------
 // GEMV path: M <= MM <= 16.
@@ -281,9 +296,7 @@ __device__ __forceinline__ void gemv_finish(int (&acc)[MM], const Args& a,
     const bool hb = a.bias != nullptr, ha = a.scale != nullptr;
 #pragma unroll
     for (int m = 0; m < MM; ++m)
-      if (m < a.M)
-        a.out[(size_t)m * a.N + n] =
-            finish(acc[m], col, hb, ha, a.act, a.alpha, a.fast);
+      if (m < a.M) store(a, (size_t)m * a.N + n, acc[m], col, hb, ha);
   }
 }
 
@@ -583,9 +596,8 @@ __global__ void __launch_bounds__(32 * kMmaWarps * KG)
         const int gm = m0 + wm * WTM + i * 16 + g + 8 * (q / 2);
         const int gn = n0 + wn * WTN + j * 8 + 2 * t + q % 2;
         if (owner && gm < a.M && gn < a.N)
-          a.out[(size_t)gm * a.N + gn] =
-              finish(acc[i][j][q], col[j][q % 2], hb, ha, a.act, a.alpha,
-                     a.fast);
+          store(a, (size_t)gm * a.N + gn, acc[i][j][q], col[j][q % 2], hb,
+                ha);
       }
 }
 
@@ -637,13 +649,15 @@ void launch_tiled_kg(const Args& a, bool oi, int bm, int bn, cudaStream_t s) {
 // `splits` K ranges of `ksplit`); returns cudaGetLastError() (0 =
 // launched).  The caller guarantees contiguous operands of the stated
 // shapes, M, N > 0, x_scale > 0, `part` of splits * M * N ints when
-// splits > 1 and `counters` (zeros) with one int per output tile.
+// splits > 1 and `counters` (zeros) with one int per output tile.  With
+// `sums` set, `out` is an int32 (M, N) tensor that takes the exact sums:
+// `deq`, `bias`, `scale` and `offset` are null and `act` is none.
 extern "C" int repro_fused_matmul_q8(
     const float* x, const void* wq, const float* deq, const float* bias,
-    const float* scale, const float* offset, float* out, int M, int K, int N,
+    const float* scale, const float* offset, void* out, int M, int K, int N,
     int w_oi, float x_scale, int act, float alpha, int fast, int path, int bm,
     int bn, int threads, int lanes, int splits, int ksplit, int* part,
-    int* counters, void* stream) {
+    int* counters, int sums, void* stream) {
   const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
   const bool bad_gemv =
       path == 0 &&
@@ -657,7 +671,11 @@ extern "C" int repro_fused_matmul_q8(
        !((bm == 16 && bn == 32) || (bm == 16 && bn == 64) ||
          (bm == 32 && bn == 16)) ||
        (threads != 256 && threads != 512) || (M + bm - 1) / bm > 65535);
-  if (M <= 0 || N <= 0 || K < 0 || deq == nullptr || !(x_scale > 0.0f) ||
+  const bool bad_sums =
+      sums ? (deq != nullptr || bias != nullptr || scale != nullptr ||
+              act != repro::kNone)
+           : deq == nullptr;
+  if (M <= 0 || N <= 0 || K < 0 || bad_sums || !(x_scale > 0.0f) ||
       act < repro::kNone || act > repro::kSigmoid ||
       (scale == nullptr) != (offset == nullptr) || path < 0 || path > 1 ||
       bad_gemv || bad_tiled || splits < 1 || splits > 65535 || ksplit < 1 ||
@@ -669,8 +687,9 @@ extern "C" int repro_fused_matmul_q8(
   const bool w_al = w_oi && K % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(wq) % 16 == 0;
   const Args a{x, static_cast<const signed char*>(wq), deq, bias, scale,
-               offset, out, M, K, N, x_scale, act, alpha, fast, splits,
-               ksplit, lanes, part, counters, x_al, w_al};
+               offset, static_cast<float*>(out), M, K, N, x_scale, act,
+               alpha, fast, splits, ksplit, lanes, part, counters, x_al,
+               w_al, sums != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool oi = w_oi != 0;
   if (path == 0) {

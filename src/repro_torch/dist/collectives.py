@@ -1,0 +1,245 @@
+"""Collectives as first-class graph ops, and the live mesh they run on.
+
+The port of ``repro.dist.collectives``.  ``psum`` / ``all_gather`` /
+``reduce_scatter`` / ``ppermute`` register through the ordinary plug-in
+op machinery (``register_op`` + ``register_shape_rule`` +
+``@register_lowering``), so every target handles them and
+``cost_summary()`` counts them like any other node.
+
+Their *value* semantics are the reference's:
+
+* ``psum``, ``all_gather`` and ``reduce_scatter`` are logical
+  identities: they mark the points where the propagated placement
+  changes.  In the reference XLA's SPMD partitioner then moves the
+  data; here each rank holds the *local* form of every tensor — the
+  slice of its last dim that ``graph.dist["shardings"]`` gives this
+  rank's coordinates on the live mesh — and a collective's lowering
+  turns its input's local form into its output's: ``all_gather``
+  gathers over the axis's subgroup (``DeviceMesh.get_group(axis)``),
+  ``reduce_scatter`` keeps this rank's slice of a whole tensor, and
+  ``psum`` passes an already-reduced value on (a row-parallel dense
+  all-reduces its own partial sums before its epilogue; see
+  ``core/lowering.py``).
+* ``ppermute`` rolls the tensor by whole shards along ``dim``:
+  ``shift`` shard-blocks of ``size/axis_size`` elements.  With
+  ``axis_size`` 1 (no mesh, or a degenerate axis) the roll is a full
+  revolution — the identity — so the same graph runs everywhere.
+
+With no live mesh (no mesh, a single-device mesh, or an axis of size 1)
+every collective is the identity and nothing talks to another process.
+On a live mesh a collective of a CUDA tensor over a gloo group is staged
+through the host (gloo's collectives take host tensors), which
+``LiveMesh.staged`` records and ``cost_summary()["sharding"]`` reports.
+
+Attrs:
+
+    psum            axis            mesh axis (or list of axes) reduced over
+    all_gather      axis, dim      gather ``dim`` back from ``axis``
+    reduce_scatter  axis, dim      scatter ``dim`` across ``axis``
+    ppermute        axis, shift    roll by ``shift`` shards along ``dim``
+                                   (optional attrs: dim=-1, axis_size)
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.graph import register_op, register_shape_rule
+from ..core.lowering import register_lowering
+
+#: op name -> required attrs, as registered with the graph IR.
+COLLECTIVE_OPS = {
+    "psum": ("axis",),
+    "all_gather": ("axis", "dim"),
+    "reduce_scatter": ("axis", "dim"),
+    "ppermute": ("axis", "shift"),
+}
+
+for _op, _attrs in COLLECTIVE_OPS.items():
+    register_op(_op, _attrs)
+
+
+def _identity_spec(node, input_specs, graph):
+    """Collectives never change the logical tensor: same shape/dtype."""
+    return input_specs[0]
+
+
+for _op in COLLECTIVE_OPS:
+    register_shape_rule(_op)(_identity_spec)
+
+
+def axis_names(node) -> tuple:
+    """The mesh axis (or axes) a collective node names, as a tuple."""
+    ax = node.attrs["axis"]
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def declared_axis_size(node, ctx) -> int:
+    """Static size of the collective's mesh axis: an explicit
+    ``axis_size`` attr wins, else the mesh spec the lowering context
+    carries, else 1 (no mesh: the degenerate, identity case)."""
+    if "axis_size" in node.attrs:
+        return int(node.attrs["axis_size"])
+    sizes = getattr(ctx, "mesh_axis_sizes", None) or {}
+    n = 1
+    for ax in axis_names(node):
+        n *= int(sizes.get(ax, 1))
+    return n
+
+
+class LiveMesh:
+    """A mesh of more than one device, bound to the default process
+    group: the ``DeviceMesh``, this rank's coordinates, a process group
+    for every set of axes a collective may span, and whether collectives
+    of ``device``'s tensors are staged through the host.
+
+    Every rank must build its LiveMesh at the same point of its program:
+    the groups of two or more axes (a mesh of three or more axes) are
+    made here, and making a group takes every rank."""
+
+    def __init__(self, spec, device: torch.device) -> None:
+        import torch.distributed as dist
+        self.spec = spec
+        self.device_mesh = spec.build()
+        self.sizes: Dict[str, int] = dict(spec.axes)
+        coord = self.device_mesh.get_coordinate()
+        self.coords: Dict[str, int] = dict(zip(spec.names, coord))
+        self.backend = dist.get_backend()
+        #: Collectives of CUDA tensors go through host copies (gloo).
+        self.staged = device.type == "cuda" and self.backend != "nccl"
+        self._groups = {(name,): self.device_mesh.get_group(name)
+                        for name in spec.names}
+        names = spec.names
+        for r in range(2, len(names) + 1):
+            for axes in itertools.combinations(names, r):
+                self._groups[axes] = (dist.group.WORLD if r == len(names)
+                                      else self._new_group(axes))
+
+    def _new_group(self, axes):
+        """The subgroups spanning ``axes`` (the other axes fixed), made
+        on every rank; returns this rank's."""
+        import torch.distributed as dist
+        ranks = torch.arange(self.spec.size).reshape(self.spec.shape)
+        keep = [self.spec.names.index(a) for a in axes]
+        rest = [i for i in range(len(self.spec.names)) if i not in keep]
+        ranks = ranks.permute(*rest, *keep).reshape(-1, math.prod(
+            self.sizes[a] for a in axes))
+        mine, _ = dist.new_subgroups_by_enumeration(
+            [row.tolist() for row in ranks])
+        return mine
+
+    def canonical(self, axes: Iterable[str]) -> Tuple[str, ...]:
+        """``axes`` that split anything (size > 1), in mesh order."""
+        axes = set(axes)
+        return tuple(a for a in self.spec.names
+                     if a in axes and self.sizes[a] > 1)
+
+    def split(self, axes: Iterable[str]) -> Tuple[int, int]:
+        """(how many parts ``axes`` cut a dim into, this rank's part):
+        row-major over the axes in mesh order, which is the order of a
+        group's ranks."""
+        k, i = 1, 0
+        for a in self.canonical(axes):
+            k *= self.sizes[a]
+            i = i * self.sizes[a] + self.coords[a]
+        return k, i
+
+    def group(self, axes: Sequence[str]):
+        return self._groups[self.canonical(axes)]
+
+
+def local_part(x: torch.Tensor, k: int, i: int, dim: int = -1
+               ) -> torch.Tensor:
+    """Part ``i`` of ``k`` equal parts of ``x`` along ``dim``."""
+    n = x.shape[dim]
+    if n % k:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {k} equal parts")
+    return x.narrow(dim, i * (n // k), n // k)
+
+
+def all_reduce(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
+               ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (x itself with no
+    live mesh or axes of size 1)."""
+    if mesh is None or mesh.split(axes)[0] == 1:
+        return x
+    import torch.distributed as dist
+    buf = x.cpu() if mesh.staged else x.contiguous().clone()
+    dist.all_reduce(buf, group=mesh.group(axes))
+    return buf.to(x.device) if mesh.staged else buf
+
+
+def all_gather(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
+               dim: int = -1) -> torch.Tensor:
+    """The parts of ``x`` held by the ranks of ``axes``, concatenated
+    along ``dim`` in the ranks' order (x itself with no live mesh)."""
+    if mesh is None:
+        return x
+    k, _ = mesh.split(axes)
+    if k == 1:
+        return x
+    import torch.distributed as dist
+    src = (x.cpu() if mesh.staged else x).contiguous()
+    parts = [torch.empty_like(src) for _ in range(k)]
+    dist.all_gather(parts, src, group=mesh.group(axes))
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if mesh.staged else out
+
+
+def relayout(x: torch.Tensor, have, want, mesh: Optional[LiveMesh]
+             ) -> torch.Tensor:
+    """Turn the local form of a tensor whose last dim is split over the
+    axes ``have`` into its local form split over ``want``: gather what
+    ``have`` split, keep this rank's part of what ``want`` splits."""
+    if mesh is None:
+        return x
+    have, want = mesh.canonical(have or ()), mesh.canonical(want or ())
+    if have == want:
+        return x
+    if have:
+        x = all_gather(x, have, mesh)
+    if want:
+        x = local_part(x, *mesh.split(want)).contiguous()
+    return x
+
+
+def communicates(node, ctx) -> bool:
+    """True when the node's lowering talks to other ranks on ``ctx``'s
+    live mesh (which forbids capturing it into a CUDA graph over gloo)."""
+    if node.op == "dense":
+        return bool(ctx.split_axes(node.inputs[0]))
+    if node.op not in COLLECTIVE_OPS:
+        return False
+    have = ctx.split_axes(node.inputs[0])
+    return bool(have) and (have != ctx.split_axes(node.output)
+                           or node.op == "ppermute")
+
+
+def _lower_relayout(node, ins, ctx):
+    """psum / all_gather / reduce_scatter: the identity on the logical
+    value; the local form changes from the input's placement to the
+    output's."""
+    return relayout(ins[0], ctx.split_axes(node.inputs[0]),
+                    ctx.split_axes(node.output), ctx.mesh)
+
+
+for _op in ("psum", "all_gather", "reduce_scatter"):
+    register_lowering(_op)(_lower_relayout)
+
+
+@register_lowering("ppermute")
+def _lower_ppermute(node, ins, ctx):
+    x = relayout(ins[0], ctx.split_axes(node.inputs[0]), None, ctx.mesh)
+    dim = int(node.attrs.get("dim", -1))
+    size = x.shape[dim]
+    k = max(declared_axis_size(node, ctx), 1)
+    block = size // k
+    shift = (int(node.attrs["shift"]) * block) % max(size, 1)
+    if shift:
+        x = torch.roll(x, shift, dims=dim)
+    return relayout(x, None, ctx.split_axes(node.output), ctx.mesh)

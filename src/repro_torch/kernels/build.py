@@ -104,7 +104,7 @@ def load() -> ctypes.CDLL:
     lib.repro_fused_matmul.restype = i
     lib.repro_fused_matmul_q8.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           ctypes.c_float, i, ctypes.c_float,
-                                          i, i, i, i, i, i, i, i, p, p, p]
+                                          i, i, i, i, i, i, i, i, p, p, i, p]
     lib.repro_fused_matmul_q8.restype = i
     lib.repro_fast_act.argtypes = [p, p, ctypes.c_longlong, i, i, p]
     lib.repro_fast_act.restype = i

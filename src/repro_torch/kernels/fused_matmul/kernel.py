@@ -312,8 +312,9 @@ def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
     """out(M, N) = epilogue(deq * (q(x)(M, K) . Wq)) on the current stream
     of ``x``'s device, x quantized with ``x_scale`` as it is loaded, as
     the plan ``p`` lays it out: one launch, its K-split int32 partials in
-    a scratch tensor.  The wrapper has checked devices, dtypes, shapes,
-    contiguity and the plan."""
+    a scratch tensor.  An int32 ``out`` (``deq`` None) takes the exact
+    sums themselves (the ``sums`` mode).  The wrapper has checked
+    devices, dtypes, shapes, contiguity and the plan."""
     from .. import build
 
     lib = build.load()
@@ -327,11 +328,11 @@ def launch_q8(x: torch.Tensor, wq: torch.Tensor, deq: torch.Tensor, bias,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.repro_fused_matmul_q8(
-            x.data_ptr(), wq.data_ptr(), deq.data_ptr(), _ptr(bias),
+            x.data_ptr(), wq.data_ptr(), _ptr(deq), _ptr(bias),
             _ptr(scale), _ptr(offset), out.data_ptr(), m, k, n,
             int(w_layout == "oi"), float(x_scale), ACT_CODES[fn],
             float(alpha), int(bool(fast)), int(p.path == "tiled"),
             p.block[0] if p.path == "tiled" else 0, p.block[1], p.threads,
             p.lanes, p.splits, p.ksplit, _ptr(part), _ptr(tile_counters),
-            stream)
+            int(out.dtype == torch.int32), stream)
     build.check(lib, rc, "fused_matmul_q8")

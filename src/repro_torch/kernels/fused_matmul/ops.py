@@ -120,7 +120,7 @@ fused_matmul.launches = 0
 def fused_matmul_q8(
     x: torch.Tensor,
     wq: torch.Tensor,
-    deq: torch.Tensor,
+    deq: Optional[torch.Tensor],
     bias: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
     offset: Optional[torch.Tensor] = None,
@@ -132,6 +132,7 @@ def fused_matmul_q8(
     attrs: Optional[dict] = None,
     counters: Optional[kernel.SplitCounters] = None,
     plan: Optional[kernel.Plan] = None,
+    sums: bool = False,
 ) -> torch.Tensor:
     """Int8 fused matmul: y = affine(act(deq * (q(x) @ Wq) + bias)) with
     q(x) = ``qmath.quantize_q8(x, x_scale)`` and Wq int8 in 'io' (K,N) or
@@ -143,13 +144,27 @@ def fused_matmul_q8(
     loads it, so a CUDA call is one launch.  ``counters`` as for
     :func:`fused_matmul`; ``plan`` a ready :func:`kernel.plan_q8`, as
     there.
+
+    ``sums=True`` returns the exact int32 sums ``q(x) @ Wq`` themselves,
+    with no dequantize and no epilogue (``deq`` None, no bias, scale,
+    offset or activation): what a row-parallel site all-reduces before
+    it dequantizes (``core/lowering.py``).
     """
     n = _check_common("fused_matmul_q8", x, wq, scale, offset, fn, w_layout)
+    if sums and (deq is not None or bias is not None or scale is not None
+                 or fn not in (None, "linear")):
+        raise ValueError("fused_matmul_q8: sums=True takes no deq, bias, "
+                         "affine or activation")
+    if not sums and deq is None:
+        raise ValueError("fused_matmul_q8: deq is required unless sums=True")
     attrs = attrs or {}
     shape = x.shape
     k = shape[-1]
     if x.device.type == "cpu":
         xq = qmath.quantize_q8(x.reshape(-1, k).float(), x_scale)
+        if sums:
+            return ref.q8_sums_ref(xq, wq, w_layout=w_layout).reshape(
+                shape[:-1] + (n,))
         y = ref.fused_matmul_q8_ref(
             xq, wq, deq, bias, scale, offset, fn=fn, fast=fast,
             w_layout=w_layout, attrs=attrs)
@@ -169,7 +184,8 @@ def fused_matmul_q8(
                         "device tensor would synchronise)")
     if not float(x_scale) > 0.0:
         raise ValueError(f"fused_matmul_q8: x_scale must be > 0, got {x_scale}")
-    _check_vec("deq", deq, n, x.device, "fused_matmul_q8")
+    if not sums:
+        _check_vec("deq", deq, n, x.device, "fused_matmul_q8")
     for name, v in (("bias", bias), ("scale", scale), ("offset", offset)):
         _check_vec(name, v, n, x.device, "fused_matmul_q8")
     x2 = x.reshape(-1, k)
@@ -177,7 +193,8 @@ def fused_matmul_q8(
     if m > kernel.MAX_M_Q8:
         raise ValueError(f"fused_matmul_q8: M={m} exceeds the grid's "
                          f"{kernel.MAX_M_Q8}")
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.int32 if sums else torch.float32,
+                      device=x.device)
     if m and n:
         if plan is None:
             plan = kernel.plan_q8(m, k, n, w_layout=w_layout)

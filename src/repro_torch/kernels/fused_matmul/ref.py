@@ -30,7 +30,7 @@ def fused_matmul_ref(
     ``elu`` is the exact ``expm1`` even when ``fast``, as in the
     reference's kernel epilogue."""
     y = x @ (w.T if w_layout == "oi" else w)
-    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+    return epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
 
 
 def fused_matmul_split_ref(
@@ -58,10 +58,10 @@ def fused_matmul_split_ref(
         k0, k1 = i * ksplit, min(k, (i + 1) * ksplit)
         part = x[:, k0:k1] @ wk[k0:k1]
         y = part if y is None else y + part
-    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+    return epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
 
 
-def _epilogue_chain(y, bias, scale, offset, fn, fast, attrs):
+def epilogue_chain(y, bias, scale, offset, fn, fast, attrs):
     """The f32 epilogue chain alone (bias → activation → affine), each a
     separate op — shared by the int8 path, which produces ``y`` by
     dequantizing an exact integer sum instead of an f32 matmul."""
@@ -114,7 +114,17 @@ def fused_matmul_q8_ref(
     wd = wq.double()
     acc = xq.double() @ (wd.T if w_layout == "oi" else wd)
     y = acc.float() * deq
-    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+    return epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+
+
+def q8_sums_ref(xq: torch.Tensor, wq: torch.Tensor, *,
+                w_layout: str = "io") -> torch.Tensor:
+    """The int8 product's exact sums alone, as int32 (the ``sums`` mode
+    of the int8 kernel): computed in float64 on the int8 values, exact
+    in any order (see :func:`fused_matmul_q8_ref`)."""
+    wd = wq.double()
+    acc = xq.double() @ (wd.T if w_layout == "oi" else wd)
+    return acc.to(torch.int32)
 
 
 def fused_matmul_q8_split_ref(
@@ -147,4 +157,4 @@ def fused_matmul_q8_split_ref(
         part = (xq[:, k0:k1].double() @ wk[k0:k1]).to(torch.int32)
         acc = part if acc is None else acc + part
     y = acc.float() * deq
-    return _epilogue_chain(y, bias, scale, offset, fn, fast, attrs)
+    return epilogue_chain(y, bias, scale, offset, fn, fast, attrs)

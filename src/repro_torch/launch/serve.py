@@ -10,7 +10,7 @@ Compiles the model through ``repro_torch.compile(target="engine")`` on
 one), builds the continuous-batching scheduler, drains a synthetic
 request queue and prints the scheduler's metrics summary (TTFT, tok/s,
 batch occupancy).  It takes the reference's flags; ``--mesh`` and
-``--sharding-rules`` are ROADMAP A.14 and raise.
+``--sharding-rules`` are ROADMAP A.14b and raise.
 """
 
 from __future__ import annotations
@@ -63,10 +63,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-buckets", dest="buckets", action="store_false",
                     help="fixed-shape serving (the default)")
     ap.add_argument("--mesh", default=None,
-                    help="mesh serving: not ported yet (ROADMAP A.14)")
+                    help="mesh serving: not ported yet (ROADMAP A.14b)")
     ap.add_argument("--sharding-rules", default=None,
                     help="logical-axis rule overrides: not ported yet "
-                         "(ROADMAP A.14)")
+                         "(ROADMAP A.14b)")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
     ap.add_argument("--json", action="store_true",
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     if args.mesh or args.sharding_rules:
         raise NotImplementedError(
             "--mesh/--sharding-rules: mesh serving is not ported yet "
-            "(ROADMAP A.14: distribution)")
+            "(ROADMAP A.14b: mesh serving)")
 
     import repro_torch
     from repro_torch.configs import get_config

@@ -14,7 +14,7 @@ All six families are ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm`` (``ssm``, mamba2), ``hybrid`` (``rglru``,
 recurrentgemma) and ``audio`` (``whisper``, whose ``forward`` and
 ``prefill`` take the ``frames`` input).  ``loss`` waits for training
-(A.15), ``param_axes`` and ``cache_axes`` for distribution (A.14).
+(A.15), ``param_axes`` and ``cache_axes`` for distribution (A.14b).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class Model:
     def param_axes(self):
         raise NotImplementedError(
             "logical param axes serve sharding, which is not ported yet "
-            "(ROADMAP A.14: distribution)")
+            "(ROADMAP A.14b: sharded models)")
 
     def _extra(self, batch, device) -> Dict[str, Any]:
         """The family's non-token input: ``patches`` (vlm) or ``frames``
@@ -84,7 +84,7 @@ class Model:
     def cache_axes(self):
         raise NotImplementedError(
             "logical cache axes serve sharding, which is not ported yet "
-            "(ROADMAP A.14: distribution)")
+            "(ROADMAP A.14b: sharded models)")
 
     def prefill(self, params, batch: Dict[str, Any], cache):
         device = params["embed"].device

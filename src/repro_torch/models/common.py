@@ -16,11 +16,22 @@ Conventions (the reference's)
 * the reference's logical-axis annotations and its ``shard_map``
   branches (``tp_psum``) are sharding only: with no mesh it takes the
   plain branch, which is what the port computes.  The sharded forms are
-  ROADMAP A.14.
+  ROADMAP A.14b.
+* a row's result must not depend on how many rows share the call: a
+  serve decode step runs at its batch bucket's row count, and on the
+  H100 the norms' f32 reductions and the f32 head product round some
+  rows differently at fewer rows (the bf16 projections do not:
+  ``chip_smoke.py``'s ``row_probe`` and ``step_probe``).  Under
+  :func:`step_rows` the norms and the logits run at a fixed row count
+  (zero rows padded, their results dropped), so every bucket rounds as
+  the full-slots step does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -136,8 +147,41 @@ def ones_init(init: Init, shape, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def step_rows(rows: int):
+    """Within the block, :func:`rms_norm` and :func:`lm_logits` run on at
+    least ``rows`` rows (the leading dims flattened): fewer are padded
+    with zero rows, whose results are dropped.  Per thread, so a bucket
+    captured in the background sets its own."""
+    prev = getattr(_ROWS, "n", 0)
+    _ROWS.n = int(rows)
+    try:
+        yield
+    finally:
+        _ROWS.n = prev
+
+
+def _at_rows(fn, x, *rest):
+    """``fn(x, *rest)``, with x's rows padded to :func:`step_rows`'
+    count and the result cut back (fn maps rows to rows)."""
+    want = getattr(_ROWS, "n", 0)
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    if m >= want:
+        return fn(x, *rest)
+    y = fn(F.pad(x.reshape(m, x.shape[-1]), (0, 0, 0, want - m)), *rest)
+    return y[:m].reshape(*lead, y.shape[-1])
+
+
 def rms_norm(x, gamma, eps):
     """RMSNorm in f32 accumulation, scaled by ``(1 + gamma)``."""
+    return _at_rows(_rms_norm, x, gamma, eps)
+
+
+def _rms_norm(x, gamma, eps):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -386,7 +430,7 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
 
 def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """x: (B,S,D) @ head: (D,V) -> (B,S,V); f32 logits."""
-    return torch.matmul(x.float(), head.float())
+    return _at_rows(lambda a: torch.matmul(a.float(), head.float()), x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

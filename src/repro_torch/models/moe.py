@@ -3,7 +3,7 @@
 The port of ``repro.models.moe`` on one device: mixtral (8 experts
 top-2, softmax router) and deepseek-v3 (1 shared + routed top-k,
 sigmoid router).  The reference's expert-parallel ``shard_map`` form
-(``moe.py:186-214``) is ROADMAP A.14; with no mesh the reference runs
+(``moe.py:186-214``) is ROADMAP A.14b; with no mesh the reference runs
 ``_moe_local`` with ``axis=None``, which is what the port computes.
 
 Capacity-based token dropping (``cfg.moe_cf``) keeps every shape static;
@@ -91,10 +91,11 @@ def _moe_local(cfg, x, router, wi_gate, wi_up, wo, *, e_offset=0,
                axis=None):
     """The reference's per-shard MoE on one device: x (T, D), experts
     ``[e_offset, e_offset + E_local)``.  ``axis`` must be None (the
-    psum over a mesh axis is ROADMAP A.14)."""
+    psum over a mesh axis is ROADMAP A.14b)."""
     if axis is not None:
         raise NotImplementedError(
-            "the sharded MoE is not ported yet (ROADMAP A.14: distribution)")
+            "the sharded MoE is not ported yet (ROADMAP A.14b: "
+            "sharded models)")
     t, d = x.shape
     e_local = wi_gate.shape[0]
     cap = max(1, int(t * cfg.top_k * cfg.moe_cf / cfg.n_experts))

@@ -4,7 +4,7 @@ The port of ``repro.serve.options``: the same fields, validation and
 ``to_dict``.  The serving twin of ``CompileOptions``: a frozen,
 hashable dataclass holding every scheduling choice, so a serving
 configuration can be logged, compared and embedded in benchmark
-artifacts.  ``mesh`` must stay unset: mesh serving is ROADMAP A.14.
+artifacts.  ``mesh`` must stay unset: mesh serving is ROADMAP A.14b.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class SchedulerOptions:
                   the effective floor is ``max(min_prefix,
                   prefill_chunk)``.
     mesh:         must be None: data×model-parallel serving is ROADMAP
-                  A.14 (distribution); anything else raises.
+                  A.14b (mesh serving); anything else raises.
     """
 
     slots: int = 4
@@ -116,8 +116,8 @@ class SchedulerOptions:
                              f"got {self.min_prefix}")
         if self.mesh is not None:
             raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP A.14: "
-                "distribution); leave SchedulerOptions.mesh unset")
+                "mesh serving is not ported yet (ROADMAP A.14b); "
+                "leave SchedulerOptions.mesh unset")
 
     def replace(self, **kw) -> "SchedulerOptions":
         """Copy with the given fields replaced (re-validates)."""

@@ -39,7 +39,7 @@ cache made there cannot be written outside it.  The serving loop never
 synchronises the device, only its stream (a sampled token's ``.item()``
 and the token copy): a device-wide synchronise while a bucket is
 captured in the background fails that capture.  Mesh serving (the
-reference's ``mesh`` option) is ROADMAP A.14.
+reference's ``mesh`` option) is ROADMAP A.14b.
 """
 
 from __future__ import annotations

@@ -14,16 +14,11 @@ scheduler copies the host's last tokens into it before each call), the
 params and the cache, all persistent; its output is the bucket's
 logits, ``(b, 1, vocab)``.
 
-On a CUDA device the step is captured once as a CUDA graph into the
-scheduler's :class:`~repro_torch.core.program.GraphPool`, and each call
-is one replay, whose logits tensor is the same static tensor every
-time: the caller reads it before the next replay.  The capture's
-warm-up runs the same step over scratch rows of a cache of the same
-shapes and strides, never the live cache: a decode step writes K/V at
-``pos`` and advances ``pos``, so warming up on the live cache would
-corrupt every active slot, and a smaller bucket is captured while
-requests are served.  On the CPU the step is the same function, called
-eagerly.
+Every bucket's step runs its norms and its logits at the scheduler's
+full slot count (``models.common.step_rows``): at fewer rows the H100
+rounds their f32 sums differently, so without it a row's logits would
+depend on the bucket that computed them, and bucketed serving would not
+give the tokens fixed-shape serving gives.
 """
 
 from __future__ import annotations
@@ -34,6 +29,7 @@ from typing import Optional
 import torch
 
 from ..core.program import GraphPool, capture
+from ..models.common import step_rows
 from .slots import SlotManager
 
 
@@ -49,6 +45,7 @@ class DecodeStep:
         self.model = model
         self.params = params
         self.batch = batch
+        self.slots = slots.slots
         self.device = tokens.device
         self.rows = slots.rows(batch)
         self.tokens = tokens[:batch]
@@ -70,8 +67,9 @@ class DecodeStep:
         def warmup():
             scratch = model.init_cache(slots.slots, slots.max_len,
                                        self.device)
-            model.decode_step(params, slots.rows(batch, scratch),
-                              torch.zeros_like(self.tokens))
+            with step_rows(self.slots):
+                model.decode_step(params, slots.rows(batch, scratch),
+                                  torch.zeros_like(self.tokens))
 
         t0 = time.perf_counter()
         self.graph, self.logits, self.pool_bytes = capture(
@@ -79,8 +77,9 @@ class DecodeStep:
         self.capture_s = time.perf_counter() - t0
 
     def eager(self) -> torch.Tensor:
-        """One step run op by op (what the graph recorded)."""
-        with torch.inference_mode():
+        """One step run op by op (what the graph recorded), its norms
+        and logits at the full slot count."""
+        with torch.inference_mode(), step_rows(self.slots):
             return self.model.decode_step(self.params, self.rows,
                                           self.tokens)[0]
 

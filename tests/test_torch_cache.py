@@ -122,12 +122,26 @@ def test_deserialize_ignores_embedded_cache_dir(tmp_path):
 @pytest.mark.parametrize("kind,item", [("sharded", "A.14"),
                                        ("engine", "A.12")])
 def test_unported_kinds_raise(kind, item):
-    """What the port cannot load yet names its ROADMAP item: the sharded
-    kind (A.14).  The engine kind loads since A.12, and since A.12b for
-    every family: a mamba2 blob, which named A.12b before, loads back to
-    the same params and logits."""
+    """Kinds that named their ROADMAP item until it was ported now load:
+    the sharded kind since A.14a (a blob of a single-device mesh loads
+    back to a ShardedExecutable with the same placement and outputs),
+    the engine kind since A.12, and since A.12b for every family (a
+    mamba2 blob loads back to the same params and logits)."""
     from repro_torch.api.executable import pack
     from repro_torch.configs import get_config
+    if kind == "sharded":
+        from repro_torch.dist import ShardedExecutable
+        g = PORT_SUITE["VGG19"]()
+        exe = repro_torch.compile(g, target="cuda", device="cpu",
+                                  mesh="data=1,model=1")
+        back = repro_torch.deserialize(exe.serialize())
+        assert isinstance(back, ShardedExecutable)
+        assert back.graph.dist == exe.graph.dist
+        x = np.random.default_rng(0).standard_normal(
+            (2,) + tuple(g.inputs["input"].shape)).astype(np.float32)
+        assert all(torch.equal(back(input=x)[k], v)
+                   for k, v in exe(input=x).items())
+        return
     if kind == "engine":
         cfg = get_config("mamba2-780m", smoke=True)
         exe = repro_torch.compile(cfg, target="engine", device="cpu")

@@ -159,8 +159,15 @@ def test_cuda_device_without_cuda_raises():
     ("sharding_rules", (("batch", "data"),), "A.14"),
 ])
 def test_unported_options_raise(field, value, item):
+    """``mesh``/``sharding_rules`` are options since A.14a (graphs on the
+    jit and cuda targets); the engine target's sharded models still
+    raise, naming A.14b."""
+    from repro_torch.configs import get_config
+    opts = repro_torch.CompileOptions(**{field: value}, device="cpu")
+    assert getattr(opts, field) is not None
     with pytest.raises(NotImplementedError, match=item):
-        repro_torch.CompileOptions(**{field: value}, device="cpu")
+        repro_torch.compile(get_config("qwen2.5-14b", smoke=True),
+                            opts.replace(target="engine"))
 
 
 def test_capture_option_is_accepted():

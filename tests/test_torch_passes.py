@@ -152,7 +152,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "for m in ('repro_torch.frontends.trace', 'repro_torch.frontends.builder',\n"
         "          'repro_torch.api.capture', 'repro_torch.replay',\n"
-        "          'repro_torch.replay.__main__', 'repro_torch.core.compiler'):\n"
+        "          'repro_torch.replay.__main__', 'repro_torch.core.compiler',\n"
+        "          'repro_torch.dist.executable', 'repro_torch.distributed.fault'):\n"
         "    assert m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
