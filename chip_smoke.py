@@ -70,6 +70,26 @@ JAX package.  Every phase prints one JSON line (also written to
                  artifact in a fresh process (placement replayed, cache
                  hit, bit-equal); (e) ``MeshUnavailableError`` for
                  ``data=2,model=2`` in one process.
+   ``mesh``      mesh serving and the models' sharded forms, in a child
+                 process (``python3 chip_smoke.py --mesh``), whose own
+                 child (``--mesh-single``) first runs each case on one
+                 device: (m1) qwen2.5-14b whole at bf16, ``fold=False``,
+                 on ``data=2`` (two rank processes on the card over gloo,
+                 ``--mesh-rank``), 8 slots, max_len 1024, buckets and
+                 256-token chunks, a 4-entry prefix cache, 16 requests of
+                 64-768 prompt tokens and 32 new: tokens equal to the
+                 single-device run's, every decode step with rows on a
+                 rank a replay; tokens/s, TTFT, replay ms, the token
+                 exchange's bytes and ms a step, peak GB a rank; (m2) the
+                 same weights on ``model=2``, 4 requests of 64-256 tokens,
+                 16 new: tokens equal, ``captured: false``, the gathered
+                 bytes and ms and the step's ms; (m3) whisper-base whole at
+                 f32 on ``data=2,model=2`` (four ranks), 8 requests with
+                 their own 1500 frames, 32 new: tokens equal; (m4)
+                 mixtral-8x22b at its widths (2 layers, f32), its
+                 expert-parallel forward on ``model=2`` (4 of 8 experts a
+                 rank) within 1e-5 x max(1, max|logits|) of the unsharded
+                 forward, peak GB a rank.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
                  plan (paths, K splits, ragged and unaligned shapes);
@@ -3154,17 +3174,9 @@ class _Recorder:
         return int(row.argmax(-1)[0])
 
 
-def _steps(sched):
-    """The scheduler's decode steps: each bucket's, or the fixed one."""
-    if sched._decode_engine is None:
-        return [sched._decode]
-    return [sched._decode_engine.peek(b)
-            for b in sched._decode_engine.warm_buckets()]
-
-
 def _replays_cover_steps(sched):
     """(every step a captured graph, its calls summed == decode steps)."""
-    steps = _steps(sched)
+    steps = sched.decode_steps()
     return (all(s.graph is not None for s in steps),
             sum(s.calls for s in steps) == sched.metrics.decode_steps)
 
@@ -3266,11 +3278,12 @@ def phase_serve_smoke(torch, np):
     return problems
 
 
-def _qwen_requests(np, cfg):
-    """SERVE_QWEN_REQUESTS from seed 0: the sharers' prompts are the head
-    and a tail of at least one token, the others are drawn whole."""
+def _qwen_requests(np, cfg, spec=SERVE_QWEN_REQUESTS):
+    """``spec`` (SERVE_QWEN_REQUESTS's fields) from seed 0: the sharers'
+    prompts are the head and a tail of at least one token, the others
+    are drawn whole."""
     from repro_torch.serve import Request
-    n, (lo, hi), sharers, head_len, new = SERVE_QWEN_REQUESTS
+    n, (lo, hi), sharers, head_len, new = spec
     rng = np.random.default_rng(0)
     head = rng.integers(0, cfg.vocab, head_len).astype(np.int32)
     share = set(rng.choice(n, sharers, replace=False).tolist())
@@ -3508,8 +3521,9 @@ def phase_serve_qwen(torch, np):
            # the background also counts what the serving thread took
            # meanwhile, so only the full-slots one (at build) is the pool's.
            "capture_reserved_gb": {str(s.batch): s.pool_bytes / 1e9
-                                   for s in _steps(sched)},
-           "capture_s": {str(s.batch): s.capture_s for s in _steps(sched)},
+                                   for s in sched.decode_steps()},
+           "capture_s": {str(s.batch): s.capture_s
+                         for s in sched.decode_steps()},
            "fold_report": sched.fold_report,
            "weights_gb": weights / 1e9, "fold_gb": fold_bytes / 1e9,
            "cache_gb": _tensor_bytes(sched.slot_manager.cache.values()) / 1e9,
@@ -3917,7 +3931,8 @@ def shard_rank_main(rank: int, world: int, mesh: str, work: str) -> int:
                         "sliced_params": len(summary["sliced_params"])}),
                         flush=True)
     finally:
-        dist.destroy_process_group()
+        from repro_torch.dist.collectives import destroy_process_group
+        destroy_process_group()
     return 0
 
 
@@ -4077,6 +4092,419 @@ def phase_shard():
     return phase_child("--shard", SHARD_TIMEOUT_S, "shard")
 
 
+# ---------------------------------------------------------------------------
+# The mesh phase (a child process: ``python3 chip_smoke.py --mesh``)
+# ---------------------------------------------------------------------------
+#: (m1) qwen2.5-14b whole at bf16 on ``data=2``, two ranks on the card:
+#: the options, the batch buckets, and the requests (count, prompt
+#: lengths, sharers of a head, its length, new tokens).  Buckets 4 and 8
+#: give each rank one captured step (its 4 rows, or none of them): every
+#: capture holds an f32 copy of the head (3.1 GB), and a rank must fit
+#: MESH_MEMORY_SHARE of the card.
+MESH_QWEN = dict(slots=8, max_len=1024, prefill_chunk=256, prefix_cache=4,
+                 fold=False)
+MESH_QWEN_BUCKETS = (4, 8)
+MESH_QWEN_REQUESTS = (16, (64, 768), 4, 512, 32)
+#: (m2) the same weights on ``model=2``: options, requests (count,
+#: prompt lengths, new tokens).
+MESH_MODEL = dict(slots=4, max_len=512, fold=False)
+MESH_MODEL_REQUESTS = (4, (64, 256), 16)
+#: (m3) whisper-base whole at f32 on ``data=2,model=2``, four ranks:
+#: options (Whisper's text context), requests (each with its own frames).
+MESH_WHISPER = dict(slots=4, max_len=448)
+MESH_WHISPER_REQUESTS = (8, (4, 32), 32)
+#: (m4) mixtral-8x22b at its widths, 2 layers, f32, expert-parallel on
+#: ``model=2``: the tokens (batch, length) and f32's limit against the
+#: unsharded forward, relative to max(1, max|logits|).
+MESH_MIXTRAL = (4, 128)
+MESH_F32_LIMIT = 1e-5
+#: Each rank's share of the card's memory, by group size: an overrun is
+#: an error in the rank that made it.  The ranks' allocator maps its
+#: segments in pages (``expandable_segments``): a qwen2.5-14b rank peaks
+#: within 3 GB of its share, and each prefill chunk's f32 copy of the
+#: head (2.9 GiB) would not find a whole free block of the cache's.
+MESH_MEMORY_SHARE = {2: 0.48, 4: 0.24}
+MESH_ALLOC_CONF = "expandable_segments:True"
+MESH_TIMED_RUNS = 10
+#: Time limits: the single-device runs' process, each group of ranks,
+#: the phase.
+MESH_SINGLE_TIMEOUT_S = 60
+MESH_RANK_TIMEOUT_S = {2: 130, 4: 45}
+MESH_TIMEOUT_S = 240
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+
+
+def _qwen_bf16():
+    """qwen2.5-14b whole with bf16 weights made on the card from seed 0,
+    one layer at a time into stacked leaves allocated first: each weight
+    drawn in f32 and cast, as ``precision="bf16"`` casts f32 masters.  A
+    48-layer leaf drawn whole in f32 (13.6 GB) would leave a rank that
+    shares the card 12 GB of reserved, unusable memory."""
+    import dataclasses
+    import torch
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import common as C
+    from repro_torch.models import get_model, transformer
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"),
+                              param_dtype="bfloat16")
+    params = C.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device=DEVICE),
+        get_model(cfg).init(device="meta"))
+    init = C.Init.make(0, DEVICE)
+    stacked = dict(C.tree_flatten(params["layers"]))
+    for i in range(cfg.num_layers):
+        for path, leaf in C.tree_flatten(transformer.layer_init(init, (),
+                                                                cfg)):
+            stacked[path][i].copy_(leaf)
+    for name in ("embed", "head"):
+        params[name].copy_(C.dense_init(init, params[name].shape,
+                                        cfg.d_model, cfg.param_dtype))
+    params["ln_f"].zero_()
+    return repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", precision="bf16", device=DEVICE), params=params)
+
+
+def _whisper_f32():
+    import dataclasses
+    import repro_torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype="float32")
+    return repro_torch.compile(cfg, repro_torch.CompileOptions(
+        target="engine", device=DEVICE), init_seed=0)
+
+
+def _mixtral_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mixtral-8x22b"),
+                               num_layers=MIXTRAL_LAYERS, dtype="float32")
+
+
+def _plain_requests(np, cfg, spec):
+    """``spec`` (count, prompt lengths, new tokens) from seed 0; an audio
+    request carries its own frames."""
+    from repro_torch.serve import Request
+    n, (lo, hi), new = spec
+    rng = np.random.default_rng(0)
+    reqs = []
+    for uid in range(n):
+        p = rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1)))
+        inputs = None
+        if cfg.family == "audio":
+            inputs = {"frames": rng.standard_normal(
+                (cfg.n_frames, cfg.d_model)).astype(np.float32)}
+        reqs.append(Request(uid=uid, prompt=p.astype(np.int32),
+                            max_new_tokens=new, inputs=inputs))
+    return reqs
+
+
+def _mesh_options(case, mesh):
+    from repro_torch.runtime import BucketPolicy
+    from repro_torch.serve import SchedulerOptions
+    if case == "m1":
+        return SchedulerOptions(mesh=mesh, buckets=BucketPolicy(
+            batch_buckets=MESH_QWEN_BUCKETS), **MESH_QWEN)
+    return SchedulerOptions(mesh=mesh, **(MESH_MODEL if case == "m2"
+                                          else MESH_WHISPER))
+
+
+def _mesh_serve(torch, exe, opts, reqs):
+    """Serve ``reqs`` (on ``opts.mesh``, or one device): the tokens and a
+    row of what the run measured."""
+    import repro_torch
+    torch.cuda.reset_peak_memory_stats()
+    sched = repro_torch.serve(exe, opts)
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    step_ms = []
+    while sched.queue_depth() or sched.num_active() or sched._prefilling:
+        t = time.perf_counter()
+        sched.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    serve_s = time.perf_counter() - t0
+    summ = sched.summary()
+    warm = sched.wait_warm(120.0)
+    steps = sched.decode_steps()
+    full = next(s for s in steps if s.batch == opts.slots)
+    replays = sum(s.calls for s in steps if s.captured)
+    rowless = sum(s.calls for s in steps if not s.local)
+    row = {"requests": len(reqs), "serve_s": serve_s,
+           "tokens_per_s": summ["tokens_per_s"],
+           "total_new_tokens": summ["total_new_tokens"],
+           "ttft_p50_ms": summ["ttft_p50"] * 1e3,
+           "ttft_p99_ms": summ["ttft_p99"] * 1e3,
+           "decode_steps": summ["decode_steps"],
+           "prefill_chunks": summ["prefill_chunks"],
+           "all_buckets_warm": warm,
+           "every_step_a_replay": replays + rowless == summ["decode_steps"]
+           and all(s.captured for s in steps if s.local),
+           # the step loop's host ms per scheduler step after the last
+           # admission (decode only where prefill is whole)
+           "late_step_ms": statistics.median(step_ms[1:]) if len(
+               step_ms) > 1 else None,
+           "full_step_local_rows": full.local,
+           "captured_steps": sum(s.captured for s in steps),
+           "pool_gb": sched._pool.bytes / 1e9 if sched._pool else None,
+           "peak_gb": _peak_gb(torch)}
+    if "runtime" in summ:
+        row["decode_stalls"] = summ["runtime"]["decode"]["compile_stalls"]
+    if "prefix_cache" in summ:
+        row["prefix_hits"] = summ["prefix_cache"]["hits"]
+    if "sharding" in summ:
+        sh = summ["sharding"]
+        row["sharding"] = sh
+        row["captured"] = sh["captured"]
+        n = max(summ["decode_steps"], 1)
+        row["per_step"] = {a: {"bytes": v["bytes"] / n, "ms": v["ms"] / n,
+                               "collectives": v["count"] / n}
+                           for a, v in sh["collectives"]["per_axis"].items()}
+        row["faults"] = summ["faults"]
+    if full.captured:
+        # the full-slots step's replay (all this rank's rows), after the
+        # run: every bucket is warm, so a device-wide synchronise is safe
+        row["replay_ms"] = host_median_ms(full, runs=MESH_TIMED_RUNS,
+                                          warmup=2)
+    tokens = {c.uid: list(c.tokens) for c in sched.done}
+    sched.shutdown()
+    return tokens, row
+
+
+def _mixtral_forward(torch, np, mesh=None):
+    """mixtral-8x22b at its widths (MIXTRAL_LAYERS layers, f32) forward
+    over MESH_MIXTRAL seeded tokens: unsharded, or expert-parallel on the
+    live ``mesh``, each rank keeping only its experts."""
+    import gc
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import get_model, moe
+    cfg = _mixtral_cfg()
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, DEVICE)
+    if mesh is not None:
+        ffn = params["layers"]["ffn"]
+        part = moe.local_experts(ffn, cfg, mesh)
+        for name in ("wi_gate", "wi_up", "wo"):
+            ffn[name] = part.pop(name).clone()     # the whole leaf freed
+        del part
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    row = {"init_peak_gb": _peak_gb(torch),
+           "held_gb": torch.cuda.memory_allocated() / 1e9,
+           "expert_weights_gb": sum(
+               params["layers"]["ffn"][n].numel() * 4 for n in
+               ("wi_gate", "wi_up", "wo")) / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    b, s = MESH_MIXTRAL
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)
+    with torch.inference_mode(), use_mesh(mesh):
+        t0 = time.perf_counter()
+        logits = model.forward(params, {"tokens": tokens})[0]
+        torch.cuda.synchronize()
+        row["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    row["peak_gb"] = _peak_gb(torch)
+    out = logits.cpu().numpy()
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, row
+
+
+def mesh_rank_main(rank: int, world: int, work: str) -> int:
+    """One rank of a mesh group: (m1) and (m2) then (m4) in a group of
+    two, (m3) in a group of four; one JSON row a case on stdout, the
+    tokens compared by the parent.  Every rank makes the same calls in
+    the same order (the collectives pair up across ranks)."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import MeshSpec
+    from repro_torch.dist.collectives import LiveMesh
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.set_per_process_memory_fraction(MESH_MEMORY_SHARE[world])
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work}/rendezvous{world}", rank=rank,
+        world_size=world)
+
+    def say(case, mesh, tokens, row):
+        print(json.dumps({"phase": "mesh", "case": case, "mesh": mesh,
+                          "rank": rank, "tokens": tokens, **row}),
+              flush=True)
+
+    try:
+        if world == 2:
+            exe = _qwen_bf16()
+            reqs, _ = _qwen_requests(np, exe.cfg, MESH_QWEN_REQUESTS)
+            say("m1", "data=2", *_mesh_serve(
+                torch, exe, _mesh_options("m1", "data=2"), reqs))
+            reqs = _plain_requests(np, exe.cfg, MESH_MODEL_REQUESTS)
+            say("m2", "model=2", *_mesh_serve(
+                torch, exe, _mesh_options("m2", "model=2"), reqs))
+            del exe, reqs
+            gc.collect()
+            torch.cuda.empty_cache()
+            held_before = torch.cuda.memory_allocated() / 1e9
+            mesh = LiveMesh(MeshSpec.parse("model=2"), torch.device(DEVICE))
+            logits, row = _mixtral_forward(torch, np, mesh)
+            want = np.load(os.path.join(work, "mixtral.npy"))
+            row["max_abs_err"] = float(np.abs(logits - want).max())
+            row["limit"] = MESH_F32_LIMIT * max(1.0, float(np.abs(
+                want).max()))
+            row["bit_equal"] = bool(np.array_equal(logits, want))
+            row["held_before_gb"] = held_before
+            say("m4", "model=2", None, row)
+        else:
+            exe = _whisper_f32()
+            reqs = _plain_requests(np, exe.cfg, MESH_WHISPER_REQUESTS)
+            say("m3", "data=2,model=2", *_mesh_serve(
+                torch, exe, _mesh_options("m3", "data=2,model=2"), reqs))
+    finally:
+        from repro_torch.dist.collectives import destroy_process_group
+        destroy_process_group()
+    return 0
+
+
+def _mesh_ranks(world: int, work: str):
+    """Run a group of ``world`` rank processes on the card to their end:
+    (their exit codes, their rows)."""
+    import threading
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=MESH_ALLOC_CONF)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(world), work], cwd=ROOT, stdout=subprocess.PIPE, text=True,
+        env=env) for r in range(world)]
+    timers = [threading.Timer(MESH_RANK_TIMEOUT_S[world], p.kill)
+              for p in procs]
+    for t in timers:
+        t.start()
+    rows = []
+    try:
+        for p in procs:
+            out, _ = p.communicate()
+            rows += [json.loads(line) for line in out.splitlines()
+                     if line.startswith("{")]
+    finally:
+        for t in timers:
+            t.cancel()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], rows
+
+
+def mesh_single_main(work: str) -> int:
+    """The single-device runs of (m1)-(m3) and the unsharded forward of
+    (m4), in a process of their own (every byte of the card is returned
+    when it exits, before the ranks start): their rows on stdout, the
+    tokens to ``work/want.json``, the logits to ``work/mixtral.npy``."""
+    import gc
+    import numpy as np
+    import torch
+    torch.backends.cudnn.deterministic = True
+    want = {}
+    exe = _qwen_bf16()
+    for case, reqs in (
+            ("m1", _qwen_requests(np, exe.cfg, MESH_QWEN_REQUESTS)[0]),
+            ("m2", _plain_requests(np, exe.cfg, MESH_MODEL_REQUESTS))):
+        want[case], row = _mesh_serve(torch, exe, _mesh_options(case, None),
+                                      reqs)
+        emit({"phase": "mesh", "case": case, "mesh": None, **row})
+    del exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    exe = _whisper_f32()
+    want["m3"], row = _mesh_serve(
+        torch, exe, _mesh_options("m3", None),
+        _plain_requests(np, exe.cfg, MESH_WHISPER_REQUESTS))
+    emit({"phase": "mesh", "case": "m3", "mesh": None, **row})
+    del exe
+    logits, row = _mixtral_forward(torch, np)
+    np.save(os.path.join(work, "mixtral.npy"), logits)
+    emit({"phase": "mesh", "case": "m4", "mesh": None, **row})
+    with open(os.path.join(work, "want.json"), "w") as f:
+        json.dump(want, f)
+    return 0
+
+
+def mesh_main() -> int:
+    """The mesh phase, in its own process: the single-device runs and the
+    unsharded forward in a child, then the rank processes that share the
+    card (over gloo), each held to them."""
+    import shutil
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --mesh: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on; the f32 comparisons need it off")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--mesh-single", MESH_DIR], cwd=ROOT,
+                         stdout=subprocess.PIPE, text=True,
+                         timeout=MESH_SINGLE_TIMEOUT_S)
+    for line in res.stdout.splitlines():
+        if line.startswith("{"):
+            emit(json.loads(line))
+    emit({"phase": "mesh", "case": "single_device_done",
+          "seconds": time.perf_counter() - t0, "rc": res.returncode})
+    if res.returncode:
+        raise SystemExit(f"mesh phase failed: the single-device runs "
+                         f"exited {res.returncode}")
+    with open(os.path.join(MESH_DIR, "want.json")) as f:
+        want = json.load(f)
+
+    problems = []
+    expected = {2: ("m1", "m2", "m4"), 4: ("m3",)}
+    for world in (2, 4):
+        rcs, rows = _mesh_ranks(world, MESH_DIR)
+        got = sorted((r["case"], r["rank"]) for r in rows)
+        if rcs != [0] * world or got != sorted(
+                (c, r) for c in expected[world] for r in range(world)):
+            problems.append(f"mesh: {world} ranks exited {rcs} with rows "
+                            f"{got}")
+        for row in rows:
+            case, tokens = row["case"], row.pop("tokens")
+            if tokens is not None:
+                agree = sum(tokens.get(u) == t for u, t in want[case].items())
+                row["requests_equal"] = agree
+                if agree != len(want[case]):
+                    problems.append(
+                        f"mesh {case} rank {row['rank']}: {agree} of "
+                        f"{len(want[case])} requests' tokens equal to "
+                        f"single-device")
+            emit(row)
+            if case == "m1" and not (row["every_step_a_replay"]
+                                     and row["captured"]
+                                     and row["decode_stalls"] == 0):
+                problems.append(f"mesh m1 rank {row['rank']}: every step a "
+                                f"replay {row['every_step_a_replay']}, "
+                                f"stalls {row['decode_stalls']}")
+            if case in ("m2", "m3") and row["captured"]:
+                problems.append(f"mesh {case}: a step that gathers over "
+                                f"gloo reports itself captured")
+            if case in ("m1", "m2", "m3") and row["faults"]:
+                problems.append(f"mesh {case}: faults {row['faults']}")
+            if case == "m4" and not row["max_abs_err"] <= row["limit"]:
+                problems.append(f"mesh m4 rank {row['rank']}: err "
+                                f"{row['max_abs_err']} over {row['limit']}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    if problems:
+        raise SystemExit("mesh phase failed: " + "; ".join(problems))
+    return 0
+
+
+def phase_mesh():
+    """The mesh phase in its child process."""
+    return phase_child("--mesh", MESH_TIMEOUT_S, "mesh")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4091,7 +4519,8 @@ def main() -> int:
                          "f32 comparisons need it off")
     phase_card(torch)
     phase_build()
-    engine_problems = phase_engine() + phase_serve() + phase_shard()
+    engine_problems = (phase_engine() + phase_serve() + phase_shard()
+                       + phase_mesh())
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
     problems += engine_problems
@@ -4173,6 +4602,13 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:
         sys.exit(shard_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4], sys.argv[5]))
+    if sys.argv[1:] == ["--mesh"]:
+        sys.exit(mesh_main())
+    if sys.argv[1:2] == ["--mesh-single"]:
+        sys.exit(mesh_single_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
     try:
         rc = main()
     finally:

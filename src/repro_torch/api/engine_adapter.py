@@ -62,15 +62,12 @@ class ModelExecutable(Executable):
     """Executable over a registered model architecture (the ``"engine"``
     target): ``model.forward`` over params held on the executable's
     device, with the first call of each unseen input signature timed
-    into ``compile_time``."""
+    into ``compile_time``.  ``options.mesh`` and ``sharding_rules`` ride
+    along: a call runs unsharded (as the reference's does), and
+    :meth:`serve` takes the mesh as its serving placement."""
 
     def __init__(self, model_or_cfg, options: CompileOptions, *,
                  params=None, init_seed: int = 0) -> None:
-        if options.mesh is not None or options.sharding_rules:
-            raise NotImplementedError(
-                "the engine target's sharded models are not ported yet "
-                "(ROADMAP A.14b: sharded models); mesh= compiles graphs "
-                "on the jit and cuda targets")
         if isinstance(model_or_cfg, Model):
             self.model = model_or_cfg
         elif hasattr(model_or_cfg, "cfg") and hasattr(model_or_cfg,

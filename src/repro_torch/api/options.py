@@ -136,8 +136,9 @@ class CompileOptions:
                    ``torch.distributed`` process group, one rank a device
                    (a single-device mesh needs none and stays
                    bit-identical to the unsharded path).  The ``engine``
-                   target's sharded models are ROADMAP A.14b and raise.
-                   ``None`` = the unsharded compile.
+                   target carries it: its calls run unsharded and its
+                   ``serve()`` serves on the mesh.  ``None`` = the
+                   unsharded compile.
     sharding_rules: overrides on the logical-axis rules table
                    (``repro_torch.distributed.sharding.DEFAULT_RULES``)
                    the propagation pass reads — a mapping or pairs of

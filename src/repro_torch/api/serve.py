@@ -52,6 +52,7 @@ def serve(executable, options: Optional[SchedulerOptions] = None, *,
           sampler: Optional[Callable] = None,
           clock: Optional[Callable[[], float]] = None,
           engine_worker: Optional[str] = None,
+          device_source: Optional[Callable] = None,
           **kw) -> Scheduler:
     """Build a continuous-batching :class:`Scheduler` over ``executable``.
 
@@ -61,9 +62,13 @@ def serve(executable, options: Optional[SchedulerOptions] = None, *,
     device its params are on.  Remaining keyword args override
     ``SchedulerOptions`` fields (``repro_torch.serve(exe, slots=8)``);
     ``sampler`` and ``clock`` are injection points for tests
-    (deterministic token streams, fake time).  A mesh is ROADMAP A.14b:
-    ``SchedulerOptions(mesh=...)`` raises, as ``CompileOptions(mesh=...)``
-    does on the ``engine`` target.
+    (deterministic token streams, fake time); ``device_source`` is the
+    mesh fault-injection seam (the visible devices).
+
+    When the executable was compiled with ``CompileOptions(mesh=...)``
+    and the scheduler options leave ``mesh`` unset, the compile-time
+    mesh carries over: the serving placement follows the compiled
+    artifact unless explicitly overridden.
     """
     model = getattr(executable, "model", None)
     params = getattr(executable, "params", None)
@@ -74,11 +79,18 @@ def serve(executable, options: Optional[SchedulerOptions] = None, *,
         options = SchedulerOptions()
     if kw:
         options = options.replace(**kw)
+    if options.mesh is None:
+        compiled_mesh = getattr(getattr(executable, "options", None),
+                                "mesh", None)
+        if compiled_mesh is not None:
+            options = options.replace(mesh=compiled_mesh)
     extra = {}
     if clock is not None:
         extra["clock"] = clock
     if engine_worker is not None:
         extra["engine_worker"] = engine_worker
+    if device_source is not None:
+        extra["device_source"] = device_source
     info = _precision_report(executable)
     if info is not None:
         extra["precision_info"] = info

@@ -82,7 +82,7 @@ class ArchConfig:
     attn_compute_dtype: str = "float32"  # float32 | bfloat16 (score/p dtype)
     causal_skip: bool = False      # skip fully-masked kv chunks
     cache_update: str = "where"    # where | scatter (decode cache insert)
-    tp_psum: bool = False          # sharded form only (ROADMAP A.14)
+    tp_psum: bool = False          # TP projections on a live mesh
     # training schedule (minicpm uses WSD)
     lr_schedule: str = "cosine"    # cosine | wsd
 

@@ -151,6 +151,18 @@ class LiveMesh:
     def group(self, axes: Sequence[str]):
         return self._groups[self.canonical(axes)]
 
+    def rank_of(self, axes: Iterable[str], part: int) -> int:
+        """The global rank of the member of this rank's ``axes`` group
+        that holds part ``part`` (the inverse of :meth:`split`)."""
+        coords = dict(self.coords)
+        for a in reversed(self.canonical(axes)):
+            coords[a] = part % self.sizes[a]
+            part //= self.sizes[a]
+        rank = 0
+        for name in self.spec.names:
+            rank = rank * self.sizes[name] + coords[name]
+        return rank
+
 
 def local_part(x: torch.Tensor, k: int, i: int, dim: int = -1
                ) -> torch.Tensor:
@@ -174,6 +186,18 @@ def all_reduce(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
     return buf.to(x.device) if mesh.staged else buf
 
 
+def destroy_process_group() -> None:
+    """Tear down the default process group and every group made from
+    it.  Garbage that still holds a group (a finished scheduler's
+    LiveMesh in a reference cycle) is collected first, so each group is
+    freed here: a gloo group freed only at interpreter exit can abort
+    the process there."""
+    import gc
+    import torch.distributed as dist
+    gc.collect()
+    dist.destroy_process_group()
+
+
 def all_gather(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
                dim: int = -1) -> torch.Tensor:
     """The parts of ``x`` held by the ranks of ``axes``, concatenated
@@ -189,6 +213,18 @@ def all_gather(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
     dist.all_gather(parts, src, group=mesh.group(axes))
     out = torch.cat(parts, dim=dim)
     return out.to(x.device) if mesh.staged else out
+
+
+def broadcast(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
+              part: int) -> torch.Tensor:
+    """The ``x`` of the rank that holds part ``part`` along ``axes``, on
+    every rank of that group (x itself with no live mesh)."""
+    if mesh is None or mesh.split(axes)[0] == 1:
+        return x
+    import torch.distributed as dist
+    buf = (x.cpu() if mesh.staged else x).contiguous().clone()
+    dist.broadcast(buf, src=mesh.rank_of(axes, part), group=mesh.group(axes))
+    return buf.to(x.device) if mesh.staged else buf
 
 
 def relayout(x: torch.Tensor, have, want, mesh: Optional[LiveMesh]

@@ -5,13 +5,21 @@ tensors with *logical* axis names; the rules table maps them to mesh
 axes of whatever mesh is active.  The graph compiler's propagation pass
 (``repro_torch.dist.propagate``) reads the same table.  With no mesh
 every annotation is a no-op, so the same model code runs everywhere.
+
+The active mesh is a :class:`repro_torch.dist.collectives.LiveMesh` (one
+process a device).  Every rank holds each model tensor whole, so a
+constraint is placement only: :func:`logical` returns its tensor, and
+:func:`named_sharding` describes where a tensor's parts would live.  The
+only partitioned compute is what the models write out (the row- and
+column-parallel projections under ``tp_psum``, the expert-parallel MoE),
+as the reference's ``shard_map`` branches do.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -51,14 +59,14 @@ def current_rules() -> Dict[str, AxisVal]:
 
 
 def current_mesh():
-    """The mesh of the innermost :func:`use_mesh` (a ``DeviceMesh``), or
+    """The mesh of the innermost :func:`use_mesh` (a ``LiveMesh``), or
     None."""
     return getattr(_local, "mesh", None)
 
 
 @contextlib.contextmanager
 def use_mesh(mesh, rules: Optional[Dict[str, AxisVal]] = None):
-    """Activate a mesh (a ``DeviceMesh`` or None) and rules (merged over
+    """Activate a mesh (a ``LiveMesh`` or None) and rules (merged over
     DEFAULT_RULES) for model-code annotations, on this thread."""
     prev_mesh = getattr(_local, "mesh", None)
     prev_rules = getattr(_local, "rules", None)
@@ -101,20 +109,55 @@ def spec_for(*logical_axes: Optional[str]) -> tuple:
     return tuple(parts)
 
 
+def mesh_axis_names(mesh) -> Tuple[str, ...]:
+    """The axis names of ``mesh``: a ``LiveMesh``, a ``MeshSpec`` or a
+    ``DeviceMesh``."""
+    spec = getattr(mesh, "spec", mesh)
+    if hasattr(spec, "names"):
+        return tuple(spec.names)
+    return tuple(mesh.mesh_dim_names)
+
+
+def mesh_axis_size(mesh, name: str) -> int:
+    """The size of axis ``name`` of ``mesh`` (1 with no mesh or no such
+    axis)."""
+    if mesh is None:
+        return 1
+    spec = getattr(mesh, "spec", mesh)
+    return dict(spec.axes).get(name, 1)
+
+
+def _keep(spec: tuple, names) -> tuple:
+    """``spec`` with the mesh axes ``names`` lacks dropped (the
+    reference's ``keep``: "pod" on a 2-D mesh); one axis left of a
+    tuple is the bare name, as a ``PartitionSpec`` holds it."""
+    def keep(v):
+        if v is None:
+            return None
+        if isinstance(v, str):
+            return v if v in names else None
+        kept = tuple(a for a in v if a in names)
+        return kept[0] if len(kept) == 1 else (kept or None)
+    return tuple(keep(v) for v in spec)
+
+
+class Placement(NamedTuple):
+    """The port's ``NamedSharding``: a partition spec (an entry per dim:
+    None, a mesh axis, or a tuple of axes) on a mesh."""
+    mesh: object
+    spec: tuple
+
+
 def logical(x, *logical_axes: Optional[str]):
-    """The sharding constraint by logical axis names: ``x`` itself when
-    no mesh is active.  Constraining a model's tensors on a live mesh
-    is ROADMAP A.14b (the models' sharded forms) and raises."""
-    if current_mesh() is None:
-        return x
-    raise NotImplementedError(
-        "logical() on a live mesh is not ported yet (ROADMAP A.14b: "
-        "sharded models)")
+    """The sharding constraint by logical axis names.  Every rank holds
+    the tensor whole, so it is placement only: ``x`` itself, with or
+    without an active mesh."""
+    return x
 
 
-def named_sharding(mesh, *logical_axes: Optional[str]):
-    """A placement of a model tensor on a live mesh: ROADMAP A.14b (the
-    models' sharded forms); raises."""
-    raise NotImplementedError(
-        "named_sharding() is not ported yet (ROADMAP A.14b: sharded "
-        "models); spec_for gives the partition spec as a tuple")
+def named_sharding(mesh, *logical_axes: Optional[str]) -> Placement:
+    """The placement of a tensor with these logical axes on ``mesh`` (a
+    ``LiveMesh``, ``MeshSpec`` or ``DeviceMesh``): the partition spec
+    under the current rules, the mesh's missing axes dropped."""
+    names = set(mesh_axis_names(mesh))
+    return Placement(mesh, _keep(spec_for(*logical_axes), names))

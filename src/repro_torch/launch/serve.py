@@ -9,8 +9,18 @@ Compiles the model through ``repro_torch.compile(target="engine")`` on
 ``--device`` (the card by default; ``--device cpu`` runs it without
 one), builds the continuous-batching scheduler, drains a synthetic
 request queue and prints the scheduler's metrics summary (TTFT, tok/s,
-batch occupancy).  It takes the reference's flags; ``--mesh`` and
-``--sharding-rules`` are ROADMAP A.14b and raise.
+batch occupancy).  It takes the reference's flags.
+
+``--mesh data=2,model=2`` serves over a mesh of ranks, one process a
+device, started by ``torch.distributed.run``, whose environment sets up
+the (gloo) process group::
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch qwen2.5-14b --smoke \
+        --device cpu --mesh data=2,model=2
+
+Every rank serves the same queue; only rank 0 prints.  Without a process
+group a mesh of more than one device raises ``MeshUnavailableError``.
 """
 
 from __future__ import annotations
@@ -21,6 +31,42 @@ import sys
 import time
 
 import numpy as np
+
+
+def parse_sharding_rules(text):
+    """CLI spelling of ``CompileOptions.sharding_rules``: comma-separated
+    ``logical=axis`` pairs, ``+`` joining multiple mesh axes and an
+    empty right-hand side deleting the rule (forces replication) —
+    e.g. ``"batch=pod+data,kv_seq=model,seq="``."""
+    rules = []
+    for part in str(text).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"bad sharding rule {part!r}; expected logical=axis "
+                f"(e.g. 'kv_seq=model,batch=pod+data,seq=')")
+        name, axes = part.split("=", 1)
+        axes = tuple(a.strip() for a in axes.split("+") if a.strip())
+        rules.append((name.strip(), axes or None))
+    return tuple(rules)
+
+
+def _init_group(device: str) -> str:
+    """Join the gloo process group ``torch.distributed.run`` describes in
+    the environment (when it does; gloo, since ranks may share a card);
+    this rank's device."""
+    import os
+    import torch
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return device
+    dist.init_process_group("gloo", init_method="env://")
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+    return device
 
 
 def main(argv=None) -> int:
@@ -63,20 +109,23 @@ def main(argv=None) -> int:
     ap.add_argument("--no-buckets", dest="buckets", action="store_false",
                     help="fixed-shape serving (the default)")
     ap.add_argument("--mesh", default=None,
-                    help="mesh serving: not ported yet (ROADMAP A.14b)")
+                    help="serve over a device mesh, e.g. 'data=2,model=2': "
+                         "batch rows shard over data, the decode KV cache "
+                         "over model (the kv_seq rule); one process a "
+                         "device (torch.distributed.run); the mesh is a "
+                         "compile input (CompileOptions.mesh), so the "
+                         "scheduler inherits it from the executable")
     ap.add_argument("--sharding-rules", default=None,
-                    help="logical-axis rule overrides: not ported yet "
-                         "(ROADMAP A.14b)")
+                    help="logical-axis rule overrides, e.g. "
+                         "'kv_seq=model,batch=pod+data,seq=' (empty "
+                         "right-hand side forces replication)")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
     ap.add_argument("--json", action="store_true",
                     help="print the metrics summary as JSON")
     args = ap.parse_args(argv)
-    if args.mesh or args.sharding_rules:
-        raise NotImplementedError(
-            "--mesh/--sharding-rules: mesh serving is not ported yet "
-            "(ROADMAP A.14b: mesh serving)")
 
+    import torch.distributed as dist
     import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.serve import Request
@@ -88,10 +137,24 @@ def main(argv=None) -> int:
         policy = repro_torch.BucketPolicy.default(max_batch=args.slots,
                                                   max_len=args.max_len)
 
+    # The mesh rides the compile options (one mesh spelling everywhere:
+    # CLI -> MeshSpec -> CompileOptions -> SchedulerOptions default).
+    mesh = repro_torch.MeshSpec.parse(args.mesh) if args.mesh else None
+    rules = (parse_sharding_rules(args.sharding_rules)
+             if args.sharding_rules else None)
+    device = _init_group(args.device) if mesh else args.device
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    out = sys.stdout if rank == 0 else None
+
+    def say(*a, **kw):
+        if out is not None:
+            print(*a, **kw)
+
     t0 = time.perf_counter()
     exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
         target="engine", precision=args.precision,
-        calibrate=args.calibrate, device=args.device))
+        calibrate=args.calibrate, device=device, mesh=mesh,
+        sharding_rules=rules))
     sched = repro_torch.serve(exe, repro_torch.SchedulerOptions(
         slots=args.slots, max_len=args.max_len, admission=args.admission,
         fold=not args.no_fold, buckets=policy,
@@ -106,13 +169,19 @@ def main(argv=None) -> int:
                              slo_ms=args.slo_ms))
     t_build = time.perf_counter() - t0
     # progress goes to stderr so that --json leaves stdout parseable
-    print(f"[serve] scheduler up in {t_build:.2f}s on {exe.device} "
-          f"(norm folds: {sched.fold_report['folds']})",
-          file=sys.stderr if args.json else sys.stdout, flush=True)
+    say(f"[serve] scheduler up in {t_build:.2f}s on {exe.device} "
+        f"(norm folds: {sched.fold_report['folds']})",
+        file=sys.stderr if args.json else sys.stdout, flush=True)
 
     done = sched.run()
     summary = sched.summary()
     sched.shutdown()
+    if dist.is_initialized():
+        from repro_torch.dist.collectives import destroy_process_group
+        del sched
+        destroy_process_group()
+    if out is None:
+        return 0
     if args.json:
         print(json.dumps(summary, indent=2), flush=True)
     else:
@@ -134,6 +203,13 @@ def main(argv=None) -> int:
                   f"{rt['background_compiles']} background captures, "
                   f"{rt['compile_stalls']} stalls, "
                   f"pad waste {rt['pad_waste_frac']:.1%}", flush=True)
+        if "sharding" in summary:
+            sh = summary["sharding"]
+            per = {a: f"{v['count']}x/{v['bytes'] / 1e3:.1f}KB"
+                   for a, v in sh["collectives"]["per_axis"].items()}
+            print(f"[serve] mesh {sh['mesh']} ({sh['devices']} devices): "
+                  f"collectives {per or 'none'}, "
+                  f"faults {len(summary.get('faults', []))}", flush=True)
         for c in sorted(done, key=lambda c: c.uid)[:4]:
             print(f"  uid={c.uid} reason={c.finish_reason} "
                   f"tokens={c.tokens[:8]}...", flush=True)

@@ -13,8 +13,9 @@ The port of ``repro.models.api``.  ``get_model(cfg)`` returns a
 All six families are ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm`` (``ssm``, mamba2), ``hybrid`` (``rglru``,
 recurrentgemma) and ``audio`` (``whisper``, whose ``forward`` and
-``prefill`` take the ``frames`` input).  ``loss`` waits for training
-(A.15), ``param_axes`` and ``cache_axes`` for distribution (A.14b).
+``prefill`` take the ``frames`` input).  ``param_axes()`` and
+``cache_axes()`` give the reference's logical-axis trees; ``loss``
+waits for training (A.15).
 """
 
 from __future__ import annotations
@@ -54,9 +55,9 @@ class Model:
         return self.mod.init_params(self.cfg, C.Init.make(seed, device))
 
     def param_axes(self):
-        raise NotImplementedError(
-            "logical param axes serve sharding, which is not ported yet "
-            "(ROADMAP A.14b: sharded models)")
+        """The logical-axis tree of :meth:`init`'s params (same keys,
+        a tuple of logical axis names per leaf)."""
+        return self.mod.param_axes(self.cfg)
 
     def _extra(self, batch, device) -> Dict[str, Any]:
         """The family's non-token input: ``patches`` (vlm) or ``frames``
@@ -82,9 +83,8 @@ class Model:
         return self.mod.init_cache(self.cfg, batch, max_len, device)
 
     def cache_axes(self):
-        raise NotImplementedError(
-            "logical cache axes serve sharding, which is not ported yet "
-            "(ROADMAP A.14b: sharded models)")
+        """The logical axes of :meth:`init_cache`'s leaves."""
+        return self.mod.cache_axes(self.cfg)
 
     def prefill(self, params, batch: Dict[str, Any], cache):
         device = params["embed"].device

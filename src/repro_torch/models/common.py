@@ -13,10 +13,13 @@ Conventions (the reference's)
   params are kept in ``cfg.param_dtype``; every projection is
   ``x @ w.to(x.dtype)`` with an output in ``x``'s dtype; norms, rope,
   the softmax statistics and the logits run in f32, as the reference's.
-* the reference's logical-axis annotations and its ``shard_map``
-  branches (``tp_psum``) are sharding only: with no mesh it takes the
-  plain branch, which is what the port computes.  The sharded forms are
-  ROADMAP A.14b.
+* the reference's logical-axis annotations are placement only: every
+  rank holds each tensor whole.  Its ``shard_map`` branches are written
+  out: under ``tp_psum`` on a live mesh with a ``model`` axis
+  (``repro_torch.distributed.sharding.use_mesh``) the row- and
+  column-parallel projections contract this rank's part of the
+  ``mlp``/``heads`` dim and combine the parts over ``model``; with no
+  mesh they are the plain products.
 * a row's result must not depend on how many rows share the call: a
   serve decode step runs at its batch bucket's row count, and on the
   H100 the norms' f32 reductions and the f32 head product round some
@@ -152,7 +155,7 @@ _ROWS = threading.local()
 
 @contextlib.contextmanager
 def step_rows(rows: int):
-    """Within the block, :func:`rms_norm` and :func:`lm_logits` run on at
+    """Within the block, the norms and :func:`lm_logits` run on at
     least ``rows`` rows (the leading dims flattened): fewer are padded
     with zero rows, whose results are dropped.  Per thread, so a bucket
     captured in the background sets its own."""
@@ -189,6 +192,12 @@ def _rms_norm(x, gamma, eps):
 
 
 def layer_norm(x, gamma, beta, eps):
+    """LayerNorm in f32 accumulation (at :func:`step_rows`' row count,
+    like :func:`rms_norm`)."""
+    return _at_rows(_layer_norm, x, gamma, beta, eps)
+
+
+def _layer_norm(x, gamma, beta, eps):
     xf = x.float()
     mean = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
@@ -443,16 +452,55 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Projections (the reference's single-device branch)
+# Row- and column-parallel projections (TP collectives in the compute dtype)
 # ---------------------------------------------------------------------------
-def row_parallel_out(h, w):
-    """y = h @ w in h's dtype."""
-    return torch.matmul(h, w.to(h.dtype))
+def _model_split(tp_psum: bool, dims):
+    """(mesh, parts, this rank's part) of the ``model`` axis when
+    ``tp_psum`` is on, a live mesh is active, its ``model`` axis splits
+    and divides every one of ``dims``; else None (the plain product)."""
+    if not tp_psum:
+        return None
+    from ..distributed.sharding import current_mesh
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    k, i = mesh.split(("model",))
+    if k == 1 or any(d % k for d in dims):
+        return None
+    return mesh, k, i
 
 
-def col_parallel_in(x, weights):
-    """[x @ w for w in weights], each in x's dtype."""
-    return [torch.matmul(x, w.to(x.dtype)) for w in weights]
+def row_parallel_out(h, w, tp_psum: bool = False):
+    """y = h @ w in h's dtype, where h's last dim is the model-sharded
+    one (row-parallel).  Under ``tp_psum`` on a live mesh this rank
+    contracts its part of that dim (h whole, or already this rank's part
+    of it, as :func:`col_parallel_in` gives it) with its rows of ``w``,
+    and the partial products are summed over ``model`` in h's dtype (the
+    reference's ``shard_map`` with an explicit ``psum``)."""
+    split = _model_split(tp_psum, (w.shape[0],))
+    if split is None:
+        return torch.matmul(h, w.to(h.dtype))
+    from ..dist.collectives import all_reduce, local_part
+    mesh, k, i = split
+    if h.shape[-1] == w.shape[0]:
+        h = local_part(h, k, i, -1)
+    y = torch.matmul(h, local_part(w, k, i, 0).to(h.dtype))
+    return all_reduce(y, ("model",), mesh)
+
+
+def col_parallel_in(x, weights, tp_psum: bool = False):
+    """[x @ w for w in weights], each in x's dtype (column-parallel).
+    Under ``tp_psum`` on a live mesh each output is this rank's part of
+    its columns, as the reference's ``out_specs`` keep it, and only
+    :func:`row_parallel_out` reduces: a consumer that needs the outputs
+    whole calls it without ``tp_psum``."""
+    split = _model_split(tp_psum, [w.shape[-1] for w in weights])
+    if split is None:
+        return [torch.matmul(x, w.to(x.dtype)) for w in weights]
+    from ..dist.collectives import local_part
+    _, k, i = split
+    return [torch.matmul(x, local_part(w, k, i, -1).to(x.dtype))
+            for w in weights]
 
 
 # ---------------------------------------------------------------------------
@@ -482,11 +530,12 @@ def activation(name: str):
     raise NotImplementedError(name)
 
 
-def gated_mlp(x, wi_gate, wi_up, wo, act: str = "silu"):
+def gated_mlp(x, wi_gate, wi_up, wo, act: str = "silu",
+              tp_psum: bool = False):
     """x: (B,S,D); wi_*: (D,F); wo: (F,D)."""
-    h_gate, h_up = col_parallel_in(x, (wi_gate, wi_up))
+    h_gate, h_up = col_parallel_in(x, (wi_gate, wi_up), tp_psum)
     h = activation(act)(h_gate) * h_up
-    return row_parallel_out(h, wo)
+    return row_parallel_out(h, wo, tp_psum)
 
 
 def mlp_init(init: Init, lead, d_model, d_ff, dtype):
@@ -496,3 +545,18 @@ def mlp_init(init: Init, lead, d_model, d_ff, dtype):
         "wi_up": dense_init(init, (*lead, d_model, d_ff), d_model, dtype),
         "wo": dense_init(init, (*lead, d_ff, d_model), d_ff, dtype),
     }
+
+
+def mlp_axes():
+    """Logical axes of :func:`mlp_init`'s params (per layer)."""
+    return {
+        "wi_gate": ("fsdp", "mlp"),
+        "wi_up": ("fsdp", "mlp"),
+        "wo": ("mlp", "fsdp"),
+    }
+
+
+def stack_axes(tree):
+    """``tree`` of logical-axis tuples with ``"layers"`` in front of
+    each (the axes of an ``L``-stacked param tree)."""
+    return tree_map(lambda ax: ("layers",) + ax, tree)

@@ -38,6 +38,20 @@ def mla_init(init: C.Init, lead, cfg):
     }
 
 
+def mla_axes(cfg):
+    """Logical axes of :func:`mla_init`'s params (per layer)."""
+    return {
+        "q_down": ("fsdp", None),
+        "q_norm": (None,),
+        "q_up": (None, "heads"),
+        "kv_down": ("fsdp", None),
+        "kv_norm": (None,),
+        "k_up": (None, "heads"),
+        "v_up": (None, "heads"),
+        "wo": ("heads", "fsdp"),
+    }
+
+
 def _latent(p, cfg, x, positions):
     """Shared front: queries (nope+rope) and the compressed KV latent."""
     b, s, _ = x.shape
@@ -78,7 +92,7 @@ def mla_apply(p, cfg, x, positions, window):
         compute_dtype=cfg.attn_compute_dtype,
         causal_skip=cfg.causal_skip)
     out = out.reshape(b, s, h * dv)
-    y = C.row_parallel_out(out, p["wo"])
+    y = C.row_parallel_out(out, p["wo"], cfg.tp_psum)
     return y, (c_kv[:, :, None, :], k_rope)
 
 
@@ -114,5 +128,5 @@ def mla_decode(p, cfg, x, c_cache, r_cache, lengths, window):
     v_up = p["v_up"].float().reshape(kvr, h, dv)
     out = torch.einsum("bhr,rhd->bhd", out_lat.float(), v_up)
     out = out.reshape(b, 1, h * dv).to(x.dtype)
-    y = C.row_parallel_out(out, p["wo"])
+    y = C.row_parallel_out(out, p["wo"], cfg.tp_psum)
     return y, (c_cache, r_cache)

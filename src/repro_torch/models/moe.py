@@ -1,10 +1,25 @@
 """Mixture-of-Experts FFN with capacity-based dispatch.
 
-The port of ``repro.models.moe`` on one device: mixtral (8 experts
-top-2, softmax router) and deepseek-v3 (1 shared + routed top-k,
-sigmoid router).  The reference's expert-parallel ``shard_map`` form
-(``moe.py:186-214``) is ROADMAP A.14b; with no mesh the reference runs
-``_moe_local`` with ``axis=None``, which is what the port computes.
+The port of ``repro.models.moe``: mixtral (8 experts top-2, softmax
+router) and deepseek-v3 (1 shared + routed top-k, sigmoid router).
+
+On a live mesh with a ``model`` axis (``distributed.sharding.use_mesh``)
+it is the reference's expert-parallel ``shard_map``, written out: the
+activations are whole on every rank, each rank routes every token but
+runs only its own experts' FFNs, and a sum over ``model`` combines the
+outputs (the aux loss is averaged over ``model``).  Two modes, chosen
+from (E, model) as the reference's:
+
+* **EP** (E % model == 0): rank r holds experts
+  ``[r·E/model, (r+1)·E/model)``;
+* **TP** (model % E == 0): every rank holds every expert, a 1/model
+  part of each one's hidden width.
+
+The ``batch`` rows stay local to ``data``: each data rank routes its
+own rows (so capacity counts them alone, as the reference's shards do)
+and the outputs are gathered over ``data``.  Weights may arrive whole
+(each rank takes its part) or already cut to this rank's part
+(:func:`local_experts`), which is how a rank holds only its experts.
 
 Capacity-based token dropping (``cfg.moe_cf``) keeps every shape static;
 which tokens drop depends on the order slots are counted in, which is
@@ -18,7 +33,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import current_mesh, mesh_axis_names, \
+    mesh_axis_size
 from . import common as C
+
+#: The routed experts' weights: (expert dim, hidden-width dim), counted
+#: from the end so a stacked (L, ...) leaf cuts the same way.
+_EXPERT_DIMS = {"wi_gate": (-3, -1), "wi_up": (-3, -1), "wo": (-3, -2)}
 
 
 def moe_init(init: C.Init, lead, cfg):
@@ -36,6 +57,63 @@ def moe_init(init: C.Init, lead, cfg):
         fs = f * cfg.n_shared
         p["shared"] = C.mlp_init(init, lead, d, fs, dt)
     return p
+
+
+def moe_axes(cfg):
+    """Logical axes of :func:`moe_init`'s params (per layer).  EP mode
+    shards the expert dim; TP mode (when the active mesh's ``model``
+    axis does not divide the experts) the hidden width."""
+    ep = True
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh_axis_names(mesh):
+        ep = cfg.n_experts % mesh_axis_size(mesh, "model") == 0
+    if ep:
+        p = {"router": (None, None),
+             "wi_gate": ("experts", "fsdp", None),
+             "wi_up": ("experts", "fsdp", None),
+             "wo": ("experts", None, "fsdp")}
+    else:
+        p = {"router": (None, None),
+             "wi_gate": (None, "fsdp", "mlp"),
+             "wi_up": (None, "fsdp", "mlp"),
+             "wo": (None, "mlp", "fsdp")}
+    if cfg.n_shared:
+        p["shared"] = C.mlp_axes()
+    return p
+
+
+def _expert_split(cfg, mesh):
+    """(parts, this rank's part, EP mode) of the routed experts over the
+    ``model`` axis of ``mesh``; None when nothing splits them."""
+    if mesh is None:
+        return None
+    k, i = mesh.split(("model",))
+    if k == 1:
+        return None
+    ep = cfg.n_experts % k == 0
+    if not ep and k % cfg.n_experts != 0:
+        raise ValueError(f"n_experts={cfg.n_experts} incompatible with "
+                         f"model axis {k}")
+    return k, i, ep
+
+
+def local_experts(p, cfg, mesh=None):
+    """``p`` (a MoE layer's params, or a stack of them) with the routed
+    experts' weights cut to this rank's part on ``mesh`` (default: the
+    active one): its experts (EP) or its part of every expert's hidden
+    width (TP).  A weight already cut is kept; views, not copies."""
+    split = _expert_split(cfg, current_mesh() if mesh is None else mesh)
+    if split is None:
+        return p
+    from ..dist.collectives import local_part
+    k, i, ep = split
+    out = dict(p)
+    for name, (e_dim, f_dim) in _EXPERT_DIMS.items():
+        dim, whole = ((e_dim, cfg.n_experts) if ep
+                      else (f_dim, cfg.moe_d_ff))
+        if p[name].shape[dim] == whole:
+            out[name] = local_part(p[name], k, i, dim)
+    return out
 
 
 def _top_k(scores: torch.Tensor, k: int):
@@ -89,13 +167,10 @@ def _expert_ffn(cfg, buf, wi_gate, wi_up, wo):
 
 def _moe_local(cfg, x, router, wi_gate, wi_up, wo, *, e_offset=0,
                axis=None):
-    """The reference's per-shard MoE on one device: x (T, D), experts
-    ``[e_offset, e_offset + E_local)``.  ``axis`` must be None (the
-    psum over a mesh axis is ROADMAP A.14b)."""
-    if axis is not None:
-        raise NotImplementedError(
-            "the sharded MoE is not ported yet (ROADMAP A.14b: "
-            "sharded models)")
+    """The reference's per-shard MoE: x (T_local, D), this rank's
+    experts ``[e_offset, e_offset + E_local)``; the output summed and
+    the aux loss averaged over the mesh axis ``axis`` of the active
+    mesh (None on one device)."""
     t, d = x.shape
     e_local = wi_gate.shape[0]
     cap = max(1, int(t * cfg.top_k * cfg.moe_cf / cfg.n_experts))
@@ -127,18 +202,42 @@ def _moe_local(cfg, x, router, wi_gate, wi_up, wo, *, e_offset=0,
                                       device=x.device)])
     yk = gathered[slot] * (w.reshape(-1, 1) * mine[:, None]).to(x.dtype)
     y = torch.sum(yk.reshape(t, cfg.top_k, d), dim=1)
+    if axis is not None:
+        from ..dist.collectives import all_reduce
+        mesh = current_mesh()
+        y = all_reduce(y, (axis,), mesh)
+        aux = all_reduce(aux, (axis,), mesh) / mesh.split((axis,))[0]
     return y, aux
+
+
+_BATCH_AXES = ("pod", "data")
 
 
 def moe_apply(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B,S,D), aux-loss scalar)."""
     b, s, d = x.shape
-    y, aux = _moe_local(cfg, x.reshape(b * s, d), p["router"],
-                        p["wi_gate"], p["wi_up"], p["wo"])
+    flat = x.reshape(b * s, d)
+    mesh = current_mesh()
+    split = _expert_split(cfg, mesh)
+    if split is None:
+        y, aux = _moe_local(cfg, flat, p["router"], p["wi_gate"],
+                            p["wi_up"], p["wo"])
+    else:
+        from ..dist.collectives import all_gather, local_part
+        k, i, ep = split
+        lp = local_experts(p, cfg, mesh)
+        kd, idd = mesh.split(_BATCH_AXES)
+        rows = local_part(flat, kd, idd, 0) if kd > 1 else flat
+        y, aux = _moe_local(cfg, rows, p["router"], lp["wi_gate"],
+                            lp["wi_up"], lp["wo"],
+                            e_offset=i * (cfg.n_experts // k) if ep else 0,
+                            axis="model")
+        y = all_gather(y, _BATCH_AXES, mesh, dim=0)
     y = y.reshape(b, s, d)
     if cfg.n_shared:
         sp = p["shared"]
         h_g = torch.matmul(x, sp["wi_gate"].to(x.dtype))
         h_u = torch.matmul(x, sp["wi_up"].to(x.dtype))
-        y = y + C.row_parallel_out(C.silu(h_g) * h_u, sp["wo"])
+        y = y + C.row_parallel_out(C.silu(h_g) * h_u, sp["wo"],
+                                   cfg.tp_psum)
     return y, aux

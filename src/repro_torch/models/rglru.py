@@ -132,7 +132,8 @@ def rec_apply(p, cfg, x):
     # h_t = a_t h_{t-1} + bx_t  via the parallel prefix scan.
     _, h = associative_scan(_lru_combine, [a, bx], dim=1)
     y = h.to(x.dtype) * gate
-    return C.row_parallel_out(y, p["wo"]), (tail, h[:, -1])
+    return (C.row_parallel_out(y, p["wo"], cfg.tp_psum),
+            (tail, h[:, -1]))
 
 
 def rec_decode(p, cfg, x, conv_tail, h):
@@ -163,6 +164,20 @@ def _sub_init(init: C.Init, lead, cfg, kind):
             "ffn": C.mlp_init(init, lead, cfg.d_model, cfg.d_ff, dt)}
 
 
+def rec_axes(cfg):
+    """Logical axes of :func:`rec_init`'s params (per layer)."""
+    return {"wx": ("fsdp", "mlp"), "wy": ("fsdp", "mlp"),
+            "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "w_rg": ("fsdp", "mlp"), "w_in": ("fsdp", "mlp"),
+            "a_param": ("mlp",), "wo": ("mlp", "fsdp")}
+
+
+def _sub_axes(cfg, kind):
+    return {"ln1": (None,), "ln2": (None,),
+            "mixer": rec_axes(cfg) if kind == "rec" else T.attn_axes(cfg),
+            "ffn": C.mlp_axes()}
+
+
 def n_superblocks(cfg) -> Tuple[int, int]:
     nb = cfg.num_layers // 3
     return nb, cfg.num_layers - nb * 3
@@ -183,6 +198,18 @@ def init_params(cfg, init: C.Init) -> Dict[str, Any]:
     return p
 
 
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of :func:`init_params`' tree, leaf for leaf."""
+    nb, tail = n_superblocks(cfg)
+    block = {"rec0": _sub_axes(cfg, "rec"), "rec1": _sub_axes(cfg, "rec"),
+             "attn": _sub_axes(cfg, "attn")}
+    p = {"embed": ("vocab", "fsdp"), "blocks": C.stack_axes(block),
+         "ln_f": (None,)}
+    if tail:
+        p["tail"] = C.stack_axes(_sub_axes(cfg, "rec"))
+    return p
+
+
 def _mlp_block(p, cfg, x, h):
     """The residual ``x + h`` and the MLP sub-block after it.  The sum
     enters the norm unrounded (f32), as the reference's XLA program
@@ -191,7 +218,8 @@ def _mlp_block(p, cfg, x, h):
     x1 = x.float() + h.float()
     f = p["ffn"]
     y = C.gated_mlp(C.rms_norm(x1, p["ln2"], cfg.norm_eps).to(x.dtype),
-                    f["wi_gate"], f["wi_up"], f["wo"], act=cfg.mlp_act)
+                    f["wi_gate"], f["wi_up"], f["wo"], act=cfg.mlp_act,
+                    tp_psum=cfg.tp_psum)
     return x1.to(x.dtype) + y
 
 
@@ -270,6 +298,23 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
         cache["tail_conv"] = z((tail, batch, k - 1, dr), dtype)
         cache["tail_h"] = z((tail, batch, dr), f32)
     return cache
+
+
+def cache_axes(cfg):
+    """The logical axes of :func:`init_cache`'s leaves: the recurrent
+    leaves carry the batch on axis 2, after the block's two recs."""
+    nb, tail = n_superblocks(cfg)
+    axes = {
+        "rec_conv": ("layers", None, "batch", None, "mlp"),
+        "rec_h": ("layers", None, "batch", "mlp"),
+        "attn_k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "attn_v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+        "pos": ("batch",),
+    }
+    if tail:
+        axes["tail_conv"] = ("layers", "batch", None, "mlp")
+        axes["tail_h"] = ("layers", "batch", "mlp")
+    return axes
 
 
 def _check_batch(cache, b):

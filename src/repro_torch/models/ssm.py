@@ -55,6 +55,20 @@ def ssm_init(init: C.Init, lead, cfg):
     }
 
 
+def ssm_axes(cfg):
+    """Logical axes of :func:`ssm_init`'s params (per layer)."""
+    return {
+        "in_proj": ("fsdp", "mlp"),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "a_log": (None,),
+        "dt_bias": (None,),
+        "d_skip": (None,),
+        "norm": ("mlp",),
+        "out_proj": ("mlp", "fsdp"),
+    }
+
+
 def softplus(x):
     """``jax.nn.softplus``, which is ``logaddexp(x, 0)``:
     ``max(x, 0) + log1p(exp(-|x|))`` for every x (torch's softplus
@@ -224,6 +238,15 @@ def init_params(cfg, init: C.Init) -> Dict[str, Any]:
     }
 
 
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of :func:`init_params`' tree, leaf for leaf."""
+    return {
+        "embed": ("vocab", "fsdp"),
+        "layers": C.stack_axes({"ln": (None,), "mixer": ssm_axes(cfg)}),
+        "ln_f": (None,),
+    }
+
+
 def _head(cfg, params, x):
     x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return C.lm_logits(x, params["embed"].T)     # mamba ties embeddings
@@ -255,6 +278,13 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
                              device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def cache_axes(cfg):
+    """The logical axes of :func:`init_cache`'s leaves."""
+    return {"conv": ("layers", "batch", None, "mlp"),
+            "state": ("layers", "batch", None, "state", None),
+            "pos": ("batch",)}
 
 
 def _check_batch(cache, b):

@@ -84,9 +84,22 @@ def attn_init(init: C.Init, lead, cfg):
     return p
 
 
+def attn_axes(cfg):
+    """Logical axes of :func:`attn_init`'s params (per layer)."""
+    p = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+         "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+    if cfg.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    if cfg.qk_norm:
+        p.update({"q_norm": (None,), "k_norm": (None,)})
+    return p
+
+
 def _qkv(p, cfg, x, positions):
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # whole heads: the port's attention and its cache take every head,
+    # so only ``wo``'s row-parallel product splits them under tp_psum
     q, k, v = C.col_parallel_in(x, (p["wq"], p["wk"], p["wv"]))
     if cfg.qkv_bias:
         q, k, v = (q + p["bq"].to(x.dtype), k + p["bk"].to(x.dtype),
@@ -112,7 +125,7 @@ def _attend(p, cfg, q, k, v, window, q_offset=0):
         compute_dtype=cfg.attn_compute_dtype,
         causal_skip=cfg.causal_skip)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return C.row_parallel_out(out, p["wo"])
+    return C.row_parallel_out(out, p["wo"], cfg.tp_psum)
 
 
 def attn_apply(p, cfg, x, positions, window):
@@ -137,7 +150,8 @@ def attn_decode(p, cfg, x, k_cache, v_cache, pos, window):
         softcap=cfg.attn_softcap, scale=cfg.attn_scale,
         compute_dtype=cfg.attn_compute_dtype)
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return C.row_parallel_out(out, p["wo"]), (k_cache, v_cache)
+    return (C.row_parallel_out(out, p["wo"], cfg.tp_psum),
+            (k_cache, v_cache))
 
 
 # ---------------------------------------------------------------------------
@@ -154,11 +168,20 @@ def layer_init(init: C.Init, lead, cfg):
     }
 
 
+def layer_axes(cfg):
+    """Logical axes of :func:`layer_init`'s params (per layer)."""
+    return {
+        "ln1": (None,), "ln2": (None,),
+        "attn": mla_mod.mla_axes(cfg) if cfg.mla else attn_axes(cfg),
+        "ffn": moe_mod.moe_axes(cfg) if cfg.n_experts else C.mlp_axes(),
+    }
+
+
 def _ffn(p, cfg, x):
     if cfg.n_experts:
         return moe_mod.moe_apply(p, cfg, x)
     return (C.gated_mlp(x, p["wi_gate"], p["wi_up"], p["wo"],
-                        act=cfg.mlp_act),
+                        act=cfg.mlp_act, tp_psum=cfg.tp_psum),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -222,6 +245,24 @@ def init_params(cfg, init: C.Init) -> Dict[str, Any]:
     if cfg.num_image_tokens:
         p["img_proj"] = C.dense_init(init, (cfg.vit_dim, cfg.d_model),
                                      cfg.vit_dim, dt)
+    return p
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of :func:`init_params`' tree, leaf for leaf (the
+    reference's ``param_axes``)."""
+    p = {
+        "embed": ("vocab", "fsdp"),
+        "layers": C.stack_axes(layer_axes(cfg)),
+        "ln_f": (None,),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = ("fsdp", "vocab")
+    if cfg.mtp:
+        p["mtp"] = {"proj": ("fsdp", None), "block": layer_axes(cfg),
+                    "ln": (None,)}
+    if cfg.num_image_tokens:
+        p["img_proj"] = (None, "fsdp")
     return p
 
 
@@ -291,6 +332,16 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
         "c1": torch.zeros((L,) + shapes[0], dtype=dtype, device=device),
         "c2": torch.zeros((L,) + shapes[1], dtype=dtype, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def cache_axes(cfg):
+    """The logical axes of :func:`init_cache`'s leaves."""
+    kv = (None, None) if cfg.mla else ("kv_heads", "head_dim")
+    return {
+        "c1": ("layers", "batch", "kv_seq") + kv,
+        "c2": ("layers", "batch", "kv_seq") + kv,
+        "pos": ("batch",),
     }
 
 

@@ -50,6 +50,12 @@ def _mha_init(init: C.Init, lead, cfg):
             "bo": C.zeros_init(init, (*lead, d), dt)}
 
 
+def _mha_axes():
+    return {"wq": ("fsdp", "heads"), "bq": ("heads",),
+            "wk": ("fsdp", "heads"), "wv": ("fsdp", "heads"),
+            "bv": ("heads",), "wo": ("heads", "fsdp"), "bo": (None,)}
+
+
 def _proj_kv(p, cfg, src):
     b, s, _ = src.shape
     h, hd = cfg.n_heads, cfg.head_dim
@@ -67,7 +73,8 @@ def _proj_q(p, cfg, x):
 def _out(p, cfg, o):
     b, s = o.shape[:2]
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return C.row_parallel_out(o, p["wo"]) + p["bo"].to(o.dtype)
+    return (C.row_parallel_out(o, p["wo"], cfg.tp_psum)
+            + p["bo"].to(o.dtype))
 
 
 def _mlp_init(init: C.Init, lead, cfg):
@@ -81,7 +88,13 @@ def _mlp_init(init: C.Init, lead, cfg):
 def _mlp(p, cfg, x):
     h = C.gelu_tanh(torch.matmul(x, p["w1"].to(x.dtype))
                     + p["b1"].to(x.dtype))
-    return C.row_parallel_out(h, p["w2"]) + p["b2"].to(x.dtype)
+    return (C.row_parallel_out(h, p["w2"], cfg.tp_psum)
+            + p["b2"].to(x.dtype))
+
+
+def _mlp_axes():
+    return {"w1": ("fsdp", "mlp"), "b1": ("mlp",),
+            "w2": ("mlp", "fsdp"), "b2": (None,)}
 
 
 def _ln_init(init: C.Init, lead, cfg):
@@ -123,6 +136,16 @@ def init_params(cfg, init: C.Init) -> Dict[str, Any]:
                 "mlp": _mlp_init(init, dec, cfg)},
         "dec_ln": _ln_init(init, (), cfg),
     }
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of :func:`init_params`' tree, leaf for leaf."""
+    ln = {"g": (None,), "b": (None,)}
+    enc = {"ln1": ln, "attn": _mha_axes(), "ln2": ln, "mlp": _mlp_axes()}
+    dec = {"ln1": ln, "self": _mha_axes(), "ln2": ln, "cross": _mha_axes(),
+           "ln3": ln, "mlp": _mlp_axes()}
+    return {"embed": ("vocab", "fsdp"), "enc": C.stack_axes(enc),
+            "enc_ln": ln, "dec": C.stack_axes(dec), "dec_ln": ln}
 
 
 def _stack(params, name, n):
@@ -208,6 +231,13 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     return {"k": z(max_len), "v": z(max_len),
             "xk": z(cfg.n_frames), "xv": z(cfg.n_frames),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_axes(cfg):
+    """The logical axes of :func:`init_cache`'s leaves: the self and the
+    cross K/V alike, their sequence (frame) dim ``kv_seq``."""
+    kv = ("layers", "batch", "kv_seq", "heads", "head_dim")
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "pos": ("batch",)}
 
 
 def _fit(dst, t):

@@ -4,7 +4,7 @@ The port of ``repro.serve.options``: the same fields, validation and
 ``to_dict``.  The serving twin of ``CompileOptions``: a frozen,
 hashable dataclass holding every scheduling choice, so a serving
 configuration can be logged, compared and embedded in benchmark
-artifacts.  ``mesh`` must stay unset: mesh serving is ROADMAP A.14b.
+artifacts.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from ..dist.mesh import MeshSpec
 from ..runtime.buckets import BucketPolicy
 
 ADMISSION_POLICIES = ("fcfs", "shortest", "deadline")
@@ -60,8 +61,16 @@ class SchedulerOptions:
     min_prefix:   minimum shared-head length (tokens) worth caching;
                   the effective floor is ``max(min_prefix,
                   prefill_chunk)``.
-    mesh:         must be None: data×model-parallel serving is ROADMAP
-                  A.14b (mesh serving); anything else raises.
+    mesh:         a :class:`repro_torch.dist.MeshSpec` (or any spelling
+                  ``MeshSpec.coerce`` accepts, e.g. ``"data=2,model=2"``)
+                  for data×model-parallel serving: one process a device
+                  in a ``torch.distributed`` group of the mesh's size,
+                  every rank running the same scheduler on the same
+                  requests.  Params stay whole on every rank; each rank
+                  stores its part of the batched cache (slots over the
+                  ``batch`` rule's axes, the KV sequence over
+                  ``kv_seq``'s); tokens equal single-device serving's.
+                  ``None`` (default) = one device.
     """
 
     slots: int = 4
@@ -74,7 +83,7 @@ class SchedulerOptions:
     prefill_chunk: Optional[int] = None
     prefix_cache: int = 0
     min_prefix: int = 0
-    mesh: Optional[object] = None
+    mesh: Optional[MeshSpec] = None
 
     def __post_init__(self) -> None:
         if self.slots <= 0:
@@ -114,10 +123,8 @@ class SchedulerOptions:
         if self.min_prefix < 0:
             raise ValueError(f"min_prefix must be >= 0, "
                              f"got {self.min_prefix}")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP A.14b); "
-                "leave SchedulerOptions.mesh unset")
+        if self.mesh is not None and not isinstance(self.mesh, MeshSpec):
+            object.__setattr__(self, "mesh", MeshSpec.coerce(self.mesh))
 
     def replace(self, **kw) -> "SchedulerOptions":
         """Copy with the given fields replaced (re-validates)."""

@@ -38,8 +38,21 @@ Every tensor the scheduler makes or writes is made and written under
 cache made there cannot be written outside it.  The serving loop never
 synchronises the device, only its stream (a sampled token's ``.item()``
 and the token copy): a device-wide synchronise while a bucket is
-captured in the background fails that capture.  Mesh serving (the
-reference's ``mesh`` option) is ROADMAP A.14b.
+captured in the background fails that capture.
+
+Mesh serving (``SchedulerOptions.mesh``) runs one scheduler per rank of
+a ``torch.distributed`` group, every rank fed the same requests in the
+same order.  It is placement, never math, as in the reference: the
+params stay whole on every rank, prefill runs whole on every rank, and
+each rank stores its part of the batched cache (``serve/slots.py``) and
+decodes its own rows.  So that every rank makes the same scheduling
+decision, rank 0 picks each request to admit and the others follow it
+(their clocks and deadlines may differ); a slot's tokens are sampled
+by the ranks that store it and all-gathered over the ``batch`` axes
+after each step, so every rank's bookkeeping sees every slot.
+``summary()["sharding"]`` counts the collectives the decode steps
+issue, per mesh axis; ``summary()["faults"]`` records a
+``MeshUnavailableError`` raised when the visible devices shrink.
 """
 
 from __future__ import annotations
@@ -47,13 +60,17 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs.base import extra_input_specs
 from ..core.program import GraphPool
+from ..dist.collectives import LiveMesh, all_gather, broadcast
+from ..dist.mesh import (MeshUnavailableError, available_devices,
+                         ensure_mesh_available)
+from ..dist.propagate import merged_rules
 from ..inference.fold_norms import fold_norms
 from ..models import common as C
 from ..runtime.buckets import Bucket, BucketPolicy
@@ -61,7 +78,7 @@ from ..runtime.engine_cache import EngineCache
 from .metrics import RequestMetrics, SchedulerMetrics
 from .options import SchedulerOptions
 from .prefix import PrefixCache, common_prefix_len
-from .slots import SlotManager, SlotState
+from .slots import CachePlacement, SlotManager, SlotState
 from .step import DecodeStep
 
 
@@ -128,20 +145,58 @@ class TemperatureSampler:
     next step: a sampler that keeps it must copy it.
 
     Greedy is ``argmax``, which takes the first maximum, as
-    ``jnp.argmax`` does.  Temperature sampling draws from a CPU
-    ``torch.Generator`` seeded with ``seed``, so a seed gives the same
-    draws on either device; its bits are not ``jax.random``'s.
+    ``jnp.argmax`` does.  Temperature sampling draws each token from a
+    CPU ``torch.Generator`` seeded from ``(seed, uid, index)``, so a
+    request's draws depend on neither the device, the order the
+    scheduler samples its slots in, nor which rank of a mesh samples
+    them; its bits are not ``jax.random``'s.
     """
 
     def __init__(self, seed: int = 0) -> None:
-        self.generator = torch.Generator().manual_seed(int(seed))
+        self.seed = int(seed)
 
     def __call__(self, logits: torch.Tensor, temperature: float, *,
                  uid: int, index: int) -> int:
         if temperature <= 0.0:
             return int(torch.argmax(logits, dim=-1)[0])
+        mask = (1 << 64) - 1
+        key = np.random.SeedSequence(
+            [self.seed & mask, int(uid) & mask, int(index) & mask])
+        gen = torch.Generator().manual_seed(
+            int(key.generate_state(1, np.uint64)[0]))
         probs = torch.softmax(logits.float().cpu() / temperature, dim=-1)
-        return int(torch.multinomial(probs, 1, generator=self.generator)[0, 0])
+        return int(torch.multinomial(probs, 1, generator=gen)[0, 0])
+
+
+class CollectiveLog:
+    """Collectives a serving rank issued: count per op, and count, result
+    bytes and host ms per mesh axis (a collective over several axes
+    counts once on each and splits its bytes and ms evenly)."""
+
+    def __init__(self, axes: Sequence[str] = ()) -> None:
+        self.counts: Dict[str, int] = {}
+        self.per_axis = {a: {"count": 0, "bytes": 0.0, "ms": 0.0}
+                         for a in axes}
+
+    def record(self, op: str, axes: Sequence[str], nbytes: int,
+               ms: float) -> None:
+        self.counts[op] = self.counts.get(op, 0) + 1
+        for a in axes:
+            entry = self.per_axis[a]
+            entry["count"] += 1
+            entry["bytes"] += nbytes / len(axes)
+            entry["ms"] += ms / len(axes)
+
+    def summary(self) -> dict:
+        return {"counts": dict(self.counts),
+                "per_axis": {a: dict(v) for a, v in self.per_axis.items()},
+                "total_bytes": int(sum(v["bytes"]
+                                       for v in self.per_axis.values()))}
+
+
+def _device_count(devices) -> int:
+    """A ``device_source`` reading: a count, or a sequence of devices."""
+    return devices if isinstance(devices, int) else len(devices)
 
 
 class Scheduler:
@@ -152,6 +207,7 @@ class Scheduler:
                  sampler: Optional[Callable] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  engine_worker: str = "thread",
+                 device_source: Optional[Callable] = None,
                  precision_info: Optional[dict] = None) -> None:
         self.model = model
         self.cfg = model.cfg
@@ -170,8 +226,33 @@ class Scheduler:
         self.sampler = sampler or TemperatureSampler(options.seed)
         self.clock = clock
 
+        # data×model-parallel serving: bind the mesh (one process a
+        # device) before any step is built.  ``device_source`` is the
+        # fault-injection seam: it returns the visible devices (a count
+        # or a sequence), and a shrink raises a typed MeshUnavailableError
+        # in the step loop (recorded in ``summary()["faults"]``).
+        self.mesh: Optional[LiveMesh] = None
+        self._faults: List[dict] = []
+        self._device_source = device_source or available_devices
+        placement = None
+        self.collectives = CollectiveLog()
+        if options.mesh is not None:
+            ensure_mesh_available(options.mesh,
+                                  _device_count(self._device_source()))
+            if not options.mesh.is_single_device:
+                self.mesh = LiveMesh(options.mesh, self.device)
+                placement = CachePlacement(self.mesh,
+                                           self._rule_axes("batch"),
+                                           self._rule_axes("kv_seq"))
+                self.collectives = CollectiveLog(
+                    self.mesh.canonical(self.mesh.spec.names))
+                # small host-side exchanges ride the group's own device
+                self._wire = torch.device(
+                    "cpu" if self.mesh.backend == "gloo" else self.device)
+
         self.slot_manager = SlotManager(model, options.slots,
-                                        options.max_len, self.device)
+                                        options.max_len, self.device,
+                                        placement, self.collectives)
         self._lock = threading.Lock()
         self._queue: List[Request] = []
         self.done: List[Completion] = []
@@ -180,16 +261,20 @@ class Scheduler:
         self.request_metrics: Dict[int, RequestMetrics] = {}
         self.metrics = SchedulerMetrics()
         self.last_token = np.zeros((options.slots, 1), np.int32)
-        # The decode steps' static input: last_token is copied in before
-        # each step.
+        # The decode steps' static input: this rank's rows of last_token
+        # are copied in before each step.
         with torch.inference_mode():
-            self._tokens = torch.zeros((options.slots, 1), dtype=torch.int32,
-                                       device=self.device)
+            self._tokens = torch.zeros(
+                (self.slot_manager.local_slots, 1), dtype=torch.int32,
+                device=self.device)
         # One graph pool for every bucket's captured step, laid out by
         # the full-slots step, which is captured first.
         self._pool = GraphPool(self.device) \
             if self.device.type == "cuda" else None
         self._prefill = model.prefill
+        # every decode step built, one per distinct count of local rows
+        self._steps: List[DecodeStep] = []
+        self._steps_lock = threading.Lock()
 
         # shape-polymorphic serving (repro_torch.runtime): a warm step
         # per batch bucket, background captures.  None = fixed shape.
@@ -209,8 +294,85 @@ class Scheduler:
                         if self._decode_engine is None else None)
 
     def _build_step(self, batch: int) -> DecodeStep:
-        return DecodeStep(self.model, self.params, self.slot_manager,
+        """The step of bucket ``batch``.  On a mesh two buckets may give
+        this rank the same rows (all of its slots, or none): they share
+        one step, so the graph pool holds one capture of it."""
+        local = self.slot_manager.local_rows(batch)
+        with self._steps_lock:
+            for step in self._steps:
+                if step.local == local:
+                    return step
+        step = DecodeStep(self.model, self.params, self.slot_manager,
                           self._tokens, batch, self._pool)
+        with self._steps_lock:
+            self._steps.append(step)
+        return step
+
+    # -- mesh ----------------------------------------------------------
+    def _rule_axes(self, logical: str):
+        """Mesh axes the logical-axis rule maps to, filtered to axes
+        this mesh has (``batch`` → data axes, ``kv_seq`` → the model
+        axes of the flash-decoding KV layout)."""
+        names = set(self.mesh.spec.names)
+        return tuple(a for a in merged_rules().get(logical, ())
+                     if a in names)
+
+    def _check_mesh(self) -> None:
+        """Step-loop fault check: raise (and record) a typed
+        :class:`MeshUnavailableError` naming the unfillable axes when
+        the visible device set shrank below what the mesh needs."""
+        if self.options.mesh is None:
+            return
+        try:
+            ensure_mesh_available(self.options.mesh,
+                                  _device_count(self._device_source()))
+        except MeshUnavailableError as e:
+            self._faults.append({
+                "at": self.clock(), "mesh": e.spec.describe(),
+                "needed": e.needed, "available": e.available,
+                "missing_axes": list(e.missing_axes)})
+            raise
+
+    def _rows_split(self) -> bool:
+        """True when ranks store different slots (on a mesh whose
+        ``batch`` axes divide them): tokens are exchanged."""
+        return self.slot_manager.row_split[0] > 1
+
+    def _follow_rank0(self, uid: Optional[int]) -> Optional[int]:
+        """Rank 0's admission choice (a uid, or None), on every rank."""
+        t = torch.tensor([-1 if uid is None else uid], dtype=torch.int64,
+                         device=self._wire)
+        got = int(broadcast(t, self.mesh.spec.names, self.mesh, 0)[0])
+        return None if got < 0 else got
+
+    def _share_first_token(self, slot: int, tok: Optional[int]) -> int:
+        """The first token of ``slot``, sampled by the ranks that store
+        the slot, on every rank of their ``batch`` group."""
+        sm = self.slot_manager
+        t = torch.tensor([-1 if tok is None else tok], dtype=torch.int64,
+                         device=self._wire)
+        return int(broadcast(t, sm.placement.batch, self.mesh,
+                             slot // sm.local_slots)[0])
+
+    def _exchange(self, toks: Dict[int, int], active: List[int]
+                  ) -> Dict[int, int]:
+        """Every active slot's sampled token: this rank's ``toks`` and
+        the other ranks' own, all-gathered over the ``batch`` axes."""
+        sm = self.slot_manager
+        if not self._rows_split():
+            return toks
+        local = torch.full((sm.local_slots,), -1, dtype=torch.int32,
+                           device=self._wire)
+        for slot, tok in toks.items():
+            local[slot - sm.row0] = tok
+        axes = sm.placement.batch
+        t0 = time.perf_counter()
+        every = all_gather(local, axes, self.mesh, dim=0)
+        self.collectives.record("all-gather", self.mesh.canonical(axes),
+                                every.numel() * every.element_size(),
+                                (time.perf_counter() - t0) * 1e3)
+        every = every.tolist()
+        return {slot: every[slot] for slot in active}
 
     # -- bucketed engines ----------------------------------------------
     def _cache_spec(self, max_len: int) -> Dict[str, Any]:
@@ -244,9 +406,12 @@ class Scheduler:
         # the full-slots step covers every batch, so capturing it
         # synchronously here (load time, not latency) guarantees the
         # decode path never stalls, and it lays the graph pool out for
-        # the smaller buckets, which fill in behind it
+        # the smaller buckets, which fill in behind it.  Steps that
+        # gather the cache over a mesh capture nothing and are all built
+        # here: every rank must pick the same bucket, its gathers' size.
         self._decode_engine.warm_up([Bucket(opts.slots)], block=True)
-        self._decode_engine.warm_up(block=False)
+        self._decode_engine.warm_up(
+            block=bool(self.slot_manager.seq_axes))
 
         # chunked prefill supersedes padded whole-prompt prefill: every
         # prompt runs through the (single-bucket) chunk program instead
@@ -396,29 +561,45 @@ class Scheduler:
                 return True
         return False
 
+    def _choose(self) -> Optional[int]:
+        """The queue index the admission policy picks next (None: none)."""
+        if not self._queue:
+            return None
+        cand = range(len(self._queue))
+        if self._prefix_cache is not None and self._prefilling:
+            cand = [j for j in cand
+                    if not self._blocked(self._queue[j])]
+            if not cand:
+                return None    # every waiter gains by waiting
+        if self.options.admission == "shortest":
+            return min(cand, key=lambda j: (len(self._queue[j].prompt), j))
+        if self.options.admission == "deadline":
+            # earliest deadline first; no-SLO requests after every
+            # deadline, FCFS among themselves
+            def urgency(j):
+                d = self.request_metrics[self._queue[j].uid].deadline
+                return (0, d, j) if d is not None else (1, 0.0, j)
+            return min(cand, key=urgency)
+        return next(iter(cand))                     # fcfs
+
     def _pop_next(self) -> Optional[Request]:
+        """The next request to admit, out of the queue.  On a mesh rank
+        0's choice, on every rank."""
         with self._lock:
-            if not self._queue:
-                return None
-            cand = range(len(self._queue))
-            if self._prefix_cache is not None and self._prefilling:
-                cand = [j for j in cand
-                        if not self._blocked(self._queue[j])]
-                if not cand:
-                    return None    # every waiter gains by waiting
-            if self.options.admission == "shortest":
-                i = min(cand,
-                        key=lambda j: (len(self._queue[j].prompt), j))
-            elif self.options.admission == "deadline":
-                # earliest deadline first; no-SLO requests after every
-                # deadline, FCFS among themselves
-                def urgency(j):
-                    d = self.request_metrics[self._queue[j].uid].deadline
-                    return (0, d, j) if d is not None else (1, 0.0, j)
-                i = min(cand, key=urgency)
-            else:                                   # fcfs
-                i = next(iter(cand))
-            return self._queue.pop(i)
+            i = self._choose()
+            if self.mesh is None:
+                return None if i is None else self._queue.pop(i)
+            uid = None if i is None else self._queue[i].uid
+        uid = self._follow_rank0(uid)
+        if uid is None:
+            return None
+        with self._lock:
+            for i, req in enumerate(self._queue):
+                if req.uid == uid:
+                    return self._queue.pop(i)
+        raise RuntimeError(
+            f"rank 0 admitted uid={uid}, which this rank's queue does not "
+            f"hold: every rank of a mesh must submit the same requests")
 
     # -- admission -----------------------------------------------------
     def _prefill_batch(self, prompt: np.ndarray,
@@ -569,8 +750,16 @@ class Scheduler:
                   one_cache: Any) -> None:
         """Prefill is done: sample the first token from its (1, vocab)
         logits, splice the single-row cache into ``slot`` and record
-        first-token metrics (including the SLO verdict)."""
-        tok = self.sampler(logits, req.temperature, uid=req.uid, index=0)
+        first-token metrics (including the SLO verdict).  Where ranks
+        store different slots, the slot's ranks sample it and share it."""
+        if self._rows_split():
+            tok = (self.sampler(logits, req.temperature, uid=req.uid,
+                                index=0)
+                   if self.slot_manager.owns(slot) else None)
+            tok = self._share_first_token(slot, tok)
+        else:
+            tok = self.sampler(logits, req.temperature, uid=req.uid,
+                               index=0)
         # clamp so prompt + generated tokens can never outrun the
         # per-slot cache capacity
         plen = int(np.asarray(req.prompt).shape[-1])
@@ -606,11 +795,15 @@ class Scheduler:
         self._pending.append(c)
 
     # -- decode --------------------------------------------------------
-    def _run_step(self, step: DecodeStep) -> torch.Tensor:
-        """Copy the last tokens into the static token tensor, run one
-        step (a replay on the card); the (b, vocab) logits."""
-        self._tokens.copy_(torch.from_numpy(self.last_token))
-        return step()[:, 0]
+    def _run_step(self, step: DecodeStep) -> Optional[torch.Tensor]:
+        """Copy this rank's last tokens into the static token tensor, run
+        one step (a replay on the card); the (b, vocab) logits of this
+        rank's rows of the bucket (None when it stores none)."""
+        sm = self.slot_manager
+        self._tokens.copy_(torch.from_numpy(
+            self.last_token[sm.row0:sm.row0 + sm.local_slots]))
+        logits = step()
+        return None if logits is None else logits[:, 0]
 
     def _bucketed_decode(self, k: int) -> torch.Tensor:
         """One decode step at the best warm batch bucket for ``k``
@@ -632,6 +825,7 @@ class Scheduler:
             return self._step()
 
     def _step(self) -> int:
+        self._check_mesh()          # no-op unless mesh-parallel serving
         self._admit_free_slots()
         self._advance_prefills()    # no-op unless chunked prefill is on
         active = self.slot_manager.active_slots()
@@ -644,11 +838,21 @@ class Scheduler:
             logits = self._run_step(self._decode)
         self.metrics.decode_steps += 1
         self.metrics.decode_slot_steps += len(active)
+        sm = self.slot_manager
+        toks = {}
         for slot in active:
-            st = self.slot_manager.state(slot)
+            if not sm.owns(slot):
+                continue
+            st = sm.state(slot)
+            row = slot - sm.row0
+            toks[slot] = self.sampler(
+                logits[row:row + 1], st.temperature, uid=st.uid,
+                index=self.request_metrics[st.uid].new_tokens)
+        toks = self._exchange(toks, active)
+        for slot in active:
+            st = sm.state(slot)
             m = self.request_metrics[st.uid]
-            tok = self.sampler(logits[slot:slot + 1], st.temperature,
-                               uid=st.uid, index=m.new_tokens)
+            tok = toks[slot]
             self.generated[st.uid].append(tok)
             self.last_token[slot, 0] = tok
             m.new_tokens += 1
@@ -723,7 +927,32 @@ class Scheduler:
             }
         if self._prefix_cache is not None:
             out["prefix_cache"] = self._prefix_cache.stats()
+        if self.options.mesh is not None:
+            out["faults"] = [dict(f) for f in self._faults]
+            out["sharding"] = self._sharding_summary()
         return out
+
+    def decode_steps(self) -> List[DecodeStep]:
+        """The built decode steps (each warm bucket's, or the fixed one),
+        each once."""
+        with self._steps_lock:
+            return list(self._steps)
+
+    def _sharding_summary(self) -> dict:
+        """The mesh, its devices, the decode steps, and the collectives
+        the decode steps issued on this rank, per mesh axis: the KV
+        gathers over ``kv_seq``'s axes and the token exchange over
+        ``batch``'s (the reference's keys, counted where the reference
+        reads its compiled programs, plus each axis's host ``ms``).
+        ``captured``: every decode step with rows on this rank a CUDA
+        graph."""
+        spec = self.options.mesh
+        steps = self.decode_steps()
+        return {"mesh": spec.describe(), "devices": spec.size,
+                "decode_programs": len(steps),
+                "collectives": self.collectives.summary(),
+                "captured": all(s.captured for s in steps if s.local),
+                "local_slots": self.slot_manager.local_slots}
 
     # legacy Engine attribute surface, used by the deprecated shim
     @property

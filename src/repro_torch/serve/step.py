@@ -18,7 +18,16 @@ Every bucket's step runs its norms and its logits at the scheduler's
 full slot count (``models.common.step_rows``): at fewer rows the H100
 rounds their f32 sums differently, so without it a row's logits would
 depend on the bucket that computed them, and bucketed serving would not
-give the tokens fixed-shape serving gives.
+give the tokens fixed-shape serving gives.  On a mesh that is the
+*global* slot count, though a rank holds only its part of the rows.
+
+On a mesh the step runs over this rank's local rows.  Where the slots
+alone are split (``data``) it talks to no other rank and is captured as
+on one device.  Where the KV sequence is split (``model``) its compute
+view gathers the sequence whole every step and keeps this rank's part
+of the new K/V after it (:meth:`SlotManager.gathered`/``keep``); that
+talks over the process group, so the step runs eagerly (``captured``
+False).
 """
 
 from __future__ import annotations
@@ -35,7 +44,9 @@ from .slots import SlotManager
 
 class DecodeStep:
     """``model.decode_step`` over rows ``[0, batch)`` of ``slots``' cache
-    and of the static ``tokens``, captured on a CUDA device."""
+    and of the static ``tokens`` (on a mesh, the local rows this rank
+    stores of them: none is a step that does nothing), captured on a
+    CUDA device unless it gathers the cache over the mesh."""
 
     def __init__(self, model, params, slots: SlotManager,
                  tokens: torch.Tensor, batch: int,
@@ -43,12 +54,16 @@ class DecodeStep:
         if not 0 < batch <= slots.slots:
             raise ValueError(f"batch {batch} outside 1..{slots.slots}")
         self.model = model
+        self.manager = slots
         self.params = params
         self.batch = batch
+        #: The rows of the bucket this rank stores (all of them off a
+        #: mesh); the tokens tensor holds this rank's rows.
+        self.local = slots.local_rows(batch)
         self.slots = slots.slots
         self.device = tokens.device
-        self.rows = slots.rows(batch)
-        self.tokens = tokens[:batch]
+        self.rows = slots.rows(self.local)
+        self.tokens = tokens[:self.local]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None
         self.pool = pool
@@ -58,17 +73,16 @@ class DecodeStep:
         self.pool_bytes = 0
         #: Steps run through :meth:`__call__` (replays on a CUDA device).
         self.calls = 0
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or slots.seq_axes or not self.local:
             return
         if pool is None:
             raise ValueError("a decode step on a CUDA device captures into "
                              "a GraphPool")
 
         def warmup():
-            scratch = model.init_cache(slots.slots, slots.max_len,
-                                       self.device)
+            scratch = slots.scratch()
             with step_rows(self.slots):
-                model.decode_step(params, slots.rows(batch, scratch),
+                model.decode_step(params, slots.rows(self.local, scratch),
                                   torch.zeros_like(self.tokens))
 
         t0 = time.perf_counter()
@@ -76,14 +90,25 @@ class DecodeStep:
             self.eager, self.device, pool, warmup=warmup)
         self.capture_s = time.perf_counter() - t0
 
-    def eager(self) -> torch.Tensor:
-        """One step run op by op (what the graph recorded), its norms
-        and logits at the full slot count."""
-        with torch.inference_mode(), step_rows(self.slots):
-            return self.model.decode_step(self.params, self.rows,
-                                          self.tokens)[0]
+    @property
+    def captured(self) -> bool:
+        """True when each call is a replay of a CUDA graph."""
+        return self.graph is not None
 
-    def __call__(self) -> torch.Tensor:
+    def eager(self) -> Optional[torch.Tensor]:
+        """One step run op by op (what the graph recorded), its norms
+        and logits at the full slot count, over the compute view (None
+        when this rank stores none of the bucket's rows)."""
+        if not self.local:
+            return None
+        with torch.inference_mode(), step_rows(self.slots):
+            view = self.manager.gathered(self.rows)
+            logits = self.model.decode_step(self.params, view,
+                                            self.tokens)[0]
+            self.manager.keep(view, self.rows)
+            return logits
+
+    def __call__(self) -> Optional[torch.Tensor]:
         """One step: the graph's replay on a CUDA device (the static
         logits tensor, valid until the next replay of the pool), the
         eager step on the CPU."""

@@ -123,7 +123,8 @@ def run_group(rank: int, world: int, init_file: str, mesh: str,
         with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
             json.dump(results, f)
     finally:
-        dist.destroy_process_group()
+        from repro_torch.dist.collectives import destroy_process_group
+        destroy_process_group()
 
 
 def spawn_group(mesh: str, world: int, out_dir: str) -> None:

@@ -160,14 +160,25 @@ def test_cuda_device_without_cuda_raises():
 ])
 def test_unported_options_raise(field, value, item):
     """``mesh``/``sharding_rules`` are options since A.14a (graphs on the
-    jit and cuda targets); the engine target's sharded models still
-    raise, naming A.14b."""
+    jit and cuda targets); since A.14b an engine compile carries them too
+    (its calls run unsharded, its ``serve()`` takes the mesh), as the
+    reference's does."""
     from repro_torch.configs import get_config
+    from repro_torch.dist import MeshSpec
     opts = repro_torch.CompileOptions(**{field: value}, device="cpu")
     assert getattr(opts, field) is not None
-    with pytest.raises(NotImplementedError, match=item):
-        repro_torch.compile(get_config("qwen2.5-14b", smoke=True),
-                            opts.replace(target="engine"))
+    exe = repro_torch.compile(get_config("qwen2.5-14b", smoke=True),
+                              opts.replace(target="engine"))
+    assert exe.options == opts.replace(target="engine")
+    if field == "mesh":
+        assert exe.options.mesh == MeshSpec.parse(value)
+    else:
+        assert exe.options.sharding_rules == (("batch", "data"),)
+    toks = np.zeros((1, 4), np.int32)
+    plain = repro_torch.compile(get_config("qwen2.5-14b", smoke=True),
+                                target="engine", device="cpu")
+    assert torch.equal(exe(tokens=toks)["logits"],
+                       plain(tokens=toks)["logits"])
 
 
 def test_capture_option_is_accepted():

@@ -366,15 +366,17 @@ def test_unported_families_name_a12b(arch):
     ported: ``get_model``, ``param_count`` (the reference's) and an
     engine compile on the CPU each succeed, and the compile answers a
     call with the family's inputs (whisper's ``frames`` too).  They have
-    no chunked prefill, and sharding and training still name A.14 and
-    A.15."""
+    no chunked prefill; their logical axes (A.14b) cover every param and
+    cache leaf (``test_torch_model_axes.py`` holds them to the
+    reference's), and training still names A.15."""
     cfg = get_config(arch, smoke=True)
     m = get_model(cfg)
     assert m.cfg == cfg and not m.supports_chunked_prefill()
-    for fn, item in ((m.param_axes, "A.14"), (m.cache_axes, "A.14"),
-                     (lambda: m.loss({}, {}), "A.15")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    assert set(dict(PC.tree_flatten(m.param_axes()))) == set(
+        dict(PC.tree_flatten(m.init(0, "meta"))))
+    assert set(m.cache_axes()) == set(m.init_cache(1, 8, "meta"))
+    with pytest.raises(NotImplementedError, match="A.15"):
+        m.loss({}, {})
     assert cfg.param_count() == ref_config(arch, smoke=True).param_count()
     exe = _engine(cfg)
     assert exe.cost_summary()["params"] == cfg.param_count()
@@ -400,9 +402,10 @@ def test_later_items_raise_naming_them():
     with pytest.raises(NotImplementedError, match="A.15"):
         transformer.mtp_logits(cfg, params, extras["mtp_hidden"],
                                batch["tokens"])
-    for fn in (m.param_axes, m.cache_axes):
-        with pytest.raises(NotImplementedError, match="A.14"):
-            fn()
+    # A.14b is in: the logical axes of every param and cache leaf.
+    assert set(dict(PC.tree_flatten(m.param_axes()))) == set(
+        dict(PC.tree_flatten(params)))
+    assert m.cache_axes()["c1"] == ("layers", "batch", "kv_seq", None, None)
     # A.13 is in: serve() returns a scheduler, and the deprecated Engine
     # warns once and delegates to one.
     from repro_torch.serve import Request, Scheduler

@@ -270,19 +270,40 @@ def test_logical_axis_rules_match_reference():
         assert shd.spec_for(*axes) == tuple(ref_shd.spec_for(*axes))
     x = torch.ones(4, 4)
     assert shd.logical(x, "batch", "embed") is x
-    with shd.use_mesh(object(), {"mlp": None}):
+    mesh = MeshSpec.parse("data=2,model=2")
+    with shd.use_mesh(mesh, {"mlp": None}):
         assert shd.current_rules()["mlp"] is None
-        with pytest.raises(NotImplementedError, match="A.14b"):
-            shd.logical(x, "batch", "embed")
+        assert shd.current_mesh() is mesh
+        # placement only on a mesh (A.14b): every rank holds x whole
+        assert shd.logical(x, "batch", "embed") is x
+        assert shd.named_sharding(mesh, "batch", "mlp").spec == \
+            ("data", None)
     assert shd.current_rules() is shd.DEFAULT_RULES
+    assert shd.current_mesh() is None
 
 
 def test_engine_target_with_a_mesh_names_a14b():
+    """Since A.14b an engine compile takes a mesh: a 1-device mesh
+    serves with the sharding block and the unsharded tokens."""
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        repro_torch.compile(get_config("qwen2.5-14b", smoke=True),
-                            target="engine", device="cpu",
-                            mesh="data=1,model=1")
+    from repro_torch.serve import Request
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    outs = []
+    for mesh in (None, "data=1,model=1"):
+        exe = repro_torch.compile(cfg, target="engine", device="cpu",
+                                  mesh=mesh)
+        sched = exe.serve(slots=2, max_len=32)
+        assert sched.options.mesh == exe.options.mesh
+        for i in range(3):
+            sched.submit(Request(uid=i, prompt=np.arange(3 + i) + 1,
+                                 max_new_tokens=4))
+        outs.append({c.uid: c.tokens for c in sched.run()})
+        summ = sched.summary()
+    assert outs[0] == outs[1]
+    assert summ["faults"] == []
+    assert summ["sharding"]["mesh"] == "data=1,model=1"
+    assert summ["sharding"]["devices"] == 1
+    assert summ["sharding"]["collectives"]["per_axis"] == {}
 
 
 # ---------------------------------------------------------------------------
