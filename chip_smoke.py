@@ -90,6 +90,27 @@ JAX package.  Every phase prints one JSON line (also written to
                  expert-parallel forward on ``model=2`` (4 of 8 experts a
                  rank) within 1e-5 x max(1, max|logits|) of the unsharded
                  forward, peak GB a rank.
+   ``train``     the trainer (``repro_torch.training``, ``.checkpoint``,
+                 ``.data``, ``.launch.train``), in a child process
+                 (``python3 chip_smoke.py --train``): (t1) the ten SMOKE
+                 configs' loss, gradients and one train step on the card
+                 against the CPU from the same params and batch (f32: loss
+                 within 1e-5 x max(1, |loss|), every gradient leaf within
+                 1e-4 x max(1, max|g|), grad_norm within 1e-5 relative;
+                 bf16 loss within 0.05 x max(1, |loss|)); (t3a) the
+                 launcher at SMOKE size in processes under deterministic
+                 algorithms, 6 steps then resumed to 10, against 10
+                 uninterrupted: logged losses equal, step-9 checkpoints
+                 equal byte for byte; (t2) minicpm-2b at its published
+                 widths (40 layers, 2.72 B params, f32 masters, bf16
+                 activations, remat full, WSD), one 4 x 512 batch for 6
+                 steps, the state updated in place: losses finite and
+                 falling, step ms, tokens/s, model TFLOP/s, optimizer ms,
+                 launches, busy share and top device ops of one step,
+                 peak GB, and a ``cast_params`` step within 0.02 of the
+                 f32-compute loss; (t3b) that state saved asynchronously
+                 (the loop's blocked ms, the write's seconds) and restored
+                 bit-equal.  No kernel of ``csrc/`` is on this path.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
                  plan (paths, K splits, ragged and unaligned shapes);
@@ -3398,7 +3419,7 @@ def _row_probe(torch, cfg, params):
     largest M, bare and under ``step_rows`` (the decode step pads the
     norms and the head, and runs the products bare)."""
     from repro_torch.models import common as C
-    lp = C.layer_view(params["layers"], 0)
+    lp = C.layer_views(params["layers"], 1)[0]
     attn, ffn = lp["attn"], lp["ffn"]
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -4505,6 +4526,467 @@ def phase_mesh():
     return phase_child("--mesh", MESH_TIMEOUT_S, "mesh")
 
 
+# ---------------------------------------------------------------------------
+# The train phase (a child process: ``python3 chip_smoke.py --train``)
+# ---------------------------------------------------------------------------
+#: (t1): one train step of each SMOKE config, batch x tokens, on the card
+#: and on the CPU; the f32 limits: the loss x max(1, |loss|), every
+#: gradient leaf x max(1, max|g|), grad_norm relative; bf16's loss is
+#: held to QUANT_BUDGET x max(1, |loss|).
+TRAIN_SMOKE = (2, 16)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_NORM_TOL = 1e-5
+#: (t2): minicpm-2b at its published widths (src/repro/launch/train.py's
+#: default arch): batch x tokens x steps, one batch of SyntheticTokens
+#: (seed 0) repeated, under WSD with its warm-up over all the steps, at
+#: a peak LR of 1e-5 (checked: the last loss below the first), then from
+#: the same start at the launcher's 3e-3 (its losses reported); a
+#: cast_params step's loss against the f32-compute loss of the same
+#: state (tests/test_perf_flags.py:95's bound).
+TRAIN_FULL = (4, 512, 6)
+TRAIN_LR = 1e-5
+TRAIN_LAUNCHER_LR = 3e-3
+TRAIN_CAST_TOL = 0.02
+#: (t3): the launcher at SMOKE size, 10 steps sent SIGTERM in the middle
+#: of step 5's in-place update, then resumed to 10, against 10 steps
+#: uninterrupted, each run a process under deterministic algorithms.
+TRAIN_RESUME = ("--arch", "minicpm-2b", "--smoke", "--batch", "2",
+                "--seq", "16", "--ckpt-every", "3", "--log-every", "1",
+                "--steps", "10")
+TRAIN_PAUSE_AT = 5
+TRAIN_RUN_TIMEOUT_S = 60
+TRAIN_TIMEOUT_S = 180
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+#: The launcher under deterministic algorithms; its update at ``argv[1]``
+#: steps done (-1: none) is held after the first leaf is written
+#: (``torch.sqrt_`` runs once a leaf) until SIGTERM has arrived, with
+#: ``PAUSED`` printed first.
+RESUME_SCRIPT = """
+import os, select, signal, sys
+sys.path.insert(0, {src!r})
+import torch
+torch.use_deterministic_algorithms(True)
+import repro_torch.training.optim as optim
+from repro_torch.launch.train import main
+
+pause_at = int(sys.argv[1])
+woken, wake = os.pipe()
+os.set_blocking(wake, False)
+signal.set_wakeup_fd(wake)
+real_update, real_sqrt = optim.adamw_update, torch.sqrt_
+
+
+def update(cfg, params, grads, opt, inplace=False):
+    if int(opt["step"]) != pause_at:
+        return real_update(cfg, params, grads, opt, inplace)
+    calls = []
+
+    def sqrt_(t):
+        calls.append(1)
+        if len(calls) == 2:
+            print("PAUSED", flush=True)
+            select.select([woken], [], [], {timeout})
+        return real_sqrt(t)
+
+    torch.sqrt_ = sqrt_
+    try:
+        return real_update(cfg, params, grads, opt, inplace)
+    finally:
+        torch.sqrt_ = real_sqrt
+
+
+optim.adamw_update = update
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+def _loss_and_grads(torch, model, params, batch):
+    """(flatten paths, loss, the gradient of each param leaf)."""
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    paths, leaves = zip(*tree_flatten(params))
+    ins = [p.detach().requires_grad_() for p in leaves]
+    loss = model.loss(tree_unflatten(list(paths), ins), batch)
+    grads = torch.autograd.grad(loss, ins, allow_unused=True,
+                                materialize_grads=True)
+    return paths, loss.detach(), grads
+
+
+def phase_train_smoke(torch, np):
+    """(t1) Each SMOKE config's loss, gradients and one train step on the
+    card against the CPU, the same params (made on the CPU from a seed)
+    and batch: at f32, then at the configured bf16."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
+                                      make_jitted_train_step)
+    problems = []
+    b, s = TRAIN_SMOKE
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, eps=1e-6, total_steps=10,
+                                   warmup_steps=0))
+    for arch in ENGINE_ARCHS:
+        t0 = time.perf_counter()
+        base = get_config(arch, smoke=True)
+        params = get_model(base).init(0, "cpu")
+        batch = _smoke_batch(np, base, b, s)
+        batch["labels"] = np.random.default_rng(1).integers(
+            0, base.vocab, (b, s)).astype(np.int32)
+        row = {"phase": "train", "case": "smoke", "arch": arch}
+        for dtype in ("float32", base.dtype):
+            model = get_model(dataclasses.replace(base, dtype=dtype))
+            out = {}
+            for dev in ("cpu", DEVICE):
+                p = tree_map(lambda t: t.to(dev), params)
+                feed = {k: torch.as_tensor(v, device=dev)
+                        for k, v in batch.items()}
+                paths, loss, grads = _loss_and_grads(torch, model, p, feed)
+                state = {"params": p, "opt": adamw_init(p)}
+                # not donated: on the CPU p is the params themselves
+                _, met = make_jitted_train_step(model, tc, donate=False)(
+                    state, feed)
+                out[dev] = (float(loss), grads, float(met["loss"]),
+                            float(met["grad_norm"]))
+            (lw, gw, sw, nw), (lg, gg, sg, ng) = out["cpu"], out[DEVICE]
+            if dtype == "float32":
+                lim = TRAIN_LOSS_TOL * max(1.0, abs(lw))
+                worst, leaf = 0.0, None
+                for path, a, g in zip(paths, gg, gw):
+                    ratio = float((a.cpu() - g).abs().max()) / max(
+                        1.0, float(g.abs().max()))
+                    if ratio >= worst:
+                        worst, leaf = ratio, path
+                norm_err = abs(ng - nw) / nw
+                row.update(f32_loss=lw, f32_loss_err=abs(lg - lw),
+                           f32_loss_limit=lim,
+                           f32_step_loss_err=abs(sg - sw),
+                           f32_grad_err_ratio=worst, f32_grad_leaf=leaf,
+                           f32_grad_limit_ratio=TRAIN_GRAD_TOL,
+                           f32_grad_norm=nw, f32_grad_norm_rel_err=norm_err)
+                if (abs(lg - lw) > lim or abs(sg - sw) > lim
+                        or worst > TRAIN_GRAD_TOL
+                        or norm_err > TRAIN_NORM_TOL):
+                    problems.append(
+                        f"train {arch} f32: loss err {abs(lg - lw)} (limit "
+                        f"{lim}), step loss err {abs(sg - sw)}, gradient "
+                        f"err {worst} x max(1, max|g|) at {leaf}, "
+                        f"grad_norm rel err {norm_err}")
+            else:
+                lim = QUANT_BUDGET * max(1.0, abs(lw))
+                finite = all(bool(torch.isfinite(g).all()) for g in gg)
+                row.update(bf16_loss_err=abs(lg - lw), bf16_loss_limit=lim,
+                           bf16_grads_finite=finite)
+                if abs(lg - lw) > lim or not finite:
+                    problems.append(f"train {arch} {dtype}: loss err "
+                                    f"{abs(lg - lw)} (limit {lim}), grads "
+                                    f"finite {finite}")
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+    return problems
+
+
+def _resume_run(ck: str, pause_at: int = -1):
+    """The launcher in a process of its own, under deterministic
+    algorithms (cuBLAS's workspace set before CUDA starts), and a thread
+    that reads its lines and sends it SIGTERM once it has ``PAUSED``."""
+    import signal
+    import threading
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    script = RESUME_SCRIPT.format(src=os.path.join(ROOT, "src"),
+                                  timeout=TRAIN_RUN_TIMEOUT_S)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", script, str(pause_at), *TRAIN_RESUME,
+         "--ckpt", ck, "--device", DEVICE], cwd=ROOT,
+        stdout=subprocess.PIPE, text=True, env=env)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if lines[-1] == "PAUSED":
+                proc.send_signal(signal.SIGTERM)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, reader, lines
+
+
+def _finish(run):
+    """(exit code, {step: logged row}, lines) of a launcher run."""
+    proc, reader, lines = run
+    try:
+        proc.wait(timeout=TRAIN_RUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    reader.join()
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    return proc.returncode, {r["step"]: r for r in rows}, lines
+
+
+def start_train_resume():
+    """(t3a)'s first runs, in parallel: 10 steps preempted at step 5, and
+    10 uninterrupted."""
+    return time.perf_counter(), [
+        _resume_run(os.path.join(TRAIN_DIR, "cut"), TRAIN_PAUSE_AT),
+        _resume_run(os.path.join(TRAIN_DIR, "whole"))]
+
+
+def phase_train_resume(started):
+    """(t3a) The launcher on the card at SMOKE size, sent SIGTERM in the
+    middle of step 5's update: exit code 143 after saving step 5; then
+    resumed to 10, against 10 uninterrupted steps (``started`` by
+    :func:`start_train_resume`): every logged loss, lr and grad_norm
+    equal, and the step-9 checkpoints equal byte for byte."""
+    import filecmp
+    from repro_torch.checkpoint import Checkpointer
+    t0, runs = started
+    cut = os.path.join(TRAIN_DIR, "cut")
+    whole = os.path.join(TRAIN_DIR, "whole")
+    (rc_cut, first, cut_lines), (rc_whole, straight, _) = [
+        _finish(r) for r in runs]
+    cut_steps = Checkpointer(cut).all_steps()
+    rc_resumed, resumed, _ = _finish(_resume_run(cut))
+    logged = {**first, **resumed}
+    keys = ("loss", "lr", "grad_norm")
+    same = sorted(logged) == sorted(straight) == list(range(10)) and all(
+        {k: logged[i][k] for k in keys} == {k: straight[i][k] for k in keys}
+        for i in range(10))
+    step9 = [os.path.join(d, "step_000000009") for d in (cut, whole)]
+    names = sorted(os.listdir(step9[1])) if os.path.isdir(step9[1]) else []
+    match = filecmp.cmpfiles(*step9, names, shallow=False)[0] if names \
+        else []
+    ck_equal = bool(names) and match == names
+    preempted = "PAUSED" in cut_lines and sorted(first) == list(range(6)) \
+        and cut_steps == [3, 5]
+    row = {"phase": "train", "case": "resume",
+           "rcs": [rc_cut, rc_whole, rc_resumed],
+           "cut_steps": sorted(first), "cut_checkpoints": cut_steps,
+           "resumed_steps": sorted(resumed),
+           "losses_resumed": [resumed.get(i, {}).get("loss")
+                              for i in range(6, 10)],
+           "losses_uninterrupted": [straight.get(i, {}).get("loss")
+                                    for i in range(6, 10)],
+           "logs_equal": same, "checkpoint_files": len(names),
+           "checkpoint_bit_equal": ck_equal,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if [rc_cut, rc_whole, rc_resumed] != [143, 0, 0] or not preempted \
+            or not same or not ck_equal or sorted(resumed) != [6, 7, 8, 9]:
+        return [f"train resume: exit codes {row['rcs']} (want 143, 0, 0), "
+                f"cut at steps {row['cut_steps']} with checkpoints "
+                f"{cut_steps}, logs equal {same}, step-9 checkpoint "
+                f"bit-equal {ck_equal}, resumed steps "
+                f"{row['resumed_steps']}"]
+    return []
+
+
+def _host_ram_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def phase_train_full(torch, np):
+    """(t2) minicpm-2b at its published widths trained on the card, then
+    (t3b) its state saved asynchronously and restored bit-equal; then the
+    same start trained at the launcher's LR."""
+    import dataclasses
+    import shutil
+    import repro_torch.training.optim as optim_mod
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import (OptConfig, TrainConfig, init_state,
+                                      make_jitted_train_step)
+    problems = []
+    cfg = get_config("minicpm-2b")
+    model = get_model(cfg)
+    b, s, steps = TRAIN_FULL
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(model, 0, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    opt = OptConfig(lr=TRAIN_LR, total_steps=steps, warmup_steps=steps,
+                    schedule=cfg.lr_schedule)
+    step = make_jitted_train_step(model, TrainConfig(opt=opt), donate=True)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in SyntheticTokens(
+        DataConfig(vocab=cfg.vocab, global_batch=b, seq_len=s,
+                   seed=0)).batch(0).items()}
+
+    # The optimizer's device time in each step, between CUDA events.
+    events = []
+    real = optim_mod.adamw_update
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    optim_mod.adamw_update = timed
+    losses, norms, lrs, host_ms = [], [], [], []
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            lrs.append(float(met["lr"]))
+    finally:
+        optim_mod.adamw_update = real
+    peak = _peak_gb(torch)
+    step_ms = statistics.median(host_ms[1:])
+    opt_ms = statistics.median(a.elapsed_time(z) for a, z in events[1:])
+    tokens = b * s
+    model_flops = 6.0 * n_params * tokens
+    tflops = model_flops / (step_ms / 1e3) / 1e12
+    prof = device_profile(lambda: step(state, batch), iters=1)
+    dev_ms = sum(v[1] for v in prof.values())
+    top = sorted(prof.items(), key=lambda kv_: -kv_[1][1])[:10]
+    with torch.no_grad():
+        f32_loss = float(model.loss(state["params"], batch))
+    cast = make_jitted_train_step(
+        model, TrainConfig(opt=opt, cast_params=True), donate=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, met = cast(state, batch)
+    torch.cuda.synchronize()
+    cast_ms = (time.perf_counter() - t) * 1e3
+    cast_loss = float(met["loss"])
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms)) and \
+        np.isfinite(cast_loss)
+    row = {"phase": "train", "case": "minicpm-2b", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+           "state_gb": state_bytes / 1e9, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+           "schedule": cfg.lr_schedule, "batch": b, "tokens": s,
+           "init_s": init_s, "peak_lr": TRAIN_LR, "warmup_steps": steps,
+           "lrs": lrs, "losses": losses, "grad_norms": norms,
+           "host_ms": host_ms, "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflops": tflops,
+           "bf16_peak_share": tflops * 1e12 / BF16_FLOPS_PER_S,
+           "optimizer_ms": opt_ms, "device_ms": dev_ms,
+           "busy_share": dev_ms / step_ms,
+           "launches": sum(v[0] for v in prof.values()),
+           "peak_gb": peak,
+           "top_ops": [{"name": k[:100], "launches": n, "ms": ms}
+                       for k, (n, ms) in top],
+           "cast_params_ms": cast_ms, "cast_params_loss": cast_loss,
+           "f32_compute_loss": f32_loss,
+           "cast_params_loss_err": abs(cast_loss - f32_loss),
+           "cast_params_limit": TRAIN_CAST_TOL}
+    emit(row)
+    if not finite or not losses[-1] < losses[0]:
+        problems.append(f"train minicpm-2b: losses {losses}, grad norms "
+                        f"{norms}: not finite or not falling")
+    if not abs(cast_loss - f32_loss) < TRAIN_CAST_TOL:
+        problems.append(f"train minicpm-2b cast_params: loss {cast_loss} "
+                        f"against {f32_loss}")
+
+    # (t3b) the state saved asynchronously, then restored to the host.
+    root = os.path.join(TRAIN_DIR, "full")
+    os.makedirs(root, exist_ok=True)
+    disk, ram = shutil.disk_usage(root).free, _host_ram_available()
+    whole = disk >= 2 * state_bytes and ram >= 2 * state_bytes
+    tree = state if whole else state["params"]
+    tree_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    emit({"phase": "train", "case": "checkpoint_plan",
+          "free_disk_gb": disk / 1e9, "host_ram_available_gb": ram / 1e9,
+          "state_gb": state_bytes / 1e9,
+          "saved": "state" if whole else "params (disk or RAM under 2 x "
+                                         "the state)",
+          "gb": tree_bytes / 1e9})
+    ck = Checkpointer(root)
+    done = int(state["opt"]["step"]) - 1
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ck.save(done, tree)
+    blocked_ms = (time.perf_counter() - t) * 1e3
+    ck.wait()
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = ck.restore(done, tree, device="cpu")
+    restore_s = time.perf_counter() - t
+    equal = all(torch.equal(a, z.cpu()) for a, z in
+                zip(tree_leaves(out), tree_leaves(tree)))
+    del out
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train", "case": "checkpoint",
+          "gb": tree_bytes / 1e9, "leaves": len(tree_leaves(tree)),
+          "blocked_ms": blocked_ms, "write_s": write_s,
+          "restore_s": restore_s, "bit_equal": equal})
+    if not equal:
+        problems.append("train checkpoint: the restored state differs")
+    del state, tree
+
+    # The same start and warm-up at the launcher's LR.
+    state = init_state(model, 0, DEVICE)
+    step = make_jitted_train_step(model, TrainConfig(
+        opt=dataclasses.replace(opt, lr=TRAIN_LAUNCHER_LR)), donate=True)
+    high = []
+    for _ in range(steps):
+        state, met = step(state, batch)
+        high.append((float(met["loss"]), float(met["grad_norm"]),
+                     float(met["lr"])))
+    del state
+    emit({"phase": "train", "case": "minicpm-2b_launcher_lr",
+          "peak_lr": TRAIN_LAUNCHER_LR, "warmup_steps": steps,
+          "lrs": [x[2] for x in high], "losses": [x[0] for x in high],
+          "grad_norms": [x[1] for x in high]})
+    if not all(np.isfinite(x[:2]).all() for x in high):
+        problems.append(f"train minicpm-2b at LR {TRAIN_LAUNCHER_LR}: "
+                        f"losses and grad norms {high} not finite")
+    return problems
+
+
+def train_main() -> int:
+    """The train phase, alone in this process: minicpm-2b's training
+    state takes 43.6 GB of the card."""
+    import shutil
+    import torch
+    import numpy as np
+    if not torch.cuda.is_available():
+        print("chip_smoke --train: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on; the f32 comparisons need it off")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    t0 = time.perf_counter()
+    started = start_train_resume()        # small processes, beside (t1)
+    problems = phase_train_smoke(torch, np)
+    emit({"phase": "train", "case": "smoke_done",
+          "seconds": time.perf_counter() - t0})
+    problems += phase_train_resume(started)
+    problems += phase_train_full(torch, np)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if problems:
+        raise SystemExit("train phase failed: " + "; ".join(problems))
+    return 0
+
+
+def phase_train():
+    """The train phase in its child process."""
+    return phase_child("--train", TRAIN_TIMEOUT_S, "train")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4520,7 +5002,7 @@ def main() -> int:
     phase_card(torch)
     phase_build()
     engine_problems = (phase_engine() + phase_serve() + phase_shard()
-                       + phase_mesh())
+                       + phase_mesh() + phase_train())
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
     problems += engine_problems
@@ -4604,6 +5086,8 @@ if __name__ == "__main__":
                                  sys.argv[4], sys.argv[5]))
     if sys.argv[1:] == ["--mesh"]:
         sys.exit(mesh_main())
+    if sys.argv[1:] == ["--train"]:
+        sys.exit(train_main())
     if sys.argv[1:2] == ["--mesh-single"]:
         sys.exit(mesh_single_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:

@@ -1,0 +1,133 @@
+"""End-to-end training launcher — the port of ``repro.launch.train``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
+        --smoke --steps 200 --batch 8 --seq 128 --ckpt /tmp/ck
+
+Wires config → model → train step (microbatching, grad compression) →
+synthetic data → async checkpointer (resume from the latest step, a
+save on SIGTERM) → straggler watchdog → one JSON log line every
+``--log-every`` steps.  It takes the reference's flags, plus
+``--device`` (the card by default; ``--device cpu`` runs without one).
+
+The step updates the state in place, so SIGTERM only marks the run as
+preempted: the step under way finishes, the loop saves the whole state
+under that step (blocking) and exits with code 143.  A run resumed with
+the same ``--steps`` follows the schedule of one that never stopped.
+
+``--mesh host`` is the mesh of this process's devices: one device, the
+same as ``none``.  A train step over more devices is ROADMAP A.15b.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import time
+from typing import Optional
+
+
+def main(argv=None) -> int:
+    """CLI entry: run the training loop for ``--arch`` with optional
+    microbatching, grad compression and checkpointing."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minicpm-2b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--ckpt", default=None, help="checkpoint directory")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--deadline-s", type=float, default=300.0,
+                    help="straggler watchdog per-step deadline")
+    ap.add_argument("--mesh", default="host", choices=["host", "none"],
+                    help="'host': the mesh of this process's devices")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model trains: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.distributed import StragglerWatchdog
+    from repro_torch.launch.mesh import host_mesh_spec
+    from repro_torch.models import get_model
+    from repro_torch.training import (OptConfig, TrainConfig, init_state,
+                                      make_jitted_train_step)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = get_model(cfg)
+    tc = TrainConfig(
+        opt=OptConfig(lr=args.lr, total_steps=args.steps,
+                      warmup_steps=max(1, args.steps // 20),
+                      schedule=cfg.lr_schedule),
+        microbatches=args.microbatches,
+        compress_grads=args.compress_grads)
+
+    mesh = host_mesh_spec() if args.mesh == "host" else None
+    step_fn = make_jitted_train_step(model, tc, mesh=mesh, donate=True)
+    if mesh is not None:
+        print(f"[train] mesh host: {mesh.describe()}, {mesh.size} device, "
+              f"the same as --mesh none", flush=True)
+
+    data = SyntheticTokens(DataConfig(
+        vocab=cfg.vocab, global_batch=args.batch, seq_len=args.seq))
+
+    ck: Optional[Checkpointer] = Checkpointer(args.ckpt) if args.ckpt \
+        else None
+    start = 0
+    state = init_state(model, 0, args.device)
+    preempted = []        # SIGTERM's mark; the loop saves between steps
+    on_sigterm = signal.getsignal(signal.SIGTERM)
+    if ck is not None:
+        latest = ck.latest_step()
+        if latest is not None:
+            state = ck.restore(latest, state)
+            start = latest + 1
+            print(f"[train] resumed from step {latest}", flush=True)
+        signal.signal(signal.SIGTERM,
+                      lambda signum, frame: preempted.append(signum))
+
+    wd = StragglerWatchdog(
+        args.deadline_s,
+        on_timeout=lambda s, el: print(
+            f"[watchdog] step {s} exceeded {el:.1f}s", flush=True))
+
+    t_start = time.time()
+    try:
+        for i in range(start, args.steps):
+            batch = {k: torch.as_tensor(v, device=args.device)
+                     for k, v in data.batch(i).items()}
+            with wd.step(i):
+                state, metrics = step_fn(state, batch)
+            if i % args.log_every == 0 or i == args.steps - 1:
+                print(json.dumps({
+                    "step": i,
+                    "loss": round(float(metrics["loss"]), 4),
+                    "lr": float(metrics["lr"]),
+                    "grad_norm": round(float(metrics["grad_norm"]), 3),
+                    "elapsed_s": round(time.time() - t_start, 1),
+                }), flush=True)
+            periodic = i > 0 and i % args.ckpt_every == 0
+            if ck is not None and (preempted or periodic):
+                ck.save(i, state, blocking=bool(preempted))
+            if preempted:
+                print(f"[train] SIGTERM: saved step {i}, exiting",
+                      flush=True)
+                return 143
+        if ck is not None:
+            ck.save(args.steps - 1, state, blocking=True)
+    finally:
+        signal.signal(signal.SIGTERM, on_sigterm)
+    print("[train] done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

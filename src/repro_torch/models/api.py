@@ -9,13 +9,13 @@ The port of ``repro.models.api``.  ``get_model(cfg)`` returns a
     prefill(params, batch, cache)       -> (logits, cache)
     decode_step(params, cache, tokens)  -> (logits, cache)
     prefill_chunk(params, tokens, cache, start, length) -> (logits, cache)
+    loss(params, batch)                 -> scalar loss   [train]
 
 All six families are ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm`` (``ssm``, mamba2), ``hybrid`` (``rglru``,
 recurrentgemma) and ``audio`` (``whisper``, whose ``forward`` and
 ``prefill`` take the ``frames`` input).  ``param_axes()`` and
-``cache_axes()`` give the reference's logical-axis trees; ``loss``
-waits for training (A.15).
+``cache_axes()`` give the reference's logical-axis trees.
 """
 
 from __future__ import annotations
@@ -74,9 +74,24 @@ class Model:
                                 _as_tensor(batch["tokens"], device),
                                 **self._extra(batch, device))
 
-    def loss(self, params, batch):
-        raise NotImplementedError(
-            "the training loss is not ported yet (ROADMAP A.15: training)")
+    def loss(self, params, batch: Dict[str, Any]) -> torch.Tensor:
+        """Mean token cross-entropy of :meth:`forward`'s logits against
+        ``batch["labels"]``, plus the MoE's aux loss, plus 0.1 x the
+        multi-token-prediction head's cross-entropy against the labels
+        one step on where the config has one (the reference's
+        ``Model.loss``)."""
+        device = params["embed"].device
+        logits, extras = self.forward(params, batch)
+        labels = _as_tensor(batch["labels"], device)
+        loss = C.cross_entropy(logits, labels)
+        loss = loss + extras.get("aux_loss", 0.0)
+        if self.cfg.mtp and "mtp_hidden" in extras:
+            mtp = self.mod.mtp_logits(
+                self.cfg, params, extras["mtp_hidden"],
+                _as_tensor(batch["tokens"], device))
+            loss = loss + 0.1 * C.cross_entropy(
+                mtp, torch.roll(labels, -1, dims=1))
+        return loss
 
     # -- serving -------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda"):

@@ -7,8 +7,9 @@ Conventions (the reference's)
 -----------------------------
 * params are nested dicts of tensors; per-layer params are stacked on a
   leading ``L`` dim.  Where the reference scans a layer body with
-  ``lax.scan``, the port loops over layers in Python and takes a view
-  of each layer (:func:`layer_view`).
+  ``lax.scan``, the port loops over layers in Python over views of each
+  layer (:func:`layer_views`), the body under :func:`maybe_remat` where
+  the reference's scan has it.
 * the compute dtype is ``cfg.dtype`` (bf16 in every published config),
   params are kept in ``cfg.param_dtype``; every projection is
   ``x @ w.to(x.dtype)`` with an output in ``x``'s dtype; norms, rope,
@@ -103,9 +104,56 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def layer_view(stacked, i: int):
-    """Layer ``i`` of an ``L``-stacked param (or cache) tree, as views."""
-    return tree_map(lambda t: t[i], stacked)
+def layer_views(stacked, n: int) -> List[Any]:
+    """The ``n`` layers of an ``L``-stacked param (or cache) tree, in
+    order, each a tree of views.  A leaf that autograd records is split
+    by one ``torch.unbind``, whose backward stacks the layers' gradients
+    once; ``t[i]``'s backward would add a zero-filled ``(L, ...)``
+    gradient for every layer.  Any other leaf is indexed: a cache is
+    written in place, which unbind's views refuse under autograd."""
+    def split(t):
+        if isinstance(t, dict):
+            return {k: split(v) for k, v in t.items()}
+        if torch.is_grad_enabled() and t.requires_grad:
+            return torch.unbind(t, 0)
+        return [t[i] for i in range(n)]
+
+    def pick(parts, i):
+        if isinstance(parts, dict):
+            return {k: pick(v, i) for k, v in parts.items()}
+        return parts[i]
+
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(n)]
+
+
+def maybe_remat(cfg, fn):
+    """The activation-checkpoint policy of a layer body (training), the
+    reference's ``maybe_remat``: ``"full"`` recomputes the body in
+    backward, ``"dots"`` saves the outputs of its matrix products and
+    recomputes the rest, ``"none"`` (or anything else) saves all.  Only
+    while autograd records: serving and the captured decode steps run
+    ``fn`` itself."""
+    if cfg.remat not in ("full", "dots"):
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        from torch.utils.checkpoint import checkpoint
+        kw = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
+        # the layers draw no random numbers, so no RNG state is kept
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return run
+
+
+def _save_dots():
+    """Selective checkpointing that saves matrix products' outputs."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.bmm.default, aten.matmul.default])
 
 
 # ---------------------------------------------------------------------------

@@ -253,26 +253,29 @@ def _head(cfg, params, x):
 
 
 def _blocks(cfg, params):
-    nb, _ = n_superblocks(cfg)
-    for j in range(nb):
-        yield j, C.layer_view(params["blocks"], j)
+    return enumerate(C.layer_views(params["blocks"], n_superblocks(cfg)[0]))
 
 
 def _tail(cfg, params):
-    _, tail = n_superblocks(cfg)
-    for j in range(tail):
-        yield j, C.layer_view(params["tail"], j)
+    tail = n_superblocks(cfg)[1]
+    return enumerate(C.layer_views(params["tail"], tail) if tail else [])
 
 
 def forward(cfg, params, tokens, patches=None):
     x = _embed(cfg, params, tokens)
     positions = T._positions(tokens.shape[1], x.device)
-    for _, bp in _blocks(cfg, params):
+
+    def block(bp, x):
         x, _ = _rec_sub(bp["rec0"], cfg, x)
         x, _ = _rec_sub(bp["rec1"], cfg, x)
-        x, _ = _attn_sub(bp["attn"], cfg, x, positions)
+        return _attn_sub(bp["attn"], cfg, x, positions)[0]
+
+    block = C.maybe_remat(cfg, block)
+    tail = C.maybe_remat(cfg, lambda lp, x: _rec_sub(lp, cfg, x)[0])
+    for _, bp in _blocks(cfg, params):
+        x = block(bp, x)
     for _, lp in _tail(cfg, params):
-        x, _ = _rec_sub(lp, cfg, x)
+        x = tail(lp, x)
     return _head(cfg, params, x), {
         "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
 

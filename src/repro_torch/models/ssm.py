@@ -253,16 +253,20 @@ def _head(cfg, params, x):
 
 
 def _layers(cfg, params):
-    for i in range(cfg.num_layers):
-        yield i, C.layer_view(params["layers"], i)
+    return enumerate(C.layer_views(params["layers"], cfg.num_layers))
 
 
 def forward(cfg, params, tokens, patches=None):
     x = C.embed_tokens(params["embed"], tokens, cfg.dtype)
-    for _, lp in _layers(cfg, params):
+
+    def body(lp, x):
         h, _ = ssm_apply(lp["mixer"], cfg,
                          C.rms_norm(x, lp["ln"], cfg.norm_eps))
-        x = x + h
+        return x + h
+
+    body = C.maybe_remat(cfg, body)
+    for _, lp in _layers(cfg, params):
+        x = body(lp, x)
     return _head(cfg, params, x), {
         "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
 

@@ -7,7 +7,7 @@ the MoE and MLA modules, the MoE archs (mixtral, deepseek-v3).
 Per-layer params are stacked on a leading ``L`` dim, as the reference's.
 Where the reference scans one layer body with ``lax.scan``, the port
 loops over the layers in Python with a view of each layer's params and
-cache; the per-layer window (gemma3's 5:1 local:global, mixtral's SWA)
+cache (the training forward's body under ``common.maybe_remat``); the per-layer window (gemma3's 5:1 local:global, mixtral's SWA)
 is a host int from :func:`layer_windows`.
 
 KV caches are ring buffers: when every layer is sliding-window
@@ -215,10 +215,11 @@ def layer_decode(p, cfg, x, c1, c2, pos, window):
 
 
 def _layers(cfg, params):
-    """(layer i's param views, its window) for every layer, in order."""
+    """(i, layer i's param views, its window) for every layer, in order."""
     windows = layer_windows(cfg)
+    views = C.layer_views(params["layers"], cfg.num_layers)
     for i in range(cfg.num_layers):
-        yield i, C.layer_view(params["layers"], i), int(windows[i])
+        yield i, views[i], int(windows[i])
 
 
 # ---------------------------------------------------------------------------
@@ -300,9 +301,14 @@ def forward(cfg, params, tokens, patches=None):
     x = _embed_in(cfg, params, tokens, patches)
     positions = _positions(s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, lp, w in _layers(cfg, params):
+
+    def body(lp, w, x, aux):
         x, _, a = layer_apply(lp, cfg, x, positions, w)
-        aux = aux + a
+        return x, aux + a
+
+    body = C.maybe_remat(cfg, body)
+    for _, lp, w in _layers(cfg, params):
+        x, aux = body(lp, w, x, aux)
     logits = _head(cfg, params, x)
     extras = {"aux_loss": aux * cfg.moe_aux_alpha}
     if cfg.mtp:
@@ -311,9 +317,17 @@ def forward(cfg, params, tokens, patches=None):
 
 
 def mtp_logits(cfg, params, hidden, tokens):
-    raise NotImplementedError(
-        "the multi-token-prediction head's logits serve training, which is "
-        "not ported yet (ROADMAP A.15: training)")
+    """DeepSeek-V3 multi-token-prediction head (depth 1): combine the
+    final hidden at t with the embedding of token t+1 to predict t+2
+    through one extra block sharing the unembedding."""
+    p = params["mtp"]
+    emb_next = _embed_in(cfg, params, torch.roll(tokens, -1, dims=1))
+    h = torch.cat([C.rms_norm(hidden, p["ln"], cfg.norm_eps), emb_next],
+                  dim=-1)
+    h = torch.matmul(h, p["proj"].to(h.dtype))
+    h, _, _ = layer_apply(p["block"], cfg, h,
+                          _positions(tokens.shape[1], h.device), 0)
+    return _head(cfg, params, h)
 
 
 # ---------------------------------------------------------------------------

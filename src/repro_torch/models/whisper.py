@@ -149,8 +149,7 @@ def param_axes(cfg) -> Dict[str, Any]:
 
 
 def _stack(params, name, n):
-    for i in range(n):
-        yield i, C.layer_view(params[name], i)
+    return enumerate(C.layer_views(params[name], n))
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +161,8 @@ def encode(cfg, params, frames):
     s = frames.shape[1]
     pos = torch.arange(s, device=frames.device)
     x = frames.to(dtype) + _sinusoid(pos, cfg.d_model).to(dtype)
-    for _, lp in _stack(params, "enc", cfg.encoder_layers):
+
+    def body(lp, x):
         xn = _ln(lp["ln1"], cfg, x)
         q = _proj_q(lp["attn"], cfg, xn)
         k, v = _proj_kv(lp["attn"], cfg, xn)
@@ -170,7 +170,11 @@ def encode(cfg, params, frames):
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                 compute_dtype=cfg.attn_compute_dtype)
         x, xn = _residual_ln(lp["ln2"], cfg, x, _out(lp["attn"], cfg, o))
-        x = x + _mlp(lp["mlp"], cfg, xn)
+        return x + _mlp(lp["mlp"], cfg, xn)
+
+    body = C.maybe_remat(cfg, body)
+    for _, lp in _stack(params, "enc", cfg.encoder_layers):
+        x = body(lp, x)
     return _ln(params["enc_ln"], cfg, x)
 
 
@@ -214,8 +218,10 @@ def forward(cfg, params, tokens, frames=None):
     enc = encode(cfg, params, frames)
     s = tokens.shape[1]
     x = _embed(cfg, params, tokens, torch.arange(s, device=enc.device))
+    body = C.maybe_remat(cfg, lambda lp, x: _decoder_layer(
+        lp, cfg, x, enc, cfg.attn_compute_dtype)[0])
     for _, lp in _stack(params, "dec", cfg.num_layers):
-        x = _decoder_layer(lp, cfg, x, enc, cfg.attn_compute_dtype)[0]
+        x = body(lp, x)
     return _logits(cfg, params, x), {
         "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
 

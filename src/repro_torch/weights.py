@@ -9,7 +9,8 @@ numpy parameters.  It never imports the reference.  Weights keep the
 reference's storage layout here (HWIO convolutions; dense "io" or
 "oi"); the targets move them to the device and to OIHW when they
 compile.  :func:`params_from_reference` carries an LLM's param tree
-(``repro.models.get_model(cfg).init(key)``) to torch tensors.
+(``repro.models.get_model(cfg).init(key)``) or a train state to torch
+tensors, and :func:`state_to_numpy` either back to numpy.
 """
 
 from __future__ import annotations
@@ -52,12 +53,31 @@ def _leaf_to_torch(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def state_to_numpy(state):
+    """The inverse of :func:`params_from_reference`: the tree with numpy
+    leaves, bf16 as ``ml_dtypes.bfloat16`` as the reference holds it,
+    from any device."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    return _leaf_to_numpy(state)
+
+
 def params_from_reference(params):
     """The port's copy of a reference model's param tree: the same nested
     dict, keys, stacked ``(L, ...)`` shapes and dtypes, with torch
     tensors (on the CPU) for its numpy, ``ml_dtypes.bfloat16`` or array
     leaves.  ``repro_torch.compile(cfg, target="engine", params=...)``
-    moves them to its device."""
+    moves them to its device.  Any nested dict is carried the same way,
+    a reference train state ``{"params", "opt": {"m", "v", "step"}}``
+    too (``step`` a 0-d int32 tensor)."""
     if isinstance(params, dict):
         return {k: params_from_reference(v) for k, v in params.items()}
     return _leaf_to_torch(params)

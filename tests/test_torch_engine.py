@@ -13,7 +13,7 @@ JAX package's, on the CPU.
   published widths (meta device, nothing allocated);
 * the SSM, hybrid and audio families (ported after the others) build,
   count and compile (their parity is ``test_torch_families.py``); the
-  pieces that wait for A.14-A.15 raise, naming their item; ``serve()``
+  loss is in (A.15a) and a mesh train step raises naming A.15b; ``serve()``
   returns a scheduler and the deprecated ``Engine`` delegates to one
   (the scheduler's parity is ``test_torch_serve.py``).
 """
@@ -368,15 +368,21 @@ def test_unported_families_name_a12b(arch):
     call with the family's inputs (whisper's ``frames`` too).  They have
     no chunked prefill; their logical axes (A.14b) cover every param and
     cache leaf (``test_torch_model_axes.py`` holds them to the
-    reference's), and training still names A.15."""
+    reference's), and since A.15a their training loss is a finite
+    scalar (``test_torch_training_loss.py`` holds it to the
+    reference's)."""
     cfg = get_config(arch, smoke=True)
     m = get_model(cfg)
     assert m.cfg == cfg and not m.supports_chunked_prefill()
     assert set(dict(PC.tree_flatten(m.param_axes()))) == set(
         dict(PC.tree_flatten(m.init(0, "meta"))))
     assert set(m.cache_axes()) == set(m.init_cache(1, 8, "meta"))
-    with pytest.raises(NotImplementedError, match="A.15"):
-        m.loss({}, {})
+    loss_batch = {"tokens": _tokens(cfg), "labels": _tokens(cfg)}
+    if cfg.family == "audio":
+        loss_batch["frames"] = np.zeros((2, cfg.n_frames, cfg.d_model),
+                                        np.float32)
+    loss = m.loss(m.init(0, "cpu"), loss_batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
     assert cfg.param_count() == ref_config(arch, smoke=True).param_count()
     exe = _engine(cfg)
     assert exe.cost_summary()["params"] == cfg.param_count()
@@ -394,14 +400,19 @@ def test_later_items_raise_naming_them():
     cfg = get_config("deepseek-v3-671b", smoke=True)
     m = get_model(cfg)
     params = m.init(0, "cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="A.15"):
-        m.loss(params, batch)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.ones((1, 4), dtype=torch.int32)}
+    # A.15a is in: the loss with its multi-token-prediction term; a train
+    # step over a mesh of more than one device names A.15b.
+    assert bool(torch.isfinite(m.loss(params, batch)))
     _, extras = m.forward(params, batch)
     from repro_torch.models import transformer
-    with pytest.raises(NotImplementedError, match="A.15"):
-        transformer.mtp_logits(cfg, params, extras["mtp_hidden"],
-                               batch["tokens"])
+    mtp = transformer.mtp_logits(cfg, params, extras["mtp_hidden"],
+                                 batch["tokens"])
+    assert mtp.shape == (1, 4, cfg.vocab)
+    from repro_torch.training import TrainConfig, make_jitted_train_step
+    with pytest.raises(NotImplementedError, match="A.15b"):
+        make_jitted_train_step(m, TrainConfig(), mesh="data=2")
     # A.14b is in: the logical axes of every param and cache leaf.
     assert set(dict(PC.tree_flatten(m.param_axes()))) == set(
         dict(PC.tree_flatten(params)))
@@ -429,6 +440,10 @@ def test_new_modules_import_neither_jax_nor_repro():
         "repro_torch.inference, repro_torch.api.engine_adapter\n"
         "import repro_torch.models.ssm, repro_torch.models.rglru, "
         "repro_torch.models.whisper\n"
+        "import repro_torch.training, repro_torch.checkpoint, "
+        "repro_torch.data, repro_torch.launch.train\n"
+        "repro_torch.launch.train.main(['--smoke', '--steps', '1', "
+        "'--batch', '1', '--seq', '8', '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
