@@ -97,9 +97,9 @@ JAX package.  Every phase prints one JSON line (also written to
                  against the CPU from the same params and batch (f32: loss
                  within 1e-5 x max(1, |loss|), every gradient leaf within
                  1e-4 x max(1, max|g|), grad_norm within 1e-5 relative;
-                 bf16 loss within 0.05 x max(1, |loss|)); (t3a) the
-                 launcher at SMOKE size in processes under deterministic
-                 algorithms, 6 steps then resumed to 10, against 10
+                 bf16 loss within 0.05 x max(1, |loss|)); (t3a, beside
+                 (t3b)) the launcher at SMOKE size in processes under
+                 deterministic algorithms, 6 steps then resumed to 10, against 10
                  uninterrupted: logged losses equal, step-9 checkpoints
                  equal byte for byte; (t2) minicpm-2b at its published
                  widths (40 layers, 2.72 B params, f32 masters, bf16
@@ -111,6 +111,26 @@ JAX package.  Every phase prints one JSON line (also written to
                  f32-compute loss; (t3b) that state saved asynchronously
                  (the loop's blocked ms, the write's seconds) and restored
                  bit-equal.  No kernel of ``csrc/`` is on this path.
+   ``train_mesh`` the mesh train step, in a child process (``python3
+                 chip_smoke.py --train-mesh``) whose rank processes
+                 (``--train-mesh-rank``) share the card over gloo: (tm1)
+                 qwen2.5-14b and mixtral-8x22b SMOKE on
+                 ``data=2,model=2`` (four ranks), qwen2.5-14b with
+                 ``tp_psum`` on ``model=2`` and minicpm-2b with
+                 ``microbatches=2`` and mixtral-8x22b (its whole
+                 microbatch routed) on ``data=2`` (two), f32, three steps
+                 each against the one-device computation of the step on
+                 the card (the CPU limits), params and moments bit-equal
+                 across replicas; (tm3) mixtral-8x22b at its widths, 1
+                 layer, f32, expert-parallel on ``model=2``, each rank
+                 holding its 4 experts' state: the loss, every gradient
+                 leaf and one step's grad_norm and params against one
+                 device, state and peak GB a rank; (tm2) minicpm-2b at
+                 its widths, 12 of 40 layers, on ``data=2``: 3 steps of 4
+                 x 512 tokens, step 1's loss and grad_norm against one
+                 device, step ms, tokens/s, the gradient reduce's bytes
+                 and ms, peak GB a rank.  No kernel of ``csrc/`` is on
+                 this path.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
                  plan (paths, K splits, ragged and unaligned shapes);
@@ -209,10 +229,12 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -295,12 +317,14 @@ TIMED_RUNS = 25
 DEVICE = "cuda"
 
 _OUT = []
+_EMIT_LOCK = threading.Lock()
 
 
 def emit(obj) -> None:
     line = json.dumps(obj)
-    _OUT.append(line)
-    print(line, flush=True)
+    with _EMIT_LOCK:                  # a phase may emit from a thread
+        _OUT.append(line)
+        print(line, flush=True)
 
 
 def save_log() -> None:
@@ -2258,21 +2282,34 @@ def phase_frontends(torch, np, exes, inputs, dec_exes, cuda_feeds):
     return [f"frontends phase failed: {failures}"] if failures else []
 
 
-def replay_cli(bundle, *extra):
-    """``python -m repro_torch.replay <bundle> --json`` in a fresh
-    process: (exit code, its JSON result or None, seconds, stderr)."""
+def replay_clis(bundles, *extra):
+    """``python -m repro_torch.replay <bundle> --json`` of each bundle in
+    a fresh process, the processes all started together (a replay resolves every decision from the bundle's tactic
+    entries, ``autotune="cached"``, so it times nothing that another
+    process on the card could sway): (exit code, its JSON result or None,
+    seconds since the start, stderr) for each, in order."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.replay", bundle, "--json",
-         *extra], capture_output=True, text=True, env=env,
-        timeout=REPLAY_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    try:
-        result = json.loads(proc.stdout)
-    except ValueError:
-        result = None
-    return proc.returncode, result, seconds, proc.stderr[-2000:]
+         *extra], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env) for bundle in bundles]
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, REPLAY_TIMEOUT_S - (time.perf_counter()
+                                                     - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        try:
+            result = json.loads(stdout)
+        except ValueError:
+            result = None
+        out.append((proc.returncode, result, seconds, stderr[-2000:]))
+    return out
 
 
 def phase_replay(torch, np):
@@ -2282,9 +2319,11 @@ def phase_replay(torch, np):
     ``python -m repro_torch.replay --json`` in a fresh process, which
     must exit 0 with no divergence (outputs bit-exact, selections with
     their tactics equal); a copy with one byte of an ``io.npz`` flipped
-    must exit 2.  A decode_attention bundle is left out: its seeded
-    inputs cast a standard normal to int32 for ``lengths``, as the
-    reference's do, so it would replay lengths of 0 and below."""
+    must exit 2.  The three replay processes run together, after the
+    captures (:func:`replay_clis`).  A decode_attention bundle is left
+    out: its seeded inputs cast a standard normal to int32 for
+    ``lengths``, as the reference's do, so it would replay lengths of 0
+    and below."""
     import shutil
     import repro_torch
     from repro_torch.table1_models import SUITE
@@ -2295,7 +2334,7 @@ def phase_replay(torch, np):
     for d in (root, work):
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
-    failures, bundles = [], []
+    failures, bundles, rows = [], [], []
     try:
         for name, prec in REPLAY_BUNDLES:
             bundle = os.path.join(root, f"{name}-{prec}")
@@ -2310,28 +2349,16 @@ def phase_replay(torch, np):
             compile_s = time.perf_counter() - t0
             files = [os.path.join(r, n) for r, _, ns in os.walk(bundle)
                      for n in ns]
-            rc, result, replay_s, err = replay_cli(bundle)
-            ok = (rc == 0 and result is not None
-                  and result["divergences"] == []
-                  and result["device"] == DEVICE
-                  and result["fingerprint_match"]
-                  and sorted(result["batches"]) == sorted(BATCHES))
-            if not ok:
-                failures.append([name, prec, rc, result, err])
             measured = [n for b in BATCHES for n in
                         exe.cost_summary()["autotune"][b]["measured_nodes"]]
             bundles.append(bundle)
-            emit_row = {
+            rows.append({
                 "bundle": os.path.relpath(bundle, ROOT), "model": name,
                 "precision": prec, "files": len(files),
                 "bytes": sum(os.path.getsize(f) for f in files),
                 "compile_s": compile_s,
                 "record_s_by_batch": exe._capture.seconds,
-                "measured_nodes": measured, "replay_exit": rc,
-                "replay_s": replay_s,
-                "divergences": result and result["divergences"],
-                "ok": ok}
-            emit({"phase": "replay", **emit_row})
+                "measured_nodes": measured})
         # One byte of the first bundle's io.npz flipped, in a copy: the
         # manifest's hash refuses it (exit 2) before anything runs.
         tampered = os.path.join(work, "tampered")
@@ -2343,7 +2370,21 @@ def phase_replay(torch, np):
             byte = f.read(1)
             f.seek(-1, os.SEEK_CUR)
             f.write(bytes([byte[0] ^ 0xFF]))
-        rc, result, replay_s, err = replay_cli(tampered)
+        *replays, (rc, result, replay_s, err) = replay_clis(
+            bundles + [tampered])
+        for row, (name, prec), (rc_b, res_b, s_b, err_b) in zip(
+                rows, REPLAY_BUNDLES, replays):
+            ok = (rc_b == 0 and res_b is not None
+                  and res_b["divergences"] == []
+                  and res_b["device"] == DEVICE
+                  and res_b["fingerprint_match"]
+                  and sorted(res_b["batches"]) == sorted(BATCHES))
+            if not ok:
+                failures.append([name, prec, rc_b, res_b, err_b])
+            emit({"phase": "replay", **row, "replay_exit": rc_b,
+                  "replay_s": s_b,
+                  "divergences": res_b and res_b["divergences"],
+                  "ok": ok})
         tamper_ok = rc == 2 and "tampered" in err
         if not tamper_ok:
             failures.append(["tampered", rc, err])
@@ -4726,11 +4767,27 @@ def _finish(run):
 
 
 def start_train_resume():
-    """(t3a)'s first runs, in parallel: 10 steps preempted at step 5, and
-    10 uninterrupted."""
-    return time.perf_counter(), [
-        _resume_run(os.path.join(TRAIN_DIR, "cut"), TRAIN_PAUSE_AT),
-        _resume_run(os.path.join(TRAIN_DIR, "whole"))]
+    """(t3a) on a thread of its own: its first runs in parallel (10 steps
+    preempted at step 5, and 10 uninterrupted), then the resumed run.
+    Returns a function that waits for it and returns its problems."""
+    import threading
+    out = []
+
+    def run():
+        try:
+            out.extend(phase_train_resume((time.perf_counter(), [
+                _resume_run(os.path.join(TRAIN_DIR, "cut"), TRAIN_PAUSE_AT),
+                _resume_run(os.path.join(TRAIN_DIR, "whole"))])))
+        except Exception as e:                  # reported, never lost
+            out.append(f"train resume: {e!r}")
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        thread.join()
+        return out
+    return wait
 
 
 def phase_train_resume(started):
@@ -4793,7 +4850,8 @@ def _host_ram_available() -> int:
 def phase_train_full(torch, np):
     """(t2) minicpm-2b at its published widths trained on the card, then
     (t3b) its state saved asynchronously and restored bit-equal; then the
-    same start trained at the launcher's LR."""
+    same start trained at the launcher's LR.  (t3a) runs beside (t3b) and
+    the launcher-LR run."""
     import dataclasses
     import shutil
     import repro_torch.training.optim as optim_mod
@@ -4900,6 +4958,11 @@ def phase_train_full(torch, np):
         problems.append(f"train minicpm-2b cast_params: loss {cast_loss} "
                         f"against {f32_loss}")
 
+    # (t3a) starts here: its small processes run beside (t3b), whose
+    # copy and write times are taken beside them, and the launcher-LR
+    # run, which times nothing.
+    resume = start_train_resume()
+
     # (t3b) the state saved asynchronously, then restored to the host.
     root = os.path.join(TRAIN_DIR, "full")
     os.makedirs(root, exist_ok=True)
@@ -4912,7 +4975,7 @@ def phase_train_full(torch, np):
           "state_gb": state_bytes / 1e9,
           "saved": "state" if whole else "params (disk or RAM under 2 x "
                                          "the state)",
-          "gb": tree_bytes / 1e9})
+          "gb": tree_bytes / 1e9, "beside": "t3a"})
     ck = Checkpointer(root)
     done = int(state["opt"]["step"]) - 1
     torch.cuda.synchronize()
@@ -4953,7 +5016,7 @@ def phase_train_full(torch, np):
     if not all(np.isfinite(x[:2]).all() for x in high):
         problems.append(f"train minicpm-2b at LR {TRAIN_LAUNCHER_LR}: "
                         f"losses and grad norms {high} not finite")
-    return problems
+    return problems + resume()
 
 
 def train_main() -> int:
@@ -4970,12 +5033,10 @@ def train_main() -> int:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     os.makedirs(TRAIN_DIR)
     t0 = time.perf_counter()
-    started = start_train_resume()        # small processes, beside (t1)
     problems = phase_train_smoke(torch, np)
     emit({"phase": "train", "case": "smoke_done",
           "seconds": time.perf_counter() - t0})
-    problems += phase_train_resume(started)
-    problems += phase_train_full(torch, np)
+    problems += phase_train_full(torch, np)      # (t3a) runs inside it
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     if problems:
         raise SystemExit("train phase failed: " + "; ".join(problems))
@@ -4985,6 +5046,540 @@ def train_main() -> int:
 def phase_train():
     """The train phase in its child process."""
     return phase_child("--train", TRAIN_TIMEOUT_S, "train")
+
+
+# ---------------------------------------------------------------------------
+# The train_mesh phase (a child process: ``python3 chip_smoke.py
+# --train-mesh``)
+# ---------------------------------------------------------------------------
+#: (tm1): the SMOKE configs at f32, three mesh train steps against the
+#: one-device computation of each step on the card (the CPU tests'
+#: limits): {ranks: [(case, mesh, arch, config overrides, TrainConfig
+#: overrides)]}, global batch x tokens.
+TM1 = {4: [("tm1", "data=2,model=2", "qwen2.5-14b", {}, {}),
+           ("tm1", "data=2,model=2", "mixtral-8x22b", {}, {})],
+       2: [("tm1", "model=2", "qwen2.5-14b", {"tp_psum": True}, {}),
+           ("tm1", "data=2", "minicpm-2b", {}, {"microbatches": 2}),
+           ("tm1", "data=2", "mixtral-8x22b", {}, {})]}
+TM1_BATCH = (4, 16)
+TM_STEPS = 3
+#: (tm2): minicpm-2b at its published widths on data=2, depth cut from
+#: 40 layers to TM2[3] (each of the two ranks holds its whole state on
+#: the one card): global batch x tokens x steps x layers, WSD warm-up
+#: over the steps to TRAIN_LR; step 1's loss and grad_norm against the
+#: one-device step on the same batch and params.
+TM2 = (4, 512, 3, 12)
+TM2_LOSS_TOL = 1e-4
+TM2_NORM_TOL = 1e-2
+#: (tm3): mixtral-8x22b at its widths on model=2, expert-parallel, f32,
+#: depth cut to 1 layer, each rank holding only its 4 experts' state:
+#: batch x tokens, LR; the loss, every gradient leaf and one step's
+#: grad_norm and params against one device (params within 1e-4 x
+#: max(1, max|p|)).
+TM3 = (4, 128, 1)
+TM3_LR = 1e-5
+TM3_PARAM_TOL = 1e-4
+TM_RANK_TIMEOUT_S = {4: 90, 2: 180}
+TRAIN_MESH_TIMEOUT_S = 300
+TRAIN_MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
+TM_ALLOC_CONF = "expandable_segments:True"
+
+
+def _tm_say(row):
+    print(json.dumps({"phase": "train_mesh", **row}), flush=True)
+
+
+def _tm_sha(t):
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def _tm_batch(np, cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+
+
+def _tm_expected(torch, np, model, tc, params, batch, k_rows, model_axis):
+    """The one-device computation of a mesh step on this global batch, on
+    the card: (loss, gradients in flatten order, grad_norm).  Where a MoE
+    routes each row part alone (the reference's ``shard_map``, on a mesh
+    with a ``model`` axis), the mean over the parts of the one-device
+    step on each part's rows, the reported loss carrying the first part's
+    aux loss; on a mesh without one, the one-device step (it routes the
+    whole microbatch)."""
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    from repro_torch.training import global_norm
+    from repro_torch.training.train import _accumulate
+    n = tc.microbatches
+    b = next(iter(batch.values())).shape[0]
+    dev = lambda x: {k: torch.as_tensor(v, device=DEVICE)
+                     for k, v in x.items()}
+
+    def rows(d, i=None):
+        per = b // (n * k_rows)
+        mbs = range(n) if i is None else (i,)
+        return {k: np.concatenate([v[j * (b // n) + d * per:
+                                     j * (b // n) + (d + 1) * per]
+                                   for j in mbs]) for k, v in batch.items()}
+    if k_rows == 1 or not (model.cfg.n_experts and model_axis):
+        loss, grads, _ = _accumulate(model, tc, params, dev(batch))
+        grads = [g.float() for g in grads]
+    else:
+        parts = [_accumulate(model, tc, params, dev(rows(d)))
+                 for d in range(k_rows)]
+        loss = sum(p[0] for p in parts) / k_rows
+        grads = [sum(g.float() for g in gs) / k_rows
+                 for gs in zip(*(p[1] for p in parts))]
+        with torch.no_grad():
+            for i in range(n):
+                aux = [float(model.forward(params, dev(rows(d, i)))[1][
+                    "aux_loss"]) for d in range(k_rows)]
+                loss = loss + (aux[0] - sum(aux) / k_rows) / n
+    paths = [p for p, _ in tree_flatten(params)]
+    return float(loss), grads, float(global_norm(tree_unflatten(paths,
+                                                                grads)))
+
+
+def _tm_capture(check):
+    """Patch the optimizer to hand each step's reduced gradients (in
+    flatten order) to ``check`` before the update; returns a function
+    that undoes the patch.  Nothing is copied: a copy of every gradient
+    would add its bytes to the rank's peak."""
+    import repro_torch.training.optim as optim
+    from repro_torch.models.common import tree_flatten
+    real = optim.adamw_update
+
+    def capture(cfg, p, grads, opt, inplace=False, grad_norm=None):
+        check([g for _, g in tree_flatten(grads)])
+        return real(cfg, p, grads, opt, inplace=inplace, grad_norm=grad_norm)
+    optim.adamw_update = capture
+    return lambda: setattr(optim, "adamw_update", real)
+
+
+def _tm_worst(paths, got, want, layout=None):
+    """(the largest max|got - want| / max(1, max|want|) over the leaves,
+    its leaf); ``want`` whole leaves cut to this rank's part where
+    ``layout`` says the rank holds one, moved to the card leaf by
+    leaf."""
+    worst, leaf = 0.0, None
+    for path, g, w in zip(paths, got, want):
+        part = None if layout is None else layout.part("params/" + path)
+        if part is not None and w.shape != g.shape:
+            dim, k, i = part
+            n = w.shape[dim] // k
+            w = w.narrow(dim, i * n, n)
+        w = w.to(g.device)
+        r = float((g.float() - w.float()).abs().max()) / max(
+            1.0, float(w.abs().max()))
+        if r >= worst:
+            worst, leaf = r, path
+    return worst, leaf
+
+
+def _tm_smoke(torch, np, live, arch, over, tc_over):
+    """(tm1) one case on this rank: three steps, each against the
+    one-device computation from the same gathered state."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
+                                      make_jitted_train_step)
+    from repro_torch.training.train import (StateLayout, local_batch,
+                                            shard_params)
+    model = get_model(dataclasses.replace(get_config(arch, smoke=True),
+                                          dtype="float32", **over))
+    tc = TrainConfig(opt=OptConfig(lr=1e-3, eps=1e-6, total_steps=10,
+                                   warmup_steps=0), **tc_over)
+    params = shard_params(model, model.init(0, DEVICE), live)
+    state = {"params": params, "opt": adamw_init(params)}
+    layout = StateLayout(model, live)
+    step = make_jitted_train_step(model, tc, mesh=live)
+    k_rows = live.split(("pod", "data"))[0]
+    row = {"loss_err": [], "loss_limit": [], "grad_err_ratio": [],
+           "grad_leaf": [], "norm_rel_err": [], "param_sha": [],
+           "loss_bits": [], "norm_bits": []}
+    seen, want_grads = [], []
+    undo = _tm_capture(lambda got: seen.append(_tm_worst(
+        paths, got, want_grads, layout)))
+    try:
+        for s in range(TM_STEPS):
+            gb = _tm_batch(np, model.cfg, *TM1_BATCH, seed=s + 1)
+            flat = tree_flatten(state["params"])
+            paths = [p for p, _ in flat]
+            whole = tree_unflatten(paths, [
+                t if layout.part("params/" + p) is None else all_gather(
+                    t, ("model",), live, layout.part("params/" + p)[0])
+                for p, t in flat])
+            want_loss, want_grads[:], want_norm = _tm_expected(
+                torch, np, model, tc, whole, gb, k_rows,
+                "model" in live.spec.names)
+            del whole
+            state, met = step(state, local_batch(gb, tc.microbatches, live))
+            worst, leaf = seen[-1]
+            loss, norm = float(met["loss"]), float(met["grad_norm"])
+            row["loss_err"].append(abs(loss - want_loss))
+            row["loss_limit"].append(TRAIN_LOSS_TOL * max(1.0,
+                                                          abs(want_loss)))
+            row["grad_err_ratio"].append(worst)
+            row["grad_leaf"].append(leaf)
+            row["norm_rel_err"].append(abs(norm - want_norm) / want_norm)
+            row["param_sha"].append({
+                p: _tm_sha(t) for p, t in tree_flatten(state)
+                if layout.part(p) is None})
+            row["loss_bits"].append(loss)
+            row["norm_bits"].append(norm)
+    finally:
+        undo()
+    return row
+
+
+def _tm_one_device_keep(torch, model, tc, batch, layout):
+    """(tm3) One device on this rank (the other rank waits): the loss,
+    grad_norm, and on the host the gradients and the params after one
+    in-place step, each leaf cut to this rank's part."""
+    from repro_torch.models.common import tree_flatten, tree_unflatten
+    from repro_torch.training import adamw_init, adamw_update, global_norm
+    from repro_torch.training.train import _accumulate
+    params = model.init(0, DEVICE)
+    loss, grads, _ = _accumulate(model, tc, params, batch)
+    paths = [p for p, _ in tree_flatten(params)]
+    norm = float(global_norm(tree_unflatten(paths, grads)))
+    opt = adamw_init(params)
+    adamw_update(tc.opt, params, tree_unflatten(paths, grads), opt,
+                 inplace=True)
+    del opt
+
+    def mine(path, t):
+        part = layout.part("params/" + path)
+        if part is not None:
+            dim, k, i = part
+            t = t.narrow(dim, i * (t.shape[dim] // k), t.shape[dim] // k)
+        return t.detach().to("cpu", copy=True)
+    keep = {p: (mine(p, g), mine(p, t))
+            for (p, t), g in zip(tree_flatten(params), grads)}
+    del params, grads
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(loss), norm, keep
+
+
+def _tm_mixtral(torch, np, live, rank):
+    """(tm3) mixtral-8x22b at its widths, expert-parallel on model=2."""
+    import dataclasses
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_flatten, tree_leaves
+    from repro_torch.training import (OptConfig, TrainConfig, init_state,
+                                      make_jitted_train_step)
+    from repro_torch.training.train import StateLayout
+    b, s, layers = TM3
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), num_layers=layers,
+                              dtype="float32")
+    model = get_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=TM3_LR, total_steps=10,
+                                   warmup_steps=0))
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in SyntheticTokens(
+        DataConfig(vocab=cfg.vocab, global_batch=b, seq_len=s)).batch(
+        0).items()}
+    layout = StateLayout(model, live)
+    t0 = time.perf_counter()
+    want = None
+    for r in range(live.spec.size):       # one device, one rank at a time
+        if r == rank:
+            torch.cuda.reset_peak_memory_stats()
+            want = _tm_one_device_keep(torch, model, tc, batch, layout)
+            one_peak = torch.cuda.max_memory_allocated() / 1e9
+        dist.barrier()
+    one_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, 0, DEVICE, mesh=live)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    step = make_jitted_train_step(model, tc, mesh=live)
+    want_loss, want_norm, keep = want
+    paths = [p for p, _ in tree_flatten(state["params"])]
+    seen = []
+    undo = _tm_capture(lambda got: seen.append(_tm_worst(
+        paths, got, [keep[p][0] for p in paths])))
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    (grad_worst, grad_leaf), = seen
+    param_worst, param_leaf = _tm_worst(
+        paths, [t for _, t in tree_flatten(state["params"])],
+        [keep[p][1] for p in paths])
+    loss, norm = float(met["loss"]), float(met["grad_norm"])
+    n_params = sum(t.numel() for _, t in tree_flatten(model.init(0, "meta")))
+    del state, seen, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"case": "tm3", "arch": "mixtral-8x22b", "mesh": "model=2",
+            "layers": layers, "tokens": b * s, "params": n_params,
+            "loss": loss, "loss_err": abs(loss - want_loss),
+            "loss_limit": TRAIN_LOSS_TOL * max(1.0, abs(want_loss)),
+            "grad_err_ratio": grad_worst, "grad_leaf": grad_leaf,
+            "norm_rel_err": abs(norm - want_norm) / want_norm,
+            "param_err_ratio": param_worst, "param_leaf": param_leaf,
+            "state_gb_rank": held / 1e9, "peak_gb_rank": peak,
+            "one_device_peak_gb": one_peak, "one_device_s": one_s,
+            "step_ms": step_ms}
+
+
+def _tm_minicpm(torch, np, live, rank):
+    """(tm2) minicpm-2b at its widths on data=2: 3 steps of 4 x 512."""
+    import dataclasses
+    import gc
+    import statistics as st
+    import torch.distributed as dist
+    import repro_torch.dist.collectives as col
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_flatten, tree_leaves, \
+        tree_unflatten
+    from repro_torch.training import (OptConfig, TrainConfig, global_norm,
+                                      init_state, make_jitted_train_step)
+    from repro_torch.training.train import _accumulate, rank_rows
+    b, s, steps, layers = TM2
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=layers)
+    model = get_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, total_steps=steps,
+                                   warmup_steps=steps,
+                                   schedule=cfg.lr_schedule))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, global_batch=b,
+                                      seq_len=s, seed=0))
+    want = None
+    if rank == 0:                         # one device; the other rank waits
+        params = model.init(0, DEVICE)
+        whole = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in data.batch(0).items()}
+        loss, grads, _ = _accumulate(model, tc, params, whole)
+        paths = [p for p, _ in tree_flatten(params)]
+        want = (float(loss), float(global_norm(tree_unflatten(paths,
+                                                             grads))))
+        del params, grads, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, 0, DEVICE, mesh=live)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    reduces = []
+    real = col.all_reduce_
+
+    def timed(x, axes, mesh):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(x, axes, mesh)
+        torch.cuda.synchronize()
+        reduces.append((x.numel() * x.element_size(),
+                        (time.perf_counter() - t) * 1e3))
+        return out
+    col.all_reduce_ = timed
+    try:
+        step = make_jitted_train_step(model, tc, mesh=live)
+    finally:
+        col.all_reduce_ = real
+    rows = rank_rows(b, 1, live)
+    losses, norms, ms, red_bytes, red_ms = [], [], [], [], []
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in data.batch_rows(i, rows).items()}
+        del reduces[:]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        red_bytes.append(sum(r[0] for r in reduces))
+        red_ms.append(sum(r[1] for r in reduces))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = st.median(ms[1:])
+    row = {"case": "tm2", "arch": "minicpm-2b", "mesh": "data=2",
+           "layers": layers, "params": n_params, "batch": [b, s],
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "step_ms_median": step_ms,
+           "tokens_per_s": b * s / (step_ms / 1e3),
+           "reduce_bytes": red_bytes[-1], "reduce_ms": red_ms,
+           "reduce_ms_median": st.median(red_ms[1:]),
+           "state_gb_rank": held / 1e9, "peak_gb_rank": peak}
+    if want is not None:
+        row.update(one_device_loss=want[0], one_device_grad_norm=want[1],
+                   loss_err=abs(losses[0] - want[0]),
+                   loss_limit=TM2_LOSS_TOL * max(1.0, abs(want[0])),
+                   norm_rel_err=abs(norms[0] - want[1]) / want[1],
+                   norm_limit=TM2_NORM_TOL)
+    return row
+
+
+def train_mesh_rank_main(rank: int, world: int, work: str) -> int:
+    """One rank of a train_mesh group: (tm1)'s cases for this group size,
+    then with two ranks (tm3) and (tm2); one JSON row a case on stdout,
+    checked by the parent.  Every rank makes the same calls in the same
+    order (the collectives pair up across ranks)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import MeshSpec
+    from repro_torch.dist.collectives import LiveMesh, destroy_process_group
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work}/rendezvous{world}", rank=rank,
+        world_size=world)
+    try:
+        meshes = {}
+        for case, mesh, arch, over, tc_over in TM1[world]:
+            if mesh not in meshes:
+                meshes[mesh] = LiveMesh(MeshSpec.parse(mesh),
+                                        torch.device(DEVICE))
+            t0 = time.perf_counter()
+            row = _tm_smoke(torch, np, meshes[mesh], arch, over, tc_over)
+            _tm_say({"case": case, "mesh": mesh, "arch": arch,
+                     "tp_psum": over.get("tp_psum", False), **tc_over,
+                     "rank": rank, "seconds": time.perf_counter() - t0,
+                     **row})
+        if world == 2:
+            for mesh, fn in (("model=2", _tm_mixtral),
+                             ("data=2", _tm_minicpm)):
+                t0 = time.perf_counter()
+                live = meshes.get(mesh) or LiveMesh(MeshSpec.parse(mesh),
+                                                    torch.device(DEVICE))
+                row = fn(torch, np, live, rank)
+                _tm_say({**row, "rank": rank,
+                         "seconds": time.perf_counter() - t0})
+    finally:
+        destroy_process_group()
+    return 0
+
+
+def _tm_ranks(world: int, work: str):
+    """Run a group of ``world`` train_mesh rank processes on the card to
+    their end: (their exit codes, their rows)."""
+    import threading
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=TM_ALLOC_CONF)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-mesh-rank",
+         str(r), str(world), work], cwd=ROOT, stdout=subprocess.PIPE,
+        text=True, env=env) for r in range(world)]
+    timers = [threading.Timer(TM_RANK_TIMEOUT_S[world], p.kill)
+              for p in procs]
+    for t in timers:
+        t.start()
+    rows = []
+    try:
+        for p in procs:
+            out, _ = p.communicate()
+            rows += [json.loads(line) for line in out.splitlines()
+                     if line.startswith("{")]
+    finally:
+        for t in timers:
+            t.cancel()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], rows
+
+
+def _tm_problems(world, rows):
+    """Each row within its limits; the replicas' state and metrics the
+    same bits on every rank of a case."""
+    problems = []
+    by_case = collections.defaultdict(list)
+    for row in rows:
+        by_case[(row["case"], row["mesh"], row["arch"])].append(row)
+    for key, group in by_case.items():
+        if len(group) != world:
+            problems.append(f"train_mesh {key}: {len(group)} of {world} "
+                            f"ranks reported")
+        # (tm1) rows hold a list a step; (tm2)'s rank 1 holds no reference
+        listed = lambda v: v if isinstance(v, list) else [v]
+        for row in group:
+            errs = listed(row.get("loss_err", 0.0))
+            lims = listed(row.get("loss_limit", float("inf")))
+            grads = listed(row.get("grad_err_ratio", 0.0))
+            norms = listed(row.get("norm_rel_err", 0.0))
+            norm_lim = row.get("norm_limit", TRAIN_NORM_TOL)
+            bad = (any(e > lim for e, lim in zip(errs, lims))
+                   or any(g > TRAIN_GRAD_TOL for g in grads)
+                   or any(n > norm_lim for n in norms)
+                   or row.get("param_err_ratio", 0.0) > TM3_PARAM_TOL)
+            if bad:
+                problems.append(
+                    f"train_mesh {key} rank {row['rank']}: loss err {errs} "
+                    f"(limits {lims}), gradient err {grads} x max(1, "
+                    f"max|g|), grad_norm rel err {norms} (limit "
+                    f"{norm_lim}), params {row.get('param_err_ratio')}")
+        for field in ("param_sha", "loss_bits", "norm_bits", "losses",
+                      "grad_norms", "loss"):
+            vals = {json.dumps(r.get(field), sort_keys=True) for r in group}
+            if len(vals) > 1:
+                problems.append(f"train_mesh {key}: {field} differs "
+                                f"across ranks")
+        if key[0] == "tm2":
+            losses = group[0]["losses"]
+            if not all(math.isfinite(x) for x in losses):
+                problems.append(f"train_mesh tm2: losses {losses}")
+    return problems
+
+
+def train_mesh_main() -> int:
+    """The train_mesh phase, in its own process: a group of four rank
+    processes on the card ((tm1) on data=2,model=2), then a group of two
+    ((tm1) on model=2 and data=2, (tm3), (tm2)), over gloo."""
+    import shutil
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --train-mesh: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on; the f32 comparisons need it off")
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_MESH_DIR)
+    problems = []
+    # a row a rank for each (tm1) case, and for (tm3) and (tm2) with two
+    expected = {w: (len(TM1[w]) + (2 if w == 2 else 0)) * w for w in TM1}
+    for world in (4, 2):
+        t0 = time.perf_counter()
+        rcs, rows = _tm_ranks(world, TRAIN_MESH_DIR)
+        if rcs != [0] * world or len(rows) != expected[world]:
+            problems.append(f"train_mesh: {world} ranks exited {rcs} with "
+                            f"{len(rows)} rows")
+        problems += _tm_problems(world, rows)
+        for row in rows:
+            row.pop("param_sha", None)
+            emit(row)
+        emit({"phase": "train_mesh", "case": "group_done", "ranks": world,
+              "rcs": rcs, "seconds": time.perf_counter() - t0})
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    if problems:
+        raise SystemExit("train_mesh phase failed: " + "; ".join(problems))
+    return 0
+
+
+def phase_train_mesh():
+    """The train_mesh phase in its child process."""
+    return phase_child("--train-mesh", TRAIN_MESH_TIMEOUT_S, "train_mesh")
 
 
 def main() -> int:
@@ -5002,7 +5597,7 @@ def main() -> int:
     phase_card(torch)
     phase_build()
     engine_problems = (phase_engine() + phase_serve() + phase_shard()
-                       + phase_mesh() + phase_train())
+                       + phase_mesh() + phase_train() + phase_train_mesh())
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
     problems += engine_problems
@@ -5088,6 +5683,11 @@ if __name__ == "__main__":
         sys.exit(mesh_main())
     if sys.argv[1:] == ["--train"]:
         sys.exit(train_main())
+    if sys.argv[1:] == ["--train-mesh"]:
+        sys.exit(train_mesh_main())
+    if sys.argv[1:2] == ["--train-mesh-rank"]:
+        sys.exit(train_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                      sys.argv[4]))
     if sys.argv[1:2] == ["--mesh-single"]:
         sys.exit(mesh_single_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:

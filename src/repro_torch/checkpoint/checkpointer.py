@@ -20,6 +20,11 @@ bf16).
 * **keep-N** — bounded disk usage;
 * **placement on restore** — each leaf goes to ``like``'s device, or to
   ``device`` (the reference's ``shardings``);
+* **a mesh** — a mesh run's checkpoint is the same whole layout, byte
+  for byte what one device writes of the same state: the leaves a rank
+  holds in part (``training.StateLayout``) are gathered, global rank 0
+  writes, and the others wait at a barrier; each rank restores its part
+  of every such leaf, and one device restores it whole;
 * **preemption hook** — ``install_sigterm_hook`` saves on SIGTERM, from
   the handler (for a state replaced whole by each step; the launcher,
   which updates in place, saves between steps instead).
@@ -80,11 +85,23 @@ class Checkpointer:
         self._error: Optional[BaseException] = None
 
     # -- save -----------------------------------------------------------
-    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
-        """Snapshot ``tree`` (a nested dict of tensors) at ``step``."""
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             layout=None) -> None:
+        """Snapshot ``tree`` (a nested dict of tensors) at ``step``.  On a
+        mesh, ``layout`` (``training.StateLayout``) gathers the leaves a
+        rank holds in part; its writer alone writes the whole state, and
+        a blocking save ends with every rank at a barrier."""
         self.wait()  # one in-flight save at a time
-        host = [_to_host(leaf) for _, leaf in tree_flatten(tree)]
         spec = _index_tree(tree)
+        if layout is None:
+            host = [_to_host(leaf) for _, leaf in tree_flatten(tree)]
+        else:
+            whole = layout.whole_leaves(tree)
+            host = None if whole is None else [_to_host(t) for t in whole]
+        if host is None:                      # a rank that does not write
+            if blocking:
+                layout.barrier()
+            return
 
         def work():
             try:
@@ -108,7 +125,11 @@ class Checkpointer:
                 self._error = e
 
         if blocking:
-            work()
+            try:
+                work()
+            finally:
+                if layout is not None:
+                    layout.barrier()
             self.raise_if_failed()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
@@ -150,23 +171,37 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None,
+                layout=None) -> Any:
         """Load ``step`` into the structure, dtypes and devices of
-        ``like`` (each leaf on ``device`` instead, where given).  Every
-        leaf's shape is checked before any is read; one leaf at a time
-        is on the host."""
+        ``like`` (each leaf on ``device`` instead, where given).  On a
+        mesh, ``layout`` says which leaves ``like`` holds in part: each
+        takes its part of the whole leaf on disk.  Every leaf's shape is
+        checked before any is read; one leaf at a time is on the host."""
         path = os.path.join(self.root, f"step_{step:09d}")
         paths, leaves = zip(*tree_flatten(like))
         files = [os.path.join(path, f"arr_{i:05d}.npy")
                  for i in range(len(leaves))]
-        for f, leaf in zip(files, leaves):
-            have, want = np.load(f, mmap_mode="r").shape, tuple(leaf.shape)
-            if have != want:
+        parts = [None if layout is None else layout.part(p) for p in paths]
+        for f, leaf, part in zip(files, leaves, parts):
+            want = list(leaf.shape)
+            if part is not None:
+                want[part[0]] *= part[1]
+            have = np.load(f, mmap_mode="r").shape
+            if have != tuple(want):
                 raise ValueError(
-                    f"checkpoint leaf shape {have} != expected {want}")
-        out = [_from_host(np.load(f), leaf.dtype,
-                          leaf.device if device is None else device)
-               for f, leaf in zip(files, leaves)]
+                    f"checkpoint leaf shape {have} != expected {tuple(want)}")
+        out = []
+        for f, leaf, part in zip(files, leaves, parts):
+            if part is None:
+                h = np.load(f)
+            else:                   # read this rank's part alone
+                dim, k, i = part
+                h = np.load(f, mmap_mode="r")
+                n = h.shape[dim] // k
+                h = np.take(h, np.arange(i * n, (i + 1) * n), axis=dim)
+            out.append(_from_host(h, leaf.dtype,
+                                  leaf.device if device is None else device))
         return tree_unflatten(list(paths), out)
 
 

@@ -13,7 +13,8 @@ two properties fault tolerance needs for free:
   batch(k) — no iterator state to checkpoint;
 * **shard-awareness**: a host that owns rows [lo, hi) of the global
   batch generates exactly those rows (`host_slice`), so no host ever
-  materializes the global batch.
+  materializes the global batch; a mesh rank generates its part of each
+  microbatch (`batch_rows`).
 
 The token distribution is a Zipf-ish mixture with enough sequential
 structure (a noisy copy task) that a ~100M model's loss visibly drops
@@ -64,6 +65,13 @@ class SyntheticTokens:
         seq = np.stack([self._row(step, r) for r in range(row_lo, row_hi)])
         return {"tokens": seq[:, :-1].astype(np.int32),
                 "labels": seq[:, 1:].astype(np.int32)}
+
+    def batch_rows(self, step: int, rows) -> Dict[str, np.ndarray]:
+        """The rows ``[lo, hi)`` of each range of ``rows`` of batch
+        ``step``, concatenated in order: a mesh rank's rows of every
+        microbatch (``training.rank_rows``), each from :meth:`batch`."""
+        parts = [self.batch(step, lo, hi) for lo, hi in rows]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
     def host_slice(self, step: int, host_id: int, n_hosts: int):
         """The rows this host owns of the global batch at `step`."""

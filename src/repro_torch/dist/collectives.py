@@ -28,8 +28,15 @@ Their *value* semantics are the reference's:
 With no live mesh (no mesh, a single-device mesh, or an axis of size 1)
 every collective is the identity and nothing talks to another process.
 On a live mesh a collective of a CUDA tensor over a gloo group is staged
-through the host (gloo's collectives take host tensors), which
-``LiveMesh.staged`` records and ``cost_summary()["sharding"]`` reports.
+through the host (gloo's collectives take host tensors), as
+``LiveMesh.stages`` decides for each tensor's device;
+``cost_summary()["sharding"]`` reports it for the mesh's device.
+
+Model code that autograd records (the mesh train step) uses the
+conjugate pairs :func:`copy_to_model`, :func:`reduce_from_model`,
+:func:`gather_rows` and :func:`split_to_model`, whose backward is the
+collective the forward's placement implies; :func:`all_reduce_` is the
+gradient reduce's plain sum in place.
 
 Attrs:
 
@@ -109,8 +116,7 @@ class LiveMesh:
         coord = self.device_mesh.get_coordinate()
         self.coords: Dict[str, int] = dict(zip(spec.names, coord))
         self.backend = dist.get_backend()
-        #: Collectives of CUDA tensors go through host copies (gloo).
-        self.staged = device.type == "cuda" and self.backend != "nccl"
+        self.device = torch.device(device)
         self._groups = {(name,): self.device_mesh.get_group(name)
                         for name in spec.names}
         names = spec.names
@@ -118,6 +124,18 @@ class LiveMesh:
             for axes in itertools.combinations(names, r):
                 self._groups[axes] = (dist.group.WORLD if r == len(names)
                                       else self._new_group(axes))
+
+    def stages(self, device) -> bool:
+        """True when a collective of a tensor on ``device`` goes through a
+        host copy: a CUDA tensor over gloo, whose collectives take host
+        tensors."""
+        return torch.device(device).type == "cuda" and self.backend != "nccl"
+
+    @property
+    def staged(self) -> bool:
+        """Whether collectives of this mesh's device's tensors are staged
+        through the host (:meth:`stages`)."""
+        return self.stages(self.device)
 
     def _new_group(self, axes):
         """The subgroups spanning ``axes`` (the other axes fixed), made
@@ -174,16 +192,165 @@ def local_part(x: torch.Tensor, k: int, i: int, dim: int = -1
     return x.narrow(dim, i * (n // k), n // k)
 
 
+def _split(mesh: Optional[LiveMesh], axes) -> Tuple[int, int]:
+    """(parts, this rank's part) of ``axes`` on ``mesh``; (1, 0) with no
+    live mesh."""
+    return (1, 0) if mesh is None else mesh.split(axes)
+
+
+def _host(x: torch.Tensor, mesh: LiveMesh) -> bool:
+    return mesh.stages(x.device)
+
+
+def _summed(x: torch.Tensor, axes, mesh: LiveMesh) -> torch.Tensor:
+    """A new tensor: the sum of ``x`` over the ranks of ``axes``."""
+    import torch.distributed as dist
+    host = _host(x, mesh)
+    buf = x.detach().to("cpu", copy=True) if host \
+        else x.detach().contiguous().clone()
+    dist.all_reduce(buf, group=mesh.group(axes))
+    return buf.to(x.device) if host else buf
+
+
+def _gathered(x: torch.Tensor, axes, mesh: LiveMesh, dim: int
+              ) -> torch.Tensor:
+    """A new tensor: the parts held by the ranks of ``axes``
+    concatenated along ``dim`` in the ranks' order."""
+    import torch.distributed as dist
+    host = _host(x, mesh)
+    src = (x.detach().cpu() if host else x.detach()).contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.split(axes)[0])]
+    dist.all_gather(parts, src, group=mesh.group(axes))
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if host else out
+
+
 def all_reduce(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
                ) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axes`` (x itself with no
-    live mesh or axes of size 1)."""
+    """The sum of ``x`` over the ranks of ``axes``, a new tensor (x
+    itself with no live mesh or axes of size 1)."""
     if mesh is None or mesh.split(axes)[0] == 1:
         return x
+    return _summed(x, axes, mesh)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.axes, ctx.mesh), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return _summed(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim, sum_grad):
+        ctx.axes, ctx.mesh, ctx.dim, ctx.sum_grad = axes, mesh, dim, sum_grad
+        return _gathered(x, axes, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            g = _summed(g, ctx.axes, ctx.mesh)
+        part = local_part(g, *ctx.mesh.split(ctx.axes), ctx.dim)
+        return part.contiguous(), None, None, None, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return local_part(x, *mesh.split(axes), dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.axes, ctx.mesh, ctx.dim), None, None, None
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# Megatron's conjugate pairs over a mesh axis group.  Each is x itself
+# with no live mesh or axes of size 1; where autograd does not record x
+# each is its forward alone (serving's numerics, no extra copy).
+def copy_to_model(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
+                  ) -> torch.Tensor:
+    """The identity; its backward sums the gradient over ``axes``.  The
+    input of a computation that the ranks of ``axes`` split (each rank
+    sees only its part's gradient of the whole ``x``)."""
+    if _split(mesh, axes)[0] == 1 or not _recorded(x):
+        return x
+    return _CopyToModel.apply(x, tuple(axes), mesh)
+
+
+def reduce_from_model(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
+                      ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``; its backward passes
+    the gradient on unchanged.  The output of a split computation that
+    every rank of ``axes`` then uses whole, the same way (never
+    ``torch.distributed.nn``'s all-reduce, whose backward sums again)."""
+    if _split(mesh, axes)[0] == 1:
+        return x
+    if not _recorded(x):
+        return _summed(x, axes, mesh)
+    return _ReduceFromModel.apply(x, tuple(axes), mesh)
+
+
+def gather_rows(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
+                dim: int = 0, sum_grad: bool = False) -> torch.Tensor:
+    """The parts of ``x`` held by the ranks of ``axes`` concatenated
+    along ``dim``; its backward keeps this rank's part of the gradient
+    (every rank uses the gathered tensor whole, the same way), or with
+    ``sum_grad`` this rank's part of the gradient summed over ``axes``
+    (a reduce-scatter: each rank's loss reads the gathered tensor its own
+    way, as a rank's share of the loss does in the mesh train step)."""
+    if _split(mesh, axes)[0] == 1:
+        return x
+    if not _recorded(x):
+        return _gathered(x, axes, mesh, dim)
+    return _GatherRows.apply(x, tuple(axes), mesh, dim, sum_grad)
+
+
+def split_to_model(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
+                   dim: int = -1) -> torch.Tensor:
+    """This rank's part of ``x`` along ``dim``; its backward gathers the
+    parts' gradients over ``axes``, so a whole ``x`` that every rank
+    computed gets its whole gradient on every rank."""
+    k, i = _split(mesh, axes)
+    if k == 1:
+        return x
+    if not _recorded(x):
+        return local_part(x, k, i, dim)
+    return _SplitToModel.apply(x, tuple(axes), mesh, dim)
+
+
+def all_reduce_(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
+                ) -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``axes`` in place (no autograd) and
+    return it; x itself, untouched, with no live mesh or axes of size 1.
+    Every rank of the group ends with the same bits."""
+    if _split(mesh, axes)[0] == 1:
+        return x
     import torch.distributed as dist
-    buf = x.cpu() if mesh.staged else x.contiguous().clone()
-    dist.all_reduce(buf, group=mesh.group(axes))
-    return buf.to(x.device) if mesh.staged else buf
+    if _host(x, mesh) or not x.is_contiguous():
+        x.copy_(_summed(x, axes, mesh))
+    else:
+        dist.all_reduce(x, group=mesh.group(axes))
+    return x
 
 
 def destroy_process_group() -> None:
@@ -202,17 +369,9 @@ def all_gather(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
                dim: int = -1) -> torch.Tensor:
     """The parts of ``x`` held by the ranks of ``axes``, concatenated
     along ``dim`` in the ranks' order (x itself with no live mesh)."""
-    if mesh is None:
+    if mesh is None or mesh.split(axes)[0] == 1:
         return x
-    k, _ = mesh.split(axes)
-    if k == 1:
-        return x
-    import torch.distributed as dist
-    src = (x.cpu() if mesh.staged else x).contiguous()
-    parts = [torch.empty_like(src) for _ in range(k)]
-    dist.all_gather(parts, src, group=mesh.group(axes))
-    out = torch.cat(parts, dim=dim)
-    return out.to(x.device) if mesh.staged else out
+    return _gathered(x, axes, mesh, dim)
 
 
 def broadcast(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
@@ -222,9 +381,11 @@ def broadcast(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
     if mesh is None or mesh.split(axes)[0] == 1:
         return x
     import torch.distributed as dist
-    buf = (x.cpu() if mesh.staged else x).contiguous().clone()
+    host = _host(x, mesh)
+    buf = x.detach().to("cpu", copy=True) if host \
+        else x.detach().contiguous().clone()
     dist.broadcast(buf, src=mesh.rank_of(axes, part), group=mesh.group(axes))
-    return buf.to(x.device) if mesh.staged else buf
+    return buf.to(x.device) if host else buf
 
 
 def relayout(x: torch.Tensor, have, want, mesh: Optional[LiveMesh]

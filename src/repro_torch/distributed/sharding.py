@@ -7,12 +7,19 @@ axes of whatever mesh is active.  The graph compiler's propagation pass
 every annotation is a no-op, so the same model code runs everywhere.
 
 The active mesh is a :class:`repro_torch.dist.collectives.LiveMesh` (one
-process a device).  Every rank holds each model tensor whole, so a
-constraint is placement only: :func:`logical` returns its tensor, and
-:func:`named_sharding` describes where a tensor's parts would live.  The
-only partitioned compute is what the models write out (the row- and
-column-parallel projections under ``tp_psum``, the expert-parallel MoE),
-as the reference's ``shard_map`` branches do.
+process a device).  A constraint is placement only: :func:`logical`
+returns its tensor, and :func:`named_sharding` describes where a
+tensor's parts would live.  The partitioned compute is what the models
+write out (the row- and column-parallel projections under ``tp_psum``,
+the expert-parallel MoE), as the reference's ``shard_map`` branches do,
+and, in the mesh train step (``use_mesh(..., local_batch=True)``), the
+``batch`` rows: each rank then holds only its rows, the loss averages
+over the global batch, and the step reduces each gradient leaf over the
+``batch`` axes and, where ``model`` cut its compute, sums it over
+``model``.  Model code marks each weight it cuts with
+:func:`split_param`, and the step reads those marks from its own
+forward (:func:`recording_splits`), so the rule lives where the cut is
+made.
 """
 
 from __future__ import annotations
@@ -65,22 +72,84 @@ def current_mesh():
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, rules: Optional[Dict[str, AxisVal]] = None):
+def use_mesh(mesh, rules: Optional[Dict[str, AxisVal]] = None,
+             local_batch: bool = False):
     """Activate a mesh (a ``LiveMesh`` or None) and rules (merged over
-    DEFAULT_RULES) for model-code annotations, on this thread."""
+    DEFAULT_RULES) for model-code annotations, on this thread.
+    ``local_batch``: each rank's inputs are only its ``batch`` rows (the
+    mesh train step), so no layer splits rows again, and the loss is
+    the global batch's."""
     prev_mesh = getattr(_local, "mesh", None)
     prev_rules = getattr(_local, "rules", None)
+    prev_local = getattr(_local, "local_batch", False)
     _local.mesh = mesh
     _local.rules = {**DEFAULT_RULES, **(rules or {})}
+    _local.local_batch = bool(local_batch) and mesh is not None
     try:
         yield
     finally:
         _local.mesh = prev_mesh
+        _local.local_batch = prev_local
         if prev_rules is None:
             if hasattr(_local, "rules"):
                 del _local.rules
         else:
             _local.rules = prev_rules
+
+
+def current_context():
+    """This thread's mesh, rules and ``local_batch``, for
+    :func:`use_context` on another thread (autograd's backward runs a
+    recomputed layer on a device thread of its own)."""
+    return (getattr(_local, "mesh", None), getattr(_local, "rules", None),
+            getattr(_local, "local_batch", False))
+
+
+@contextlib.contextmanager
+def use_context(ctx):
+    """Activate what :func:`current_context` returned, on this thread."""
+    mesh, rules, local = ctx
+    with use_mesh(mesh, rules, local_batch=local):
+        yield
+
+
+#: The mesh axes the ``batch`` rows split over (``DEFAULT_RULES``).
+BATCH_AXES = ("pod", "data")
+
+
+def local_batch():
+    """(the mesh, parts, this rank's part) of the ``batch`` rows when the
+    active mesh holds each rank's rows alone and they are split; else
+    None."""
+    mesh = current_mesh()
+    if mesh is None or not getattr(_local, "local_batch", False):
+        return None
+    k, i = mesh.split(BATCH_AXES)
+    return None if k == 1 else (mesh, k, i)
+
+
+@contextlib.contextmanager
+def recording_splits():
+    """Record, on this thread, every tensor model code cuts to this
+    rank's part with :func:`split_param` (its root tensor: the param
+    leaf a layer's view was taken from).  Yields the list."""
+    prev = getattr(_local, "splits", None)
+    _local.splits = []
+    try:
+        yield _local.splits
+    finally:
+        _local.splits = prev
+
+
+def split_param(w, k: int, i: int, dim: int):
+    """Part ``i`` of ``k`` of the weight ``w`` along ``dim``: a rank's
+    share of a weight whose compute the ``model`` axis splits, recorded
+    for the gradient reduce (:func:`recording_splits`)."""
+    from ..dist.collectives import local_part
+    splits = getattr(_local, "splits", None)
+    if splits is not None:
+        splits.append(w if w._base is None else w._base)
+    return local_part(w, k, i, dim)
 
 
 def spec_for(*logical_axes: Optional[str]) -> tuple:

@@ -35,6 +35,22 @@ def host_mesh_spec() -> MeshSpec:
     return MeshSpec(axes=(("data", 1), ("model", available_devices())))
 
 
+def init_group(device: str) -> str:
+    """Join the gloo process group ``torch.distributed.run`` describes in
+    the environment (when it does; gloo, since ranks may share a card);
+    this rank's device."""
+    import os
+    import torch
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return device
+    dist.init_process_group("gloo", init_method="env://")
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+    return device
+
+
 def _live(spec: MeshSpec, device):
     import torch
     from ..dist.collectives import LiveMesh

@@ -53,22 +53,6 @@ def parse_sharding_rules(text):
     return tuple(rules)
 
 
-def _init_group(device: str) -> str:
-    """Join the gloo process group ``torch.distributed.run`` describes in
-    the environment (when it does; gloo, since ranks may share a card);
-    this rank's device."""
-    import os
-    import torch
-    import torch.distributed as dist
-    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
-        return device
-    dist.init_process_group("gloo", init_method="env://")
-    if device == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", 0))
-        device = f"cuda:{local % torch.cuda.device_count()}"
-    return device
-
-
 def main(argv=None) -> int:
     """CLI entry: compile ``--arch`` for the engine target, serve a
     synthetic queue, print (or ``--json``-dump) the metrics summary."""
@@ -127,6 +111,7 @@ def main(argv=None) -> int:
 
     import torch.distributed as dist
     import repro_torch
+    from repro_torch.launch.mesh import init_group
     from repro_torch.configs import get_config
     from repro_torch.serve import Request
 
@@ -142,7 +127,7 @@ def main(argv=None) -> int:
     mesh = repro_torch.MeshSpec.parse(args.mesh) if args.mesh else None
     rules = (parse_sharding_rules(args.sharding_rules)
              if args.sharding_rules else None)
-    device = _init_group(args.device) if mesh else args.device
+    device = init_group(args.device) if mesh else args.device
     rank = dist.get_rank() if dist.is_initialized() else 0
     out = sys.stdout if rank == 0 else None
 

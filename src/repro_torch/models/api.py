@@ -43,6 +43,51 @@ def _as_tensor(v, device):
     return v if v is None else torch.as_tensor(v, device=device)
 
 
+def _batch_share(labels, ignore_id: int = -1):
+    """In the mesh train step (each rank holds its rows of the batch):
+    the global batch's unmasked labels over the number of row parts, so
+    that the mean over ranks of each rank's cross-entropy is the global
+    batch's mean (each rank's own count where the counts are equal);
+    else None (these labels' count)."""
+    from ..distributed.sharding import BATCH_AXES, local_batch
+    split = local_batch()
+    if split is None:
+        return None
+    from ..dist.collectives import reduce_from_model
+    mesh, k, _ = split
+    n = torch.sum((labels != ignore_id).float()).detach()
+    return torch.clamp(reduce_from_model(n, BATCH_AXES, mesh), min=1.0) / k
+
+
+class _FirstShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from ..dist.collectives import broadcast
+        from ..distributed.sharding import BATCH_AXES
+        return broadcast(x.detach(), BATCH_AXES, mesh, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _first_shard(aux):
+    """The MoE aux loss as the mesh train step reports it where each row
+    part routes its rows alone (a mesh with a ``model`` axis): the first
+    ``batch`` part's value on every rank, with each rank's own value's
+    gradient.  The reference's expert-parallel ``shard_map`` declares
+    its aux output replicated, so its loss holds the first data shard's
+    aux while its gradient averages every shard's.  Elsewhere (one
+    device, serving, or the whole microbatch routed on a mesh without
+    ``model``) the aux loss is the same on every rank, as it is."""
+    from ..distributed.sharding import local_batch, mesh_axis_names
+    split = local_batch()
+    if split is None or "model" not in mesh_axis_names(split[0]) or \
+            not isinstance(aux, torch.Tensor):
+        return aux
+    return _FirstShard.apply(aux, split[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -79,18 +124,25 @@ class Model:
         ``batch["labels"]``, plus the MoE's aux loss, plus 0.1 x the
         multi-token-prediction head's cross-entropy against the labels
         one step on where the config has one (the reference's
-        ``Model.loss``)."""
+        ``Model.loss``).  In the mesh train step ``batch`` is this
+        rank's rows: the cross-entropies divide by the global batch's
+        share of unmasked labels, and the aux loss is the whole
+        microbatch's or, where each row part routes alone, the first
+        part's (:func:`_first_shard`); the mean over the ``batch`` ranks
+        is then the reference's loss."""
         device = params["embed"].device
         logits, extras = self.forward(params, batch)
         labels = _as_tensor(batch["labels"], device)
-        loss = C.cross_entropy(logits, labels)
-        loss = loss + extras.get("aux_loss", 0.0)
+        count = _batch_share(labels)
+        loss = C.cross_entropy(logits, labels, count=count)
+        aux = extras.get("aux_loss", 0.0)
+        loss = loss + (_first_shard(aux) if self.cfg.n_experts else aux)
         if self.cfg.mtp and "mtp_hidden" in extras:
             mtp = self.mod.mtp_logits(
                 self.cfg, params, extras["mtp_hidden"],
                 _as_tensor(batch["tokens"], device))
             loss = loss + 0.1 * C.cross_entropy(
-                mtp, torch.roll(labels, -1, dims=1))
+                mtp, torch.roll(labels, -1, dims=1), count=count)
         return loss
 
     # -- serving -------------------------------------------------------

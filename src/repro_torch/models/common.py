@@ -141,9 +141,17 @@ def maybe_remat(cfg, fn):
         if not torch.is_grad_enabled():
             return fn(*args)
         from torch.utils.checkpoint import checkpoint
+        from ..distributed.sharding import current_context, use_context
+        ctx = current_context()
+
+        def body(*a):
+            # the recompute may run on autograd's device thread: it sees
+            # the mesh (and the rows' placement) of the forward
+            with use_context(ctx):
+                return fn(*a)
         kw = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
         # the layers draw no random numbers, so no RNG state is kept
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(body, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
     return run
 
@@ -491,12 +499,16 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_id: int = -1) -> torch.Tensor:
-    """Mean token cross-entropy; logits (B,S,V) f32, labels (B,S) int."""
+                  ignore_id: int = -1, count=None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B,S,V) f32, labels (B,S) int.
+    ``count``: the number of unmasked labels to divide by (default:
+    these labels'; the mesh train step gives its global batch's share)."""
     m = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(m, -1, labels.long().clamp(min=0)[..., None])[..., 0]
     mask = (labels != ignore_id).float()
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if count is None:
+        count = torch.clamp(torch.sum(mask), min=1.0)
+    return -torch.sum(ll * mask) / count
 
 
 # ---------------------------------------------------------------------------
@@ -524,16 +536,19 @@ def row_parallel_out(h, w, tp_psum: bool = False):
     contracts its part of that dim (h whole, or already this rank's part
     of it, as :func:`col_parallel_in` gives it) with its rows of ``w``,
     and the partial products are summed over ``model`` in h's dtype (the
-    reference's ``shard_map`` with an explicit ``psum``)."""
+    reference's ``shard_map`` with an explicit ``psum``).  Under autograd
+    a whole h's part gathers its gradient back whole, and the sum passes
+    the output's gradient on to every rank's part."""
     split = _model_split(tp_psum, (w.shape[0],))
     if split is None:
         return torch.matmul(h, w.to(h.dtype))
-    from ..dist.collectives import all_reduce, local_part
+    from ..dist.collectives import reduce_from_model, split_to_model
+    from ..distributed.sharding import split_param
     mesh, k, i = split
     if h.shape[-1] == w.shape[0]:
-        h = local_part(h, k, i, -1)
-    y = torch.matmul(h, local_part(w, k, i, 0).to(h.dtype))
-    return all_reduce(y, ("model",), mesh)
+        h = split_to_model(h, ("model",), mesh, -1)
+    y = torch.matmul(h, split_param(w, k, i, 0).to(h.dtype))
+    return reduce_from_model(y, ("model",), mesh)
 
 
 def col_parallel_in(x, weights, tp_psum: bool = False):
@@ -541,13 +556,16 @@ def col_parallel_in(x, weights, tp_psum: bool = False):
     Under ``tp_psum`` on a live mesh each output is this rank's part of
     its columns, as the reference's ``out_specs`` keep it, and only
     :func:`row_parallel_out` reduces: a consumer that needs the outputs
-    whole calls it without ``tp_psum``."""
+    whole calls it without ``tp_psum``.  Under autograd x's gradient,
+    each rank's columns' part, is summed over ``model``."""
     split = _model_split(tp_psum, [w.shape[-1] for w in weights])
     if split is None:
         return [torch.matmul(x, w.to(x.dtype)) for w in weights]
-    from ..dist.collectives import local_part
-    _, k, i = split
-    return [torch.matmul(x, local_part(w, k, i, -1).to(x.dtype))
+    from ..dist.collectives import copy_to_model
+    from ..distributed.sharding import split_param
+    mesh, k, i = split
+    x = copy_to_model(x, ("model",), mesh)
+    return [torch.matmul(x, split_param(w, k, i, -1).to(x.dtype))
             for w in weights]
 
 

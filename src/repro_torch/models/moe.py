@@ -7,8 +7,12 @@ On a live mesh with a ``model`` axis (``distributed.sharding.use_mesh``)
 it is the reference's expert-parallel ``shard_map``, written out: the
 activations are whole on every rank, each rank routes every token but
 runs only its own experts' FFNs, and a sum over ``model`` combines the
-outputs (the aux loss is averaged over ``model``).  Two modes, chosen
-from (E, model) as the reference's:
+outputs (the aux loss, the same on every ``model`` rank, is the
+reference's mean over ``model``).  Under autograd the routing weights
+and the tokens sent to the experts sum their gradients over ``model``
+(each rank's experts see only their own tokens), so the router's and
+the input's gradients are whole on every rank.  Two modes, chosen from
+(E, model) as the reference's:
 
 * **EP** (E % model == 0): rank r holds experts
   ``[r·E/model, (r+1)·E/model)``;
@@ -17,9 +21,20 @@ from (E, model) as the reference's:
 
 The ``batch`` rows stay local to ``data``: each data rank routes its
 own rows (so capacity counts them alone, as the reference's shards do)
-and the outputs are gathered over ``data``.  Weights may arrive whole
-(each rank takes its part) or already cut to this rank's part
-(:func:`local_experts`), which is how a rank holds only its experts.
+and the outputs are gathered over ``data``.  In the mesh train step a
+rank's inputs are already its rows (``use_mesh(..., local_batch=True)``)
+and the step owns the row split: on a mesh with a ``model`` axis the MoE
+routes the rows it is given and gathers nothing (the reference's
+``shard_map``, whose ``batch`` spec splits the rows, even where
+``model`` is 1); on a mesh without one it gathers the microbatch's rows
+over the ``batch`` axes, routes them whole as the reference's GSPMD
+program does (capacity and aux loss those of the whole microbatch), and
+keeps its own rows of the output (:func:`whole_microbatch`).  Weights
+may arrive whole
+(each rank takes its part, recorded by ``sharding.split_param`` for the
+gradient reduce) or already cut to this rank's part
+(:func:`local_experts`), which is how a training rank holds only its
+experts and their moments.
 
 Capacity-based token dropping (``cfg.moe_cf``) keeps every shape static;
 which tokens drop depends on the order slots are counted in, which is
@@ -33,8 +48,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import current_mesh, mesh_axis_names, \
-    mesh_axis_size
+from ..distributed.sharding import BATCH_AXES, current_mesh, local_batch, \
+    mesh_axis_names, mesh_axis_size, split_param
 from . import common as C
 
 #: The routed experts' weights: (expert dim, hidden-width dim), counted
@@ -105,15 +120,20 @@ def local_experts(p, cfg, mesh=None):
     split = _expert_split(cfg, current_mesh() if mesh is None else mesh)
     if split is None:
         return p
-    from ..dist.collectives import local_part
     k, i, ep = split
     out = dict(p)
-    for name, (e_dim, f_dim) in _EXPERT_DIMS.items():
-        dim, whole = ((e_dim, cfg.n_experts) if ep
-                      else (f_dim, cfg.moe_d_ff))
+    for name, (dim, whole) in expert_dims(cfg, ep).items():
         if p[name].shape[dim] == whole:
-            out[name] = local_part(p[name], k, i, dim)
+            out[name] = split_param(p[name], k, i, dim)
     return out
+
+
+def expert_dims(cfg, ep: bool):
+    """name -> (the dim the ``model`` axis cuts, its whole size) of each
+    routed expert weight: the expert dim (EP) or the hidden width
+    (TP)."""
+    return {name: ((e_dim, cfg.n_experts) if ep else (f_dim, cfg.moe_d_ff))
+            for name, (e_dim, f_dim) in _EXPERT_DIMS.items()}
 
 
 def _top_k(scores: torch.Tensor, k: int):
@@ -168,14 +188,20 @@ def _expert_ffn(cfg, buf, wi_gate, wi_up, wo):
 def _moe_local(cfg, x, router, wi_gate, wi_up, wo, *, e_offset=0,
                axis=None):
     """The reference's per-shard MoE: x (T_local, D), this rank's
-    experts ``[e_offset, e_offset + E_local)``; the output summed and
-    the aux loss averaged over the mesh axis ``axis`` of the active
-    mesh (None on one device)."""
+    experts ``[e_offset, e_offset + E_local)``; the output summed over
+    the mesh axis ``axis`` of the active mesh (None on one device).  The
+    aux loss is the same on every rank of ``axis`` (each routes the same
+    tokens), the reference's mean over it."""
     t, d = x.shape
     e_local = wi_gate.shape[0]
     cap = max(1, int(t * cfg.top_k * cfg.moe_cf / cfg.n_experts))
 
     idx, w, aux = _route(cfg, x, router)                 # global expert ids
+    if axis is not None:
+        from ..dist.collectives import copy_to_model
+        mesh = current_mesh()
+        w = copy_to_model(w, (axis,), mesh)
+        x = copy_to_model(x, (axis,), mesh)
     pos = _positions(cfg, idx)                           # (T, k)
 
     flat_e = idx.reshape(-1)
@@ -203,14 +229,21 @@ def _moe_local(cfg, x, router, wi_gate, wi_up, wo, *, e_offset=0,
     yk = gathered[slot] * (w.reshape(-1, 1) * mine[:, None]).to(x.dtype)
     y = torch.sum(yk.reshape(t, cfg.top_k, d), dim=1)
     if axis is not None:
-        from ..dist.collectives import all_reduce
-        mesh = current_mesh()
-        y = all_reduce(y, (axis,), mesh)
-        aux = all_reduce(aux, (axis,), mesh) / mesh.split((axis,))[0]
+        from ..dist.collectives import reduce_from_model
+        y = reduce_from_model(y, (axis,), mesh)
     return y, aux
 
 
-_BATCH_AXES = ("pod", "data")
+def whole_microbatch():
+    """(mesh, parts, this rank's part) of the ``batch`` rows when this
+    rank holds only its rows (the mesh train step) and the reference
+    routes the whole microbatch: a mesh with no ``model`` axis, where no
+    ``shard_map`` splits the rows.  None otherwise, where a rank routes
+    the rows it is given."""
+    split = local_batch()
+    if split is None or "model" in mesh_axis_names(split[0]):
+        return None
+    return split
 
 
 def moe_apply(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -219,20 +252,31 @@ def moe_apply(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
     flat = x.reshape(b * s, d)
     mesh = current_mesh()
     split = _expert_split(cfg, mesh)
-    if split is None:
+    whole = whole_microbatch()
+    if whole is not None:
+        from ..dist.collectives import gather_rows, local_part
+        # every rank's loss reads the gathered rows (the aux loss), so
+        # each rank's rows take the sum of the ranks' gradients
+        rows = gather_rows(flat, BATCH_AXES, whole[0], dim=0, sum_grad=True)
+        y, aux = _moe_local(cfg, rows, p["router"], p["wi_gate"],
+                            p["wi_up"], p["wo"])
+        y = local_part(y, *whole[1:], 0)
+    elif split is None:
         y, aux = _moe_local(cfg, flat, p["router"], p["wi_gate"],
                             p["wi_up"], p["wo"])
     else:
-        from ..dist.collectives import all_gather, local_part
+        from ..dist.collectives import gather_rows, local_part
         k, i, ep = split
         lp = local_experts(p, cfg, mesh)
-        kd, idd = mesh.split(_BATCH_AXES)
-        rows = local_part(flat, kd, idd, 0) if kd > 1 else flat
+        # the train step's rows are this rank's already; serving's whole
+        own = local_batch() is not None or mesh.split(BATCH_AXES)[0] == 1
+        rows = flat if own else local_part(flat, *mesh.split(BATCH_AXES), 0)
         y, aux = _moe_local(cfg, rows, p["router"], lp["wi_gate"],
                             lp["wi_up"], lp["wo"],
                             e_offset=i * (cfg.n_experts // k) if ep else 0,
                             axis="model")
-        y = all_gather(y, _BATCH_AXES, mesh, dim=0)
+        if not own:
+            y = gather_rows(y, BATCH_AXES, mesh, dim=0)
     y = y.reshape(b, s, d)
     if cfg.n_shared:
         sp = p["shared"]

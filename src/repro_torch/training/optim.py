@@ -75,18 +75,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def adamw_update(cfg: OptConfig, params, grads, opt, inplace: bool = False):
+def adamw_update(cfg: OptConfig, params, grads, opt, inplace: bool = False,
+                 grad_norm=None):
     """One AdamW step; returns ``(params, opt, metrics)`` with metrics
     ``{"lr", "grad_norm"}`` as 0-d tensors.  The step count is
-    incremented first; gradients are clipped by their global f32 norm;
-    the moments are f32 and bias-corrected; weight decay is decoupled
-    and applies to leaves of two or more dims only; each param goes back
-    to its own dtype.  ``inplace`` writes ``params``, ``m``, ``v`` and
-    the step count where they lie (each keeping its dtype) and returns
-    the same trees."""
+    incremented first; gradients are clipped by their global f32 norm
+    (``grad_norm`` where the caller gives it: a mesh rank that holds
+    part of some leaves reduces their squares over the mesh); the
+    moments are f32 and bias-corrected; weight decay is decoupled and
+    applies to leaves of two or more dims only; each param goes back to
+    its own dtype.  ``inplace`` writes ``params``, ``m``, ``v`` and the
+    step count where they lie (each keeping its dtype) and returns the
+    same trees."""
     step = opt["step"] + 1
     lr = schedule_lr(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

@@ -13,7 +13,8 @@ JAX package's, on the CPU.
   published widths (meta device, nothing allocated);
 * the SSM, hybrid and audio families (ported after the others) build,
   count and compile (their parity is ``test_torch_families.py``); the
-  loss is in (A.15a) and a mesh train step raises naming A.15b; ``serve()``
+  loss is in (A.15a) and the mesh train step (A.15b) refuses a mesh its
+  process group cannot fill with ``MeshUnavailableError``; ``serve()``
   returns a scheduler and the deprecated ``Engine`` delegates to one
   (the scheduler's parity is ``test_torch_serve.py``).
 """
@@ -402,16 +403,17 @@ def test_later_items_raise_naming_them():
     params = m.init(0, "cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
              "labels": torch.ones((1, 4), dtype=torch.int32)}
-    # A.15a is in: the loss with its multi-token-prediction term; a train
-    # step over a mesh of more than one device names A.15b.
+    # A.15a is in: the loss with its multi-token-prediction term.  A.15b
+    # is in: without a process group a mesh of two devices is refused.
     assert bool(torch.isfinite(m.loss(params, batch)))
     _, extras = m.forward(params, batch)
     from repro_torch.models import transformer
     mtp = transformer.mtp_logits(cfg, params, extras["mtp_hidden"],
                                  batch["tokens"])
     assert mtp.shape == (1, 4, cfg.vocab)
+    from repro_torch.dist import MeshUnavailableError
     from repro_torch.training import TrainConfig, make_jitted_train_step
-    with pytest.raises(NotImplementedError, match="A.15b"):
+    with pytest.raises(MeshUnavailableError, match="data"):
         make_jitted_train_step(m, TrainConfig(), mesh="data=2")
     # A.14b is in: the logical axes of every param and cache leaf.
     assert set(dict(PC.tree_flatten(m.param_axes()))) == set(

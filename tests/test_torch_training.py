@@ -14,7 +14,8 @@ package's, on the CPU.
   norm carry the comparison.  Ports of the reference's microbatching,
   compression and loss-goes-down tests.
 * ``donate=True`` keeps every state tensor's storage and equals
-  ``donate=False``; a mesh of more than one device raises naming A.15b.
+  ``donate=False``; a mesh of more than one device raises
+  ``MeshUnavailableError`` without a process group to fill it.
 * The launcher: a 10-step run sent SIGTERM in the middle of step 5's
   in-place update saves step 5 whole and exits 143; resumed to 10, it
   logs the losses of an uninterrupted run and leaves its final
@@ -393,8 +394,11 @@ def test_donate_updates_in_place_and_equals_new_tensors(mode):
 
 @pytest.mark.parametrize("mesh", ["data=2", "data=2,model=2", "model=4"])
 def test_mesh_of_more_than_one_device_raises(mesh):
+    """Without a process group one device is visible: a larger mesh is
+    refused with the typed error, never trained on one rank."""
+    from repro_torch.dist import MeshUnavailableError
     m = get_model(get_config("minicpm-2b", smoke=True))
-    with pytest.raises(NotImplementedError, match="A.15b"):
+    with pytest.raises(MeshUnavailableError, match="needs"):
         make_jitted_train_step(m, TrainConfig(), mesh=mesh)
 
 
