@@ -126,11 +126,30 @@ JAX package.  Every phase prints one JSON line (also written to
                  holding its 4 experts' state: the loss, every gradient
                  leaf and one step's grad_norm and params against one
                  device, state and peak GB a rank; (tm2) minicpm-2b at
-                 its widths, 12 of 40 layers, on ``data=2``: 3 steps of 4
+                 its widths, 6 of 40 layers, on ``data=2``: 3 steps of 4
                  x 512 tokens, step 1's loss and grad_norm against one
                  device, step ms, tokens/s, the gradient reduce's bytes
                  and ms, peak GB a rank.  No kernel of ``csrc/`` is on
                  this path.
+   ``dryrun``    the dry-run (``repro_torch.launch.dryrun``).  In a
+                 process of their own (``--dryrun-cell``, at a low
+                 priority) started after the build, beside the phases
+                 before this one (they trace on the host, on fake
+                 tensors): (d1) the qwen2.5-14b x train_4k x single cell
+                 counted at rank 0 of the 16x16 mesh's fake group of 256
+                 ranks on fake cuda tensors: the record, its traces'
+                 seconds and depths, and the rank's argument bytes
+                 beside the card's 80 GB; (d3) minicpm-2b at its widths,
+                 4 layers, 2 microbatches of 1 x 512: the counts weighed
+                 from the traced depths equal the step traced whole;
+                 (d2)'s fake counts.  Then, in this process (``python3
+                 chip_smoke.py --dryrun`` runs the whole phase alone),
+                 (d2) minicpm-2b, 2 layers, one 1 x 512 train step on
+                 one device (3.4 GB, freed after): FLOPs, HBM bytes and
+                 collective bytes counted on real cuda tensors equal the
+                 dry-run's on fake cuda ones (FLOPs on fake cpu ones
+                 too), the step's median ms beside the record's bound.
+                 No kernel of ``csrc/`` is on this path.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
                  plan (paths, K splits, ragged and unaligned shapes);
@@ -5065,10 +5084,12 @@ TM1_BATCH = (4, 16)
 TM_STEPS = 3
 #: (tm2): minicpm-2b at its published widths on data=2, depth cut from
 #: 40 layers to TM2[3] (each of the two ranks holds its whole state on
-#: the one card): global batch x tokens x steps x layers, WSD warm-up
-#: over the steps to TRAIN_LR; step 1's loss and grad_norm against the
-#: one-device step on the same batch and params.
-TM2 = (4, 512, 3, 12)
+#: the one card; 6 rather than 12 layers since the dry-run phase, to
+#: keep the script's time: the reduce's GB/s is what it measures):
+#: global batch x tokens x steps x layers, WSD warm-up over the steps to
+#: TRAIN_LR; step 1's loss and grad_norm against the one-device step on
+#: the same batch and params.
+TM2 = (4, 512, 3, 6)
 TM2_LOSS_TOL = 1e-4
 TM2_NORM_TOL = 1e-2
 #: (tm3): mixtral-8x22b at its widths on model=2, expert-parallel, f32,
@@ -5582,6 +5603,280 @@ def phase_train_mesh():
     return phase_child("--train-mesh", TRAIN_MESH_TIMEOUT_S, "train_mesh")
 
 
+# ---------------------------------------------------------------------------
+# The dryrun phase (``python3 chip_smoke.py --dryrun`` runs it alone)
+# ---------------------------------------------------------------------------
+#: (d1): the reference's one committed dry-run cell (arch, shape, mesh),
+#: counted at rank 0 of the production mesh's fake group on fake cuda
+#: tensors.  It and (d3) run in a process of their own
+#: (``--dryrun-cell``): the full script starts it after the build and
+#: collects it after the train_mesh phase (they work on the host, beside
+#: the phases' work on the card).
+DRY_CELL = ("qwen2.5-14b", "train_4k", "single")
+#: (d2): minicpm-2b at its published widths cut to DRY_D2[0] layers, one
+#: train step of DRY_D2[1] x DRY_D2[2] tokens on one device, counted on
+#: real cuda tensors here and on fake cuda (and, its FLOPs, fake cpu)
+#: ones beside (d1); median ms of DRY_D2_RUNS steps after one warm-up.
+DRY_D2 = (2, 1, 512)
+DRY_D2_RUNS = 3
+#: (d3): minicpm-2b cut to DRY_D3[0] layers, DRY_D3[1] microbatches of
+#: one DRY_D3[2]-token row: the counts weighed from the dry-run's traced
+#: depths against the step traced whole, on fake cuda tensors.
+DRY_D3 = (4, 2, 512)
+#: The phase's time on the card should stay under DRY_BUDGET_S (it is
+#: reported, not enforced); the watchdog kills (d1)'s process
+#: DRY_CELL_TIMEOUT_S after the script starts to wait for it.
+DRY_BUDGET_S = 45
+DRY_CELL_TIMEOUT_S = 120
+_DRY_TERMS = ("compute_s", "memory_s", "collective_s", "step_time_bound_s",
+              "roofline_fraction", "useful_flops_ratio")
+
+
+def _dry_counts(cost):
+    """The counts the dry-run holds equal: FLOPs, HBM bytes and the
+    collective bytes by kind."""
+    return {"flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+            "collective_bytes": dict(cost.collective_bytes)}
+
+
+def dryrun_cell_main() -> int:
+    """(d2)'s fake half, (d3), then (d1), in their own process (they
+    trace on the host, on fake tensors): a JSON row each."""
+    import torch
+    from repro_torch.launch import cells
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import CHIP_HBM_BYTES, \
+        production_mesh_spec
+    if not torch.cuda.is_available():
+        print("chip_smoke --dryrun-cell: no CUDA device", file=sys.stderr)
+        return 2
+    # host work beside the phases on the card: yield the cores to them
+    os.nice(10)
+    torch.set_num_threads(1)
+    print(json.dumps(_dry_d2_fake()), flush=True)
+    print(json.dumps(_dry_d3()), flush=True)
+    arch, shape, kind = DRY_CELL
+    spec = production_mesh_spec(multi_pod=kind == "multi")
+    t0 = time.perf_counter()
+    with cells.dry_group(spec, 0, "cuda") as live:
+        rec = run_cell(arch, shape, kind, None, device="cuda", mesh=live)
+    args = rec.get("memory_analysis", {}).get("argument_size_in_bytes", 0)
+    print(json.dumps({"phase": "dryrun", "case": "d1", **rec,
+                      "cuda_initialized": torch.cuda.is_initialized(),
+                      "chip_hbm_bytes": CHIP_HBM_BYTES,
+                      "argument_over_chip_hbm": args / CHIP_HBM_BYTES,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def _dry_d1_problems(row) -> list:
+    import math
+    if row is None:
+        return ["dryrun d1: no record"]
+    problems = []
+    if row.get("status") != "ok" or row.get("device") != "cuda" \
+            or row.get("chips") != 256 or row.get("rank") != 0:
+        problems.append(f"dryrun d1: status {row.get('status')} on "
+                        f"{row.get('device')}, {row.get('chips')} chips, "
+                        f"rank {row.get('rank')}")
+    if not all(isinstance(row.get(k), (int, float))
+               and math.isfinite(row[k]) and row[k] > 0
+               for k in _DRY_TERMS + ("flops_per_device",
+                                      "bytes_per_device")):
+        problems.append("dryrun d1: a roofline term is not a positive "
+                        "finite number")
+    if row.get("bottleneck") not in ("compute", "memory", "collective"):
+        problems.append(f"dryrun d1: bottleneck {row.get('bottleneck')}")
+    if not row.get("traced") or row.get("depth") != {"layer": 48} \
+            or row.get("microbatches") != 8:
+        problems.append("dryrun d1: traced depths missing or the cell's "
+                        "depth is not 48 layers x 8 microbatches")
+    return problems
+
+
+def _dry_d2_config():
+    import dataclasses
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.training import TrainConfig
+    layers, b, s = DRY_D2
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=layers)
+    return cfg, ShapeSpec(f"train_{b}x{s}", s, b, "train"), \
+        TrainConfig(microbatches=1)
+
+
+def _dry_d2_fake():
+    """(d2)'s fake half, on the host: the dry-run's count of the step
+    (``lower_cell`` on fake cuda tensors), its FLOPs traced on fake cpu
+    tensors, and the record's bound."""
+    from repro_torch.launch import cells
+    cfg, shape, tc = _dry_d2_config()
+    fake = cells.lower_cell(cfg, shape, None, tc, device=DEVICE)
+    cpu = cells.trace_program(cfg, shape, None, tc, device="cpu")
+    rec = cells.analyze(fake, cfg, shape)
+    return {"phase": "dryrun", "case": "d2_fake",
+            "fake_cuda": _dry_counts(fake.cost), "fake_ops": fake.cost.ops,
+            "fake_cpu_flops": cpu.cost.flops,
+            "step_time_bound_s": rec["step_time_bound_s"],
+            "bottleneck": rec["bottleneck"]}
+
+
+def _dry_d2(torch, np):
+    """(d2)'s real half, on the card: the step counted on real cuda
+    tensors, and its ms (median of DRY_D2_RUNS after a warm-up)."""
+    import statistics as st
+    from repro_torch.launch.op_analysis import analyze_trace
+    from repro_torch.models import get_model
+    from repro_torch.training import init_state, make_jitted_train_step
+    cfg, shape, tc = _dry_d2_config()
+    model = get_model(cfg)
+    state = init_state(model, 0, DEVICE)
+    rng = np.random.default_rng(0)
+    b, s = shape.global_batch, shape.seq_len
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (b, s),
+                                             dtype=np.int32), device=DEVICE)
+             for k in ("tokens", "labels")}
+    step = make_jitted_train_step(model, tc, donate=True)
+    step(state, batch)
+    torch.cuda.synchronize()
+    _, real = analyze_trace(step, state, batch)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(DRY_D2_RUNS):
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "dryrun", "case": "d2", "arch": "minicpm-2b",
+            "layers": cfg.num_layers, "batch": [b, s],
+            "real": _dry_counts(real.cost), "real_ops": real.cost.ops,
+            "step_ms": ms, "step_ms_median": st.median(ms)}
+
+
+def _dry_d2_join(real, fake) -> list:
+    """Complete (d2)'s row ``real`` from the fake half's row; its
+    problems."""
+    if fake is None:
+        return ["dryrun d2: no fake count"]
+    real.update({k: fake[k] for k in ("fake_cuda", "fake_ops",
+                                      "fake_cpu_flops", "step_time_bound_s",
+                                      "bottleneck")})
+    real["measured_over_bound"] = (real["step_ms_median"] / 1e3
+                                   / fake["step_time_bound_s"])
+    problems = []
+    if real["real"] != real["fake_cuda"]:
+        problems.append("dryrun d2: real and fake cuda counts differ")
+    if real["fake_cpu_flops"] != real["real"]["flops"]:
+        problems.append("dryrun d2: fake cpu FLOPs differ from the real "
+                        "step's")
+    return problems
+
+
+def _dry_d3():
+    """(d3): the weighing of traced depths against a whole trace, on
+    fake cuda tensors."""
+    import dataclasses
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import cells
+    from repro_torch.training import TrainConfig
+    layers, n, s = DRY_D3
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=layers)
+    shape = ShapeSpec(f"train_{n}x{s}", s, n, "train")
+    tc = TrainConfig(microbatches=n)
+    t0 = time.perf_counter()
+    weighed = cells.lower_cell(cfg, shape, None, tc, device=DEVICE)
+    t1 = time.perf_counter()
+    whole = cells.trace_program(cfg, shape, None, tc, device=DEVICE)
+    row = {"phase": "dryrun", "case": "d3", "arch": "minicpm-2b",
+           "layers": layers, "microbatches": n, "tokens": s,
+           "traced": weighed.traced, "weighed": _dry_counts(weighed.cost),
+           "whole": _dry_counts(whole.cost), "weighed_s": t1 - t0,
+           "whole_s": time.perf_counter() - t1}
+    return row
+
+
+def start_dryrun_cell():
+    """Start (d2)'s fake half, (d3) and (d1) in a process of their own;
+    they trace on the host and run beside the phases before the dryrun
+    phase."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--dryrun-cell"], cwd=ROOT,
+                            stdout=subprocess.PIPE, text=True)
+
+
+def finish_dryrun_cell(cell, say, d2) -> list:
+    """Wait for the cell's rows, complete (d2)'s row ``d2`` with its fake
+    half, pass the rows to ``say`` and return their problems (the process
+    is killed after DRY_CELL_TIMEOUT_S more seconds)."""
+    try:
+        out, _ = cell.communicate(timeout=DRY_CELL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        cell.kill()
+        out, _ = cell.communicate()
+    rows = {}
+    for line in out.splitlines():
+        try:
+            row = json.loads(line)
+        except ValueError:
+            print(line, flush=True)
+            continue
+        rows[row.get("case")] = row
+    problems = [] if cell.returncode == 0 else [
+        f"dryrun --dryrun-cell exited {cell.returncode}"]
+    problems += _dry_d2_join(d2, rows.pop("d2_fake", None))
+    for row in [d2] + list(rows.values()):
+        say(row)
+    d3 = rows.get("d3")
+    if d3 is None or d3["weighed"] != d3["whole"]:
+        problems.append("dryrun d3: the weighed counts differ from the "
+                        "whole trace's")
+    return problems + _dry_d1_problems(rows.get("d1"))
+
+
+def dryrun_main() -> int:
+    """The dryrun phase alone (``--dryrun``): the fake tracing in a
+    process of its own while (d2)'s real step runs here."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --dryrun: no CUDA device", file=sys.stderr)
+        return 2
+    say = lambda row: print(json.dumps(row), flush=True)
+    cell = start_dryrun_cell()
+    try:
+        problems = _dry_phase(torch, np, cell, say)
+    finally:
+        if cell.poll() is None:
+            cell.kill()
+            cell.wait()
+    if problems:
+        raise SystemExit("dryrun phase failed: " + "; ".join(problems))
+    return 0
+
+
+def _dry_phase(torch, np, cell, say) -> list:
+    """(d2)'s real half here, then the rest from ``cell``; each row to
+    ``say``, then the phase's seconds."""
+    t0 = time.perf_counter()
+    d2 = _dry_d2(torch, np)
+    t1 = time.perf_counter()
+    problems = finish_dryrun_cell(cell, say, d2)
+    say({"phase": "dryrun", "case": "time",
+         "seconds": time.perf_counter() - t0,
+         "d1_wait_s": time.perf_counter() - t1, "budget_s": DRY_BUDGET_S})
+    return problems
+
+
+def phase_dryrun(cell):
+    """The dryrun phase, in this process: (d2)'s real step, then the
+    fake traces ``cell`` (:func:`start_dryrun_cell`) has made beside the
+    phases before it."""
+    import numpy as np
+    import torch
+    return _dry_phase(torch, np, cell, emit)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5596,8 +5891,15 @@ def main() -> int:
                          "f32 comparisons need it off")
     phase_card(torch)
     phase_build()
-    engine_problems = (phase_engine() + phase_serve() + phase_shard()
-                       + phase_mesh() + phase_train() + phase_train_mesh())
+    cell = start_dryrun_cell()
+    try:
+        engine_problems = (phase_engine() + phase_serve() + phase_shard()
+                           + phase_mesh() + phase_train()
+                           + phase_train_mesh() + phase_dryrun(cell))
+    finally:
+        if cell.poll() is None:
+            cell.kill()
+            cell.wait()
     errs = {}
     errs["fused_matmul"], errs["fast_act"], problems = phase_check(torch, np)
     problems += engine_problems
@@ -5685,6 +5987,10 @@ if __name__ == "__main__":
         sys.exit(train_main())
     if sys.argv[1:] == ["--train-mesh"]:
         sys.exit(train_mesh_main())
+    if sys.argv[1:] == ["--dryrun"]:
+        sys.exit(dryrun_main())
+    if sys.argv[1:] == ["--dryrun-cell"]:
+        sys.exit(dryrun_cell_main())
     if sys.argv[1:2] == ["--train-mesh-rank"]:
         sys.exit(train_mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                       sys.argv[4]))

@@ -128,8 +128,10 @@ class LiveMesh:
     def stages(self, device) -> bool:
         """True when a collective of a tensor on ``device`` goes through a
         host copy: a CUDA tensor over gloo, whose collectives take host
-        tensors."""
-        return torch.device(device).type == "cuda" and self.backend != "nccl"
+        tensors.  Not over NCCL, nor over the ``fake`` backend of a
+        dry-run, which stands for one card a rank over NCCL."""
+        return (torch.device(device).type == "cuda"
+                and self.backend not in ("nccl", "fake"))
 
     @property
     def staged(self) -> bool:

@@ -99,7 +99,8 @@ def _train(args, device) -> int:
         microbatches=args.microbatches,
         compress_grads=args.compress_grads)
     mesh = host_mesh_spec() if args.mesh == "host" else None
-    step_fn = make_jitted_train_step(model, tc, mesh=mesh, donate=True)
+    step_fn = make_jitted_train_step(model, tc, mesh=mesh, donate=True,
+                                     device=device)
     live = getattr(step_fn, "mesh", None)
     writer = not dist.is_initialized() or dist.get_rank() == 0
 

@@ -148,20 +148,23 @@ def _accumulate(model: Model, tc: TrainConfig, params, batch,
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     cut = [False] * len(leaves)
     for i in range(n):
-        mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-              for k, v in batch.items()}
-        loss, grads, mb_cut = _grad_fn(model, tc, params, mb, record)
-        cut = [a or b for a, b in zip(cut, mb_cut)]
-        for j, g in enumerate(grads):
-            if tc.compress_grads:
-                # quantize with error feedback: e <- (g+e) - bf16(g+e)
-                corrected = g.float() + err[j]
-                q = corrected.to(torch.bfloat16)
-                err[j] = corrected - q.float()
-                acc[j] = acc[j] + q
-            else:
-                acc[j] = acc[j] + g.float()
-        loss_sum = loss_sum + loss
+        # one region a microbatch: the dry-run's op counter takes what
+        # one more microbatch adds from it (launch/op_analysis.py)
+        with torch.profiler.record_function("microbatch"):
+            mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                  for k, v in batch.items()}
+            loss, grads, mb_cut = _grad_fn(model, tc, params, mb, record)
+            cut = [a or b for a, b in zip(cut, mb_cut)]
+            for j, g in enumerate(grads):
+                if tc.compress_grads:
+                    # quantize with error feedback: e <- (g+e) - bf16(g+e)
+                    corrected = g.float() + err[j]
+                    q = corrected.to(torch.bfloat16)
+                    err[j] = corrected - q.float()
+                    acc[j] = acc[j] + q
+                else:
+                    acc[j] = acc[j] + g.float()
+            loss_sum = loss_sum + loss
     return loss_sum / n, [a.float() / n for a in acc], cut
 
 
@@ -322,7 +325,7 @@ def _grad_norm(grads: Sequence[torch.Tensor], parted: Sequence[bool],
 
 
 def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
-                         donate: bool = True) -> Callable:
+                         donate: bool = True, device="cuda") -> Callable:
     """The train step of one rank of a live ``mesh`` (module docstring):
     ``step(state, batch)`` with ``batch`` this rank's rows
     (:func:`local_batch`) and ``state`` the rank's part
@@ -333,11 +336,20 @@ def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
     (``step.layout``) and the paths of the leaves whose gradients its
     last call summed over ``model`` (``step.cut_leaves``).  A spec is
     bound to the default process group, which must hold exactly its
-    ranks (``MeshUnavailableError`` when it holds fewer)."""
+    ranks (``MeshUnavailableError`` when it holds fewer), on ``device``
+    (a ``LiveMesh`` carries its own): ``"cuda"`` without a card raises
+    rather than run on the CPU."""
     from ..dist.collectives import LiveMesh, all_reduce_
-    live = mesh if isinstance(mesh, LiveMesh) else LiveMesh(
-        _spec(mesh), torch.device("cuda" if torch.cuda.is_available()
-                                  else "cpu"))
+    if isinstance(mesh, LiveMesh):
+        live = mesh
+    else:
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "the mesh train step is on 'cuda' but torch.cuda."
+                "is_available() is False; pass device='cpu' to train on "
+                "the CPU")
+        live = LiveMesh(_spec(mesh), device)
     layout = StateLayout(model, live)
     k_rows = live.split(BATCH_AXES)[0]
 
@@ -367,14 +379,17 @@ def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
 
 
 def make_jitted_train_step(model: Model, tc: TrainConfig, mesh=None,
-                           donate: bool = True) -> Callable:
+                           donate: bool = True, device="cuda") -> Callable:
     """The train step for ``mesh``: None or a 1-device mesh is one
     device; a larger mesh (a ``LiveMesh``, ``MeshSpec`` or its spelling)
     is :func:`make_mesh_train_step` over the default process group,
     which must have exactly the mesh's ranks (``MeshUnavailableError``
     when it has fewer).  The name is the reference's; the step runs
     eagerly (capturing it as CUDA graphs is later work).  ``donate``
-    updates the state in place, the reference's donated buffers."""
+    updates the state in place, the reference's donated buffers.
+    ``device`` is the mesh step's (:func:`make_mesh_train_step`); one
+    device's step runs where its state is."""
     if mesh is None or _spec(mesh).size == 1:
         return make_train_step(model, tc, donate=donate)
-    return make_mesh_train_step(model, tc, mesh, donate=donate)
+    return make_mesh_train_step(model, tc, mesh, donate=donate,
+                                device=device)

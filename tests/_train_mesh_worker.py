@@ -335,7 +335,8 @@ def collective_checks(live):
         refusals.append(("smaller_mesh_refused", "data=2", ValueError))
     for key, spec, err in refusals:
         try:
-            make_jitted_train_step(m, TrainConfig(), mesh=spec)
+            make_jitted_train_step(m, TrainConfig(), mesh=spec,
+                                   device="cpu")
             out[key] = False
         except err:
             out[key] = True

@@ -414,7 +414,8 @@ def test_later_items_raise_naming_them():
     from repro_torch.dist import MeshUnavailableError
     from repro_torch.training import TrainConfig, make_jitted_train_step
     with pytest.raises(MeshUnavailableError, match="data"):
-        make_jitted_train_step(m, TrainConfig(), mesh="data=2")
+        make_jitted_train_step(m, TrainConfig(), mesh="data=2",
+                               device="cpu")
     # A.14b is in: the logical axes of every param and cache leaf.
     assert set(dict(PC.tree_flatten(m.param_axes()))) == set(
         dict(PC.tree_flatten(params)))

@@ -399,7 +399,7 @@ def test_mesh_of_more_than_one_device_raises(mesh):
     from repro_torch.dist import MeshUnavailableError
     m = get_model(get_config("minicpm-2b", smoke=True))
     with pytest.raises(MeshUnavailableError, match="needs"):
-        make_jitted_train_step(m, TrainConfig(), mesh=mesh)
+        make_jitted_train_step(m, TrainConfig(), mesh=mesh, device="cpu")
 
 
 def test_one_device_mesh_equals_none():
