@@ -120,17 +120,19 @@ JAX package.  Every phase prints one JSON line (also written to
                  ``microbatches=2`` and mixtral-8x22b (its whole
                  microbatch routed) on ``data=2`` (two), f32, three steps
                  each against the one-device computation of the step on
-                 the card (the CPU limits), params and moments bit-equal
-                 across replicas; (tm3) mixtral-8x22b at its widths, 1
-                 layer, f32, expert-parallel on ``model=2``, each rank
-                 holding its 4 experts' state: the loss, every gradient
-                 leaf and one step's grad_norm and params against one
-                 device, state and peak GB a rank; (tm2) minicpm-2b at
-                 its widths, 6 of 40 layers, on ``data=2``: 3 steps of 4
-                 x 512 tokens, step 1's loss and grad_norm against one
-                 device, step ms, tokens/s, the gradient reduce's bytes
-                 and ms, peak GB a rank.  No kernel of ``csrc/`` is on
-                 this path.
+                 the card (the CPU limits), the state gathered whole
+                 bit-equal across ranks; every rank holds its part of
+                 the state (the reference's placement: its bytes equal
+                 the placed bytes); (tm3) mixtral-8x22b at its widths, 1
+                 layer, f32, expert-parallel on ``model=2``: the loss,
+                 every gradient leaf and one step's grad_norm and params
+                 against one device, state and peak GB a rank, the
+                 gathers' and the reduce's bytes and ms; (tm2) minicpm-2b
+                 at its widths, 6 of 40 layers, on ``data=2``: 2 steps of
+                 4 x 512 tokens, step 1's loss and grad_norm against one
+                 device, step ms, tokens/s, step 1's gathers' and
+                 reduce's bytes and ms, peak GB a rank.  No kernel of
+                 ``csrc/`` is on this path.
    ``dryrun``    the dry-run (``repro_torch.launch.dryrun``).  In a
                  process of their own (``--dryrun-cell``, at a low
                  priority) started after the build, beside the phases
@@ -138,8 +140,10 @@ JAX package.  Every phase prints one JSON line (also written to
                  tensors): (d1) the qwen2.5-14b x train_4k x single cell
                  counted at rank 0 of the 16x16 mesh's fake group of 256
                  ranks on fake cuda tensors: the record, its traces'
-                 seconds and depths, and the rank's argument bytes
-                 beside the card's 80 GB; (d3) minicpm-2b at its widths,
+                 seconds and depths, and the rank's argument bytes (its
+                 part of the state: equal to ``argument_size_if_placed``)
+                 beside the card's 80 GB and the reference's committed
+                 record of the cell; (d3) minicpm-2b at its widths,
                  4 layers, 2 microbatches of 1 x 512: the counts weighed
                  from the traced depths equal the step traced whole;
                  (d2)'s fake counts.  Then, in this process (``python3
@@ -5083,13 +5087,15 @@ TM1 = {4: [("tm1", "data=2,model=2", "qwen2.5-14b", {}, {}),
 TM1_BATCH = (4, 16)
 TM_STEPS = 3
 #: (tm2): minicpm-2b at its published widths on data=2, depth cut from
-#: 40 layers to TM2[3] (each of the two ranks holds its whole state on
-#: the one card; 6 rather than 12 layers since the dry-run phase, to
-#: keep the script's time: the reduce's GB/s is what it measures):
+#: 40 layers to TM2[3] (each of the two ranks holds its part of the state
+#: on the one card, the reference's placement; 6 rather than 12 layers
+#: since the dry-run phase, to keep the script's time: the gathers' and
+#: the reduce's GB/s are what it measures):
 #: global batch x tokens x steps x layers, WSD warm-up over the steps to
 #: TRAIN_LR; step 1's loss and grad_norm against the one-device step on
-#: the same batch and params.
-TM2 = (4, 512, 3, 6)
+#: the same batch and params (2 steps since the partitioned state: its
+#: gathers doubled the step's time).
+TM2 = (4, 512, 2, 6)
 TM2_LOSS_TOL = 1e-4
 TM2_NORM_TOL = 1e-2
 #: (tm3): mixtral-8x22b at its widths on model=2, expert-parallel, f32,
@@ -5146,7 +5152,7 @@ def _tm_expected(torch, np, model, tc, params, batch, k_rows, model_axis):
                                      j * (b // n) + (d + 1) * per]
                                    for j in mbs]) for k, v in batch.items()}
     if k_rows == 1 or not (model.cfg.n_experts and model_axis):
-        loss, grads, _ = _accumulate(model, tc, params, dev(batch))
+        loss, grads = _accumulate(model, tc, params, dev(batch))
         grads = [g.float() for g in grads]
     else:
         parts = [_accumulate(model, tc, params, dev(rows(d)))
@@ -5187,11 +5193,8 @@ def _tm_worst(paths, got, want, layout=None):
     leaf."""
     worst, leaf = 0.0, None
     for path, g, w in zip(paths, got, want):
-        part = None if layout is None else layout.part("params/" + path)
-        if part is not None and w.shape != g.shape:
-            dim, k, i = part
-            n = w.shape[dim] // k
-            w = w.narrow(dim, i * n, n)
+        if layout is not None and w.shape != g.shape:
+            w = layout.local("params/" + path, w)
         w = w.to(g.device)
         r = float((g.float() - w.float()).abs().max()) / max(
             1.0, float(w.abs().max()))
@@ -5200,42 +5203,93 @@ def _tm_worst(paths, got, want, layout=None):
     return worst, leaf
 
 
+def _tm_placed(model, live):
+    """The bytes of a rank's train state on ``live`` under the reference's
+    placement (``launch.cells.placements`` of the whole state)."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.cells import placed_bytes, placements
+    from repro_torch.models.common import tree_flatten
+    from repro_torch.training import init_state, state_axes
+    whole = init_state(model, 0, "meta")
+    with use_mesh(live):
+        axes = state_axes(model)
+    specs = dict(tree_flatten(placements(live, axes, whole)))
+    return sum(placed_bytes(live, t, specs[p])
+               for p, t in tree_flatten(whole))
+
+
+def _tm_held(state):
+    """The bytes of the state this rank holds."""
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+
+def _tm_collectives(torch):
+    """Time the mesh step's gathers (``dist.collectives._gather_whole``:
+    the gathered whole's bytes) and gradient reduces (``reduce_scatter``
+    where it sums: the f32 whole's bytes), each call between two device
+    syncs; returns (the totals, a function that undoes the patch)."""
+    import repro_torch.dist.collectives as col
+    rec = {"gathers": 0, "gather_bytes": 0, "gather_ms": 0.0,
+           "reduces": 0, "reduce_bytes": 0, "reduce_ms": 0.0}
+    real_gather, real_reduce = col._gather_whole, col.reduce_scatter
+
+    def timed(kind, fn, nbytes):
+        def run(x, plan, mesh):
+            if kind == "reduce" and mesh.split(plan.reduce)[0] == 1:
+                return fn(x, plan, mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(x, plan, mesh)
+            torch.cuda.synchronize()
+            rec[kind + "s"] += 1
+            rec[kind + "_bytes"] += nbytes(x, out)
+            rec[kind + "_ms"] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+    col._gather_whole = timed("gather", real_gather,
+                              lambda x, out: out.numel() * out.element_size())
+    col.reduce_scatter = timed("reduce", real_reduce,
+                               lambda x, out: x.numel() * 4)
+
+    def undo():
+        col._gather_whole, col.reduce_scatter = real_gather, real_reduce
+    return rec, undo
+
+
 def _tm_smoke(torch, np, live, arch, over, tc_over):
     """(tm1) one case on this rank: three steps, each against the
     one-device computation from the same gathered state."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.dist.collectives import all_gather
     from repro_torch.models import get_model
     from repro_torch.models.common import tree_flatten, tree_unflatten
     from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                       make_jitted_train_step)
-    from repro_torch.training.train import (StateLayout, local_batch,
-                                            shard_params)
+    from repro_torch.training.train import local_batch, shard_state
     model = get_model(dataclasses.replace(get_config(arch, smoke=True),
                                           dtype="float32", **over))
     tc = TrainConfig(opt=OptConfig(lr=1e-3, eps=1e-6, total_steps=10,
                                    warmup_steps=0), **tc_over)
-    params = shard_params(model, model.init(0, DEVICE), live)
+    params = shard_state(model, model.init(0, DEVICE), live)
     state = {"params": params, "opt": adamw_init(params)}
-    layout = StateLayout(model, live)
     step = make_jitted_train_step(model, tc, mesh=live)
+    layout = step.layout
     k_rows = live.split(("pod", "data"))[0]
     row = {"loss_err": [], "loss_limit": [], "grad_err_ratio": [],
            "grad_leaf": [], "norm_rel_err": [], "param_sha": [],
-           "loss_bits": [], "norm_bits": []}
+           "loss_bits": [], "norm_bits": [],
+           "state_bytes_rank": _tm_held(state),
+           "placed_bytes": _tm_placed(model, live)}
     seen, want_grads = [], []
     undo = _tm_capture(lambda got: seen.append(_tm_worst(
         paths, got, want_grads, layout)))
     try:
         for s in range(TM_STEPS):
             gb = _tm_batch(np, model.cfg, *TM1_BATCH, seed=s + 1)
-            flat = tree_flatten(state["params"])
-            paths = [p for p, _ in flat]
-            whole = tree_unflatten(paths, [
-                t if layout.part("params/" + p) is None else all_gather(
-                    t, ("model",), live, layout.part("params/" + p)[0])
-                for p, t in flat])
+            paths = [p for p, _ in tree_flatten(state["params"])]
+            whole = tree_unflatten(paths, layout.gathered(
+                {"params": state["params"]}))
             want_loss, want_grads[:], want_norm = _tm_expected(
                 torch, np, model, tc, whole, gb, k_rows,
                 "model" in live.spec.names)
@@ -5249,9 +5303,11 @@ def _tm_smoke(torch, np, live, arch, over, tc_over):
             row["grad_err_ratio"].append(worst)
             row["grad_leaf"].append(leaf)
             row["norm_rel_err"].append(abs(norm - want_norm) / want_norm)
+            # the state gathered whole: the same on every rank only if
+            # every replica of every part is
             row["param_sha"].append({
-                p: _tm_sha(t) for p, t in tree_flatten(state)
-                if layout.part(p) is None})
+                p: _tm_sha(t) for (p, _), t in zip(
+                    tree_flatten(state), layout.gathered(state))})
             row["loss_bits"].append(loss)
             row["norm_bits"].append(norm)
     finally:
@@ -5267,7 +5323,7 @@ def _tm_one_device_keep(torch, model, tc, batch, layout):
     from repro_torch.training import adamw_init, adamw_update, global_norm
     from repro_torch.training.train import _accumulate
     params = model.init(0, DEVICE)
-    loss, grads, _ = _accumulate(model, tc, params, batch)
+    loss, grads = _accumulate(model, tc, params, batch)
     paths = [p for p, _ in tree_flatten(params)]
     norm = float(global_norm(tree_unflatten(paths, grads)))
     opt = adamw_init(params)
@@ -5276,11 +5332,8 @@ def _tm_one_device_keep(torch, model, tc, batch, layout):
     del opt
 
     def mine(path, t):
-        part = layout.part("params/" + path)
-        if part is not None:
-            dim, k, i = part
-            t = t.narrow(dim, i * (t.shape[dim] // k), t.shape[dim] // k)
-        return t.detach().to("cpu", copy=True)
+        return layout.local("params/" + path, t).detach().to("cpu",
+                                                             copy=True)
     keep = {p: (mine(p, g), mine(p, t))
             for (p, t), g in zip(tree_flatten(params), grads)}
     del params, grads
@@ -5298,7 +5351,7 @@ def _tm_mixtral(torch, np, live, rank):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.models import get_model
-    from repro_torch.models.common import tree_flatten, tree_leaves
+    from repro_torch.models.common import tree_flatten
     from repro_torch.training import (OptConfig, TrainConfig, init_state,
                                       make_jitted_train_step)
     from repro_torch.training.train import StateLayout
@@ -5323,13 +5376,14 @@ def _tm_mixtral(torch, np, live, rank):
     one_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     state = init_state(model, 0, DEVICE, mesh=live)
-    held = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    held = _tm_held(state)
     step = make_jitted_train_step(model, tc, mesh=live)
     want_loss, want_norm, keep = want
     paths = [p for p, _ in tree_flatten(state["params"])]
     seen = []
     undo = _tm_capture(lambda got: seen.append(_tm_worst(
         paths, got, [keep[p][0] for p in paths])))
+    coll, undo_coll = _tm_collectives(torch)
     try:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -5338,6 +5392,7 @@ def _tm_mixtral(torch, np, live, rank):
         step_ms = (time.perf_counter() - t1) * 1e3
     finally:
         undo()
+        undo_coll()
     peak = torch.cuda.max_memory_allocated() / 1e9
     (grad_worst, grad_leaf), = seen
     param_worst, param_leaf = _tm_worst(
@@ -5355,18 +5410,18 @@ def _tm_mixtral(torch, np, live, rank):
             "grad_err_ratio": grad_worst, "grad_leaf": grad_leaf,
             "norm_rel_err": abs(norm - want_norm) / want_norm,
             "param_err_ratio": param_worst, "param_leaf": param_leaf,
+            "state_bytes_rank": held, "placed_bytes": _tm_placed(model, live),
             "state_gb_rank": held / 1e9, "peak_gb_rank": peak,
             "one_device_peak_gb": one_peak, "one_device_s": one_s,
-            "step_ms": step_ms}
+            "step_ms": step_ms, **coll}
 
 
 def _tm_minicpm(torch, np, live, rank):
-    """(tm2) minicpm-2b at its widths on data=2: 3 steps of 4 x 512."""
+    """(tm2) minicpm-2b at its widths on data=2: 2 steps of 4 x 512."""
     import dataclasses
     import gc
     import statistics as st
     import torch.distributed as dist
-    import repro_torch.dist.collectives as col
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.models import get_model
@@ -5388,7 +5443,7 @@ def _tm_minicpm(torch, np, live, rank):
         params = model.init(0, DEVICE)
         whole = {k: torch.as_tensor(v, device=DEVICE)
                  for k, v in data.batch(0).items()}
-        loss, grads, _ = _accumulate(model, tc, params, whole)
+        loss, grads = _accumulate(model, tc, params, whole)
         paths = [p for p, _ in tree_flatten(params)]
         want = (float(loss), float(global_norm(tree_unflatten(paths,
                                                              grads))))
@@ -5398,39 +5453,29 @@ def _tm_minicpm(torch, np, live, rank):
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     state = init_state(model, 0, DEVICE, mesh=live)
-    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    held = sum(t.numel() * t.element_size() for t in tree_leaves(state))
-    reduces = []
-    real = col.all_reduce_
-
-    def timed(x, axes, mesh):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = real(x, axes, mesh)
-        torch.cuda.synchronize()
-        reduces.append((x.numel() * x.element_size(),
-                        (time.perf_counter() - t) * 1e3))
-        return out
-    col.all_reduce_ = timed
-    try:
-        step = make_jitted_train_step(model, tc, mesh=live)
-    finally:
-        col.all_reduce_ = real
+    n_params = sum(t.numel() for t in tree_leaves(model.init(0, "meta")))
+    held = _tm_held(state)
+    step = make_jitted_train_step(model, tc, mesh=live)
     rows = rank_rows(b, 1, live)
-    losses, norms, ms, red_bytes, red_ms = [], [], [], [], []
+    losses, norms, ms, coll = [], [], [], None
     for i in range(steps):
         batch = {k: torch.as_tensor(v, device=DEVICE)
                  for k, v in data.batch_rows(i, rows).items()}
-        del reduces[:]
+        # the first step's gathers and reduces timed one call at a time;
+        # the later steps' times are the step's own
+        if i == 0:
+            coll, undo = _tm_collectives(torch)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, met = step(state, batch)
-        torch.cuda.synchronize()
+        try:
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            if i == 0:
+                undo()
         ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
-        red_bytes.append(sum(r[0] for r in reduces))
-        red_ms.append(sum(r[1] for r in reduces))
     peak = torch.cuda.max_memory_allocated() / 1e9
     del state
     gc.collect()
@@ -5441,9 +5486,8 @@ def _tm_minicpm(torch, np, live, rank):
            "losses": losses, "grad_norms": norms, "step_ms": ms,
            "step_ms_median": step_ms,
            "tokens_per_s": b * s / (step_ms / 1e3),
-           "reduce_bytes": red_bytes[-1], "reduce_ms": red_ms,
-           "reduce_ms_median": st.median(red_ms[1:]),
-           "state_gb_rank": held / 1e9, "peak_gb_rank": peak}
+           "state_bytes_rank": held, "placed_bytes": _tm_placed(model, live),
+           "state_gb_rank": held / 1e9, "peak_gb_rank": peak, **coll}
     if want is not None:
         row.update(one_device_loss=want[0], one_device_grad_norm=want[1],
                    loss_err=abs(losses[0] - want[0]),
@@ -5551,6 +5595,12 @@ def _tm_problems(world, rows):
                     f"(limits {lims}), gradient err {grads} x max(1, "
                     f"max|g|), grad_norm rel err {norms} (limit "
                     f"{norm_lim}), params {row.get('param_err_ratio')}")
+        for row in group:
+            if row.get("state_bytes_rank") != row.get("placed_bytes"):
+                problems.append(
+                    f"train_mesh {key} rank {row['rank']}: the state a rank "
+                    f"holds is {row.get('state_bytes_rank')} bytes, the "
+                    f"placed bytes {row.get('placed_bytes')}")
         for field in ("param_sha", "loss_bits", "norm_bits", "losses",
                       "grad_norms", "loss"):
             vals = {json.dumps(r.get(field), sort_keys=True) for r in group}
@@ -5613,6 +5663,10 @@ def phase_train_mesh():
 #: collects it after the train_mesh phase (they work on the host, beside
 #: the phases' work on the card).
 DRY_CELL = ("qwen2.5-14b", "train_4k", "single")
+#: The reference's committed record of (d1)'s cell (read, never written),
+#: printed beside the port's.
+DRY_REFERENCE = ("benchmarks", "artifacts", "dryrun",
+                 "qwen2.5-14b__train_4k__single.json")
 #: (d2): minicpm-2b at its published widths cut to DRY_D2[0] layers, one
 #: train step of DRY_D2[1] x DRY_D2[2] tokens on one device, counted on
 #: real cuda tensors here and on fake cuda (and, its FLOPs, fake cpu)
@@ -5661,10 +5715,16 @@ def dryrun_cell_main() -> int:
     with cells.dry_group(spec, 0, "cuda") as live:
         rec = run_cell(arch, shape, kind, None, device="cuda", mesh=live)
     args = rec.get("memory_analysis", {}).get("argument_size_in_bytes", 0)
+    with open(os.path.join(ROOT, *DRY_REFERENCE)) as f:
+        ref = json.load(f)
     print(json.dumps({"phase": "dryrun", "case": "d1", **rec,
                       "cuda_initialized": torch.cuda.is_initialized(),
                       "chip_hbm_bytes": CHIP_HBM_BYTES,
                       "argument_over_chip_hbm": args / CHIP_HBM_BYTES,
+                      "reference": {k: ref.get(k) for k in (
+                          "memory_analysis", "bytes_per_device",
+                          "collective_bytes_per_device", "flops_per_device",
+                          "bottleneck", "step_time_bound_s")},
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
@@ -5687,6 +5747,10 @@ def _dry_d1_problems(row) -> list:
                         "finite number")
     if row.get("bottleneck") not in ("compute", "memory", "collective"):
         problems.append(f"dryrun d1: bottleneck {row.get('bottleneck')}")
+    args = row.get("memory_analysis", {}).get("argument_size_in_bytes")
+    if args != row.get("argument_size_if_placed"):
+        problems.append(f"dryrun d1: {args} argument bytes a rank, "
+                        f"{row.get('argument_size_if_placed')} placed")
     if not row.get("traced") or row.get("depth") != {"layer": 48} \
             or row.get("microbatches") != 8:
         problems.append("dryrun d1: traced depths missing or the cell's "

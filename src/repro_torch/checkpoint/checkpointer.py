@@ -21,10 +21,11 @@ bf16).
 * **placement on restore** — each leaf goes to ``like``'s device, or to
   ``device`` (the reference's ``shardings``);
 * **a mesh** — a mesh run's checkpoint is the same whole layout, byte
-  for byte what one device writes of the same state: the leaves a rank
-  holds in part (``training.StateLayout``) are gathered, global rank 0
-  writes, and the others wait at a barrier; each rank restores its part
-  of every such leaf, and one device restores it whole;
+  for byte what one device writes of the same state: every leaf a rank
+  holds in part (``training.StateLayout``) is gathered over each axis
+  it is cut on, global rank 0 writes, and the others wait at a barrier;
+  each rank restores its part of every leaf under its own mesh's
+  layout (whichever mesh saved it), and one device restores it whole;
 * **preemption hook** — ``install_sigterm_hook`` saves on SIGTERM, from
   the handler (for a state replaced whole by each step; the launcher,
   which updates in place, saves between steps instead).
@@ -43,6 +44,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import part_of
 from ..models.common import tree_flatten, tree_unflatten
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
@@ -176,30 +178,30 @@ class Checkpointer:
         """Load ``step`` into the structure, dtypes and devices of
         ``like`` (each leaf on ``device`` instead, where given).  On a
         mesh, ``layout`` says which leaves ``like`` holds in part: each
-        takes its part of the whole leaf on disk.  Every leaf's shape is
+        takes its part of the whole leaf on disk (the layout of any mesh:
+        the files hold every leaf whole).  Every leaf's shape is
         checked before any is read; one leaf at a time is on the host."""
         path = os.path.join(self.root, f"step_{step:09d}")
         paths, leaves = zip(*tree_flatten(like))
         files = [os.path.join(path, f"arr_{i:05d}.npy")
                  for i in range(len(leaves))]
-        parts = [None if layout is None else layout.part(p) for p in paths]
-        for f, leaf, part in zip(files, leaves, parts):
+        cuts = [(layout.part(p) or []) if layout is not None else []
+                for p in paths]
+        for f, leaf, cut in zip(files, leaves, cuts):
             want = list(leaf.shape)
-            if part is not None:
-                want[part[0]] *= part[1]
+            for dim, axes in cut:
+                want[dim] *= layout.mesh.split(axes)[0]
             have = np.load(f, mmap_mode="r").shape
             if have != tuple(want):
                 raise ValueError(
                     f"checkpoint leaf shape {have} != expected {tuple(want)}")
         out = []
-        for f, leaf, part in zip(files, leaves, parts):
-            if part is None:
+        for f, leaf, cut in zip(files, leaves, cuts):
+            if not cut:
                 h = np.load(f)
             else:                   # read this rank's part alone
-                dim, k, i = part
-                h = np.load(f, mmap_mode="r")
-                n = h.shape[dim] // k
-                h = np.take(h, np.arange(i * n, (i + 1) * n), axis=dim)
+                h = np.array(part_of(np.load(f, mmap_mode="r"), cut,
+                                     layout.mesh), order="C")
             out.append(_from_host(h, leaf.dtype,
                                   leaf.device if device is None else device))
         return tree_unflatten(list(paths), out)

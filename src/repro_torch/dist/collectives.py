@@ -35,8 +35,14 @@ through the host (gloo's collectives take host tensors), as
 Model code that autograd records (the mesh train step) uses the
 conjugate pairs :func:`copy_to_model`, :func:`reduce_from_model`,
 :func:`gather_rows` and :func:`split_to_model`, whose backward is the
-collective the forward's placement implies; :func:`all_reduce_` is the
-gradient reduce's plain sum in place.
+collective the forward's placement implies; :func:`all_reduce_` is a
+plain sum in place.  The mesh step's params are held in part:
+:func:`gather_param` gathers a leaf whole at use, and its backward is
+:func:`reduce_scatter`, this rank's part of the reduced gradient.
+
+A collective of a tensor on the meta device moves nothing: its result
+is one of the right shape (the mesh step reads which weights compute
+cuts from a forward on the meta device).
 
 Attrs:
 
@@ -51,7 +57,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -207,6 +213,8 @@ def _host(x: torch.Tensor, mesh: LiveMesh) -> bool:
 def _summed(x: torch.Tensor, axes, mesh: LiveMesh) -> torch.Tensor:
     """A new tensor: the sum of ``x`` over the ranks of ``axes``."""
     import torch.distributed as dist
+    if x.device.type == "meta":
+        return x.detach().clone()
     host = _host(x, mesh)
     buf = x.detach().to("cpu", copy=True) if host \
         else x.detach().contiguous().clone()
@@ -219,6 +227,8 @@ def _gathered(x: torch.Tensor, axes, mesh: LiveMesh, dim: int
     """A new tensor: the parts held by the ranks of ``axes``
     concatenated along ``dim`` in the ranks' order."""
     import torch.distributed as dist
+    if x.device.type == "meta":
+        return torch.cat([x.detach()] * mesh.split(axes)[0], dim=dim)
     host = _host(x, mesh)
     src = (x.detach().cpu() if host else x.detach()).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.split(axes)[0])]
@@ -355,6 +365,82 @@ def all_reduce_(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
     return x
 
 
+class ParamPlan(NamedTuple):
+    """How the mesh step gathers one param leaf (or one layer of a
+    stacked leaf) it holds in part, and reduces its gradient: the cut
+    dims it gathers over (``sharding.spec_cuts``; a ``model`` part that
+    compute consumes left out), the axes its gradient sums over, the
+    ``batch`` parts the sum is divided by, and the ``model`` part it
+    keeps for compute (``sharding.held_part``: (dim from the end,
+    parts), or None)."""
+    gather: Tuple[Tuple[int, Tuple[str, ...]], ...]
+    reduce: Tuple[str, ...]
+    rows: int
+    held: Optional[Tuple[int, int]]
+
+    def layer(self) -> "ParamPlan":
+        """The plan of one layer of a stacked leaf (the ``L`` dim, never
+        cut, dropped)."""
+        assert all(d > 0 for d, _ in self.gather), self.gather
+        return self._replace(gather=tuple((d - 1, a)
+                                          for d, a in self.gather))
+
+
+def reduce_scatter(g: torch.Tensor, plan: ParamPlan,
+                   mesh: LiveMesh) -> torch.Tensor:
+    """This rank's part of a whole gradient: ``g`` summed in f32 over
+    ``plan.reduce``'s ranks, cut along ``plan.gather``'s dims and
+    divided by ``plan.rows``.  Gloo has no reduce-scatter,
+    so the sum is an all-reduce of the whole (host-staged for a CUDA
+    tensor), which moves what the whole leaf's reduce moved before."""
+    g = g.float()
+    if mesh.split(plan.reduce)[0] > 1:
+        g = _summed(g, plan.reduce, mesh)
+    for dim, axes in plan.gather:
+        g = local_part(g, *mesh.split(axes), dim)
+    return (g / plan.rows if plan.rows > 1 else g).contiguous()
+
+
+def _gather_whole(x: torch.Tensor, plan: ParamPlan,
+                  mesh: LiveMesh) -> torch.Tensor:
+    for dim, axes in plan.gather:
+        x = _gathered(x, axes, mesh, dim)
+    return x
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, src, whole, plan, mesh):
+        ctx.plan, ctx.mesh = plan, mesh
+        if whole is not None:
+            return whole.view_as(whole)
+        return _gather_whole(part if src is None else src, plan, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.plan, ctx.mesh), None, None, None, None
+
+
+def gather_param(part: torch.Tensor, plan: ParamPlan, mesh: LiveMesh,
+                 src: Optional[torch.Tensor] = None,
+                 whole: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole of a param leaf this rank holds ``part`` of, gathered
+    along ``plan.gather``'s dims (a ``model`` part that compute consumes
+    stays the part, marked ``held_part``); its backward is
+    :func:`reduce_scatter`, so ``part`` gets its part of the reduced
+    gradient, in f32.  ``src`` is what to gather in ``part``'s place
+    (its bf16 copy), ``whole`` what was gathered of it already (once a
+    step); either way the gradient is ``part``'s."""
+    if whole is None and not plan.gather:
+        whole = part if src is None else src
+    out = _GatherParam.apply(part, src, whole, plan, mesh)
+    if plan.held is not None:       # on the tensor its views are taken of
+        for t in (out, out._base):
+            if t is not None:
+                t.held_part = plan.held
+    return out
+
+
 def destroy_process_group() -> None:
     """Tear down the default process group and every group made from
     it.  Garbage that still holds a group (a finished scheduler's
@@ -380,7 +466,7 @@ def broadcast(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
               part: int) -> torch.Tensor:
     """The ``x`` of the rank that holds part ``part`` along ``axes``, on
     every rank of that group (x itself with no live mesh)."""
-    if mesh is None or mesh.split(axes)[0] == 1:
+    if mesh is None or mesh.split(axes)[0] == 1 or x.device.type == "meta":
         return x
     import torch.distributed as dist
     host = _host(x, mesh)

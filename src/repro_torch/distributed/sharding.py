@@ -15,18 +15,26 @@ the expert-parallel MoE), as the reference's ``shard_map`` branches do,
 and, in the mesh train step (``use_mesh(..., local_batch=True)``), the
 ``batch`` rows: each rank then holds only its rows, the loss averages
 over the global batch, and the step reduces each gradient leaf over the
-``batch`` axes and, where ``model`` cut its compute, sums it over
-``model``.  Model code marks each weight it cuts with
-:func:`split_param`, and the step reads those marks from its own
-forward (:func:`recording_splits`), so the rule lives where the cut is
-made.
+``batch`` axes.  Model code marks each weight it cuts with
+:func:`split_param`, and the step reads those marks from a forward on
+the meta device (:func:`recording_splits`), so the rule lives where the
+cut is made.
+
+The train state's placement is the reference's: :func:`placements`
+(``_divisible_sharding``: a logical axis is kept only where its mesh
+axes divide the dim) of ``state_axes``, a rank holding its part of each
+leaf (:func:`part_of`).  The mesh step gathers the parts at use (the
+``gather`` a :func:`use_mesh` carries, which ``models.common`` calls
+inside each layer's body); a weight whose ``model`` part is what compute
+consumes stays that part (:func:`held_part`, :func:`whole_dim`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -73,23 +81,27 @@ def current_mesh():
 
 @contextlib.contextmanager
 def use_mesh(mesh, rules: Optional[Dict[str, AxisVal]] = None,
-             local_batch: bool = False):
+             local_batch: bool = False, gather=None):
     """Activate a mesh (a ``LiveMesh`` or None) and rules (merged over
     DEFAULT_RULES) for model-code annotations, on this thread.
     ``local_batch``: each rank's inputs are only its ``batch`` rows (the
     mesh train step), so no layer splits rows again, and the loss is
-    the global batch's."""
+    the global batch's.  ``gather``: the mesh step's gathers of the
+    stacked layer leaves it holds in part (:func:`current_gather`)."""
     prev_mesh = getattr(_local, "mesh", None)
     prev_rules = getattr(_local, "rules", None)
     prev_local = getattr(_local, "local_batch", False)
+    prev_gather = getattr(_local, "gather", None)
     _local.mesh = mesh
     _local.rules = {**DEFAULT_RULES, **(rules or {})}
     _local.local_batch = bool(local_batch) and mesh is not None
+    _local.gather = gather if mesh is not None else None
     try:
         yield
     finally:
         _local.mesh = prev_mesh
         _local.local_batch = prev_local
+        _local.gather = prev_gather
         if prev_rules is None:
             if hasattr(_local, "rules"):
                 del _local.rules
@@ -98,19 +110,29 @@ def use_mesh(mesh, rules: Optional[Dict[str, AxisVal]] = None,
 
 
 def current_context():
-    """This thread's mesh, rules and ``local_batch``, for
+    """This thread's mesh, rules, ``local_batch`` and gather, for
     :func:`use_context` on another thread (autograd's backward runs a
     recomputed layer on a device thread of its own)."""
     return (getattr(_local, "mesh", None), getattr(_local, "rules", None),
-            getattr(_local, "local_batch", False))
+            getattr(_local, "local_batch", False),
+            getattr(_local, "gather", None))
 
 
 @contextlib.contextmanager
 def use_context(ctx):
     """Activate what :func:`current_context` returned, on this thread."""
-    mesh, rules, local = ctx
-    with use_mesh(mesh, rules, local_batch=local):
+    mesh, rules, local, gather = ctx
+    with use_mesh(mesh, rules, local_batch=local, gather=gather):
         yield
+
+
+def current_gather():
+    """The active mesh step's gathers, or None: an object whose
+    ``owns(t)`` says whether ``t`` is a stacked leaf held in part,
+    ``layers(t, n)`` cuts such a leaf into its layers' parts, and
+    ``at_use(args)`` gathers the layers' parts in a layer body's
+    arguments whole (``models.common.layer_views`` / ``maybe_remat``)."""
+    return getattr(_local, "gather", None)
 
 
 #: The mesh axes the ``batch`` rows split over (``DEFAULT_RULES``).
@@ -131,8 +153,9 @@ def local_batch():
 @contextlib.contextmanager
 def recording_splits():
     """Record, on this thread, every tensor model code cuts to this
-    rank's part with :func:`split_param` (its root tensor: the param
-    leaf a layer's view was taken from).  Yields the list."""
+    rank's part with :func:`split_param`: (its root tensor, the param
+    leaf a layer's view was taken from; the dim cut, counted from the
+    end).  Yields the list."""
     prev = getattr(_local, "splits", None)
     _local.splits = []
     try:
@@ -141,14 +164,43 @@ def recording_splits():
         _local.splits = prev
 
 
+def _root(w):
+    return w if w._base is None else w._base
+
+
+def held_part(w) -> Optional[Tuple[int, int]]:
+    """(the dim counted from the end, parts) where ``w`` (or the tensor
+    it is a view of) is already this rank's ``model`` part of a weight
+    whose compute ``model`` splits along that dim: the mesh step gathers
+    such a leaf over its other axes only.  None for a whole weight."""
+    held = getattr(w, "held_part", None)
+    return held if held is not None or w._base is None \
+        else getattr(w._base, "held_part", None)
+
+
+def whole_dim(w, dim: int) -> int:
+    """The size of ``w``'s whole along ``dim``: ``w.shape[dim]``, times
+    the parts where ``w`` holds only its ``model`` part along it."""
+    held = held_part(w)
+    n = w.shape[dim]
+    if held is not None and held[0] == (dim - w.ndim if dim >= 0 else dim):
+        n *= held[1]
+    return n
+
+
 def split_param(w, k: int, i: int, dim: int):
     """Part ``i`` of ``k`` of the weight ``w`` along ``dim``: a rank's
     share of a weight whose compute the ``model`` axis splits, recorded
-    for the gradient reduce (:func:`recording_splits`)."""
+    (:func:`recording_splits`).  A weight that is that part already
+    (:func:`held_part`) is returned as it is."""
     from ..dist.collectives import local_part
+    neg = dim - w.ndim if dim >= 0 else dim
     splits = getattr(_local, "splits", None)
     if splits is not None:
-        splits.append(w if w._base is None else w._base)
+        splits.append((_root(w), neg))
+    held = held_part(w)
+    if held is not None and held == (neg, k):
+        return w
     return local_part(w, k, i, dim)
 
 
@@ -215,6 +267,99 @@ class Placement(NamedTuple):
     None, a mesh axis, or a tuple of axes) on a mesh."""
     mesh: object
     spec: tuple
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of ``mesh`` (a ``LiveMesh`` or ``MeshSpec``)."""
+    spec = getattr(mesh, "spec", mesh)
+    return dict(spec.axes)
+
+
+def divisible_placement(mesh, shape, axes) -> tuple:
+    """The partition spec of one leaf of ``shape`` with logical ``axes``
+    on ``mesh`` (a ``LiveMesh`` or ``MeshSpec``), keeping a logical axis
+    only where its mesh axes evenly divide the dim (vocab=122753 or
+    kv_heads=8 on a 16-way axis stay replicated): the reference's
+    ``_divisible_sharding(...).spec``, candidate for candidate (the
+    whole tuple first, then each single axis), a mesh axis used once."""
+    rules = current_rules()
+    sizes = mesh_sizes(mesh)
+    parts = []
+    used = set()
+    for dim, ax in zip(shape, tuple(axes) + (None,) * len(shape)):
+        val = rules.get(ax) if ax else None
+        if val is None:
+            parts.append(None)
+            continue
+        cand = (val,) if isinstance(val, str) else tuple(val)
+        cand = tuple(a for a in cand if a in sizes and a not in used)
+        pick = None
+        options = [cand] + [(a,) for a in cand] if len(cand) > 1 \
+            else [cand]
+        for opt in options:
+            if not opt:
+                continue
+            size = math.prod(sizes[a] for a in opt)
+            if size > 1 and dim % size == 0:
+                pick = opt
+                break
+        if pick is None:
+            parts.append(None)
+        else:
+            parts.append(pick[0] if len(pick) == 1 else pick)
+            used.update(pick)
+    return tuple(parts)
+
+
+def placements(mesh, axes_tree, shapes_tree):
+    """:func:`divisible_placement` of every leaf (the reference's
+    ``_shardings``): ``axes_tree`` and ``shapes_tree`` (tensors or
+    shapes) are nested dicts with the same keys."""
+    from ..models.common import tree_flatten, tree_unflatten
+    axes = dict(tree_flatten(axes_tree))
+    return tree_unflatten(
+        [p for p, _ in tree_flatten(shapes_tree)],
+        [divisible_placement(mesh, tuple(getattr(t, "shape", t)), axes[p])
+         for p, t in tree_flatten(shapes_tree)])
+
+
+def spec_cuts(mesh, spec) -> List[Tuple[int, Tuple[str, ...]]]:
+    """The dims a partition spec cuts on ``mesh``: ``[(dim, mesh axes)]``,
+    the axes of size 1 left out (a dim they alone name is whole)."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if sizes.get(a, 1) > 1)
+        if axes:
+            out.append((dim, axes))
+    return out
+
+
+def part_shape(mesh, shape, cuts) -> Tuple[int, ...]:
+    """The shape of one rank's part of a leaf of ``shape`` cut by
+    ``cuts`` (:func:`spec_cuts`)."""
+    sizes = mesh_sizes(mesh)
+    out = list(shape)
+    for dim, axes in cuts:
+        out[dim] //= math.prod(sizes[a] for a in axes)
+    return tuple(out)
+
+
+def part_of(whole, cuts, mesh):
+    """This rank's part of ``whole`` (a tensor or numpy array) on the live
+    ``mesh``: along each cut dim, the part :meth:`LiveMesh.split` gives
+    the rank (row-major over the dim's axes in mesh order).  Views."""
+    for dim, axes in cuts:
+        k, i = mesh.split(axes)
+        n = whole.shape[dim] // k
+        if hasattr(whole, "narrow"):
+            whole = whole.narrow(dim, i * n, n)
+        else:
+            index = [slice(None)] * whole.ndim
+            index[dim] = slice(i * n, (i + 1) * n)
+            whole = whole[tuple(index)]
+    return whole
 
 
 def logical(x, *logical_axes: Optional[str]):

@@ -9,7 +9,8 @@ parameter, cache or batch tensor is ever allocated, and counts its ops
 (:mod:`repro_torch.launch.op_analysis`):
 
 * **train**: ``make_jitted_train_step(..., mesh=)``'s step on the rank's
-  state (``init_state(..., mesh=)``: its experts only, as
+  state (``init_state(..., mesh=)``: its part of every leaf, the
+  reference's placement, as
   :class:`~repro_torch.training.train.StateLayout` says) and its rows of
   the global batch (``rank_rows``), in ``microbatches`` microbatches;
 * **prefill** and **decode**: ``Model.prefill`` and
@@ -29,9 +30,11 @@ meaning carries over, per rank: "per device" is this rank's measured
 program, not the global count over the chips, so ``useful_flops_ratio``
 shows the compute the port repeats on ``model`` (ROADMAP C: "No
 automatic partitioning from constraints").  :func:`divisible_placement`
-and its kin are the reference's placement rules, which the port's
-compute does not follow; the record says what the rank's arguments
-would weigh under them (``argument_size_if_placed``).
+and :func:`placements` (``distributed.sharding``) are the reference's
+placement rules: the train state a rank holds follows them, so a train
+cell's ``argument_size_in_bytes`` equals ``argument_size_if_placed``,
+the arguments' bytes under them, which serving cells (params whole on
+every rank) do not reach.
 """
 
 from __future__ import annotations
@@ -45,66 +48,15 @@ import torch
 
 from ..configs import ArchConfig, ShapeSpec, input_specs
 from ..distributed import sharding as shd
+from ..distributed.sharding import divisible_placement, mesh_sizes, placements
 from ..models import get_model
-from ..models.common import tree_flatten, tree_leaves, tree_unflatten
+from ..models.common import tree_flatten, tree_leaves
 from . import op_analysis as oa
 
 
 # ---------------------------------------------------------------------------
 # Placement (the reference's rules)
 # ---------------------------------------------------------------------------
-def _sizes(mesh) -> Dict[str, int]:
-    spec = getattr(mesh, "spec", mesh)
-    return dict(spec.axes)
-
-
-def divisible_placement(mesh, shape, axes) -> tuple:
-    """The partition spec of one leaf of ``shape`` with logical ``axes``
-    on ``mesh`` (a ``LiveMesh`` or ``MeshSpec``), keeping a logical axis
-    only where its mesh axes evenly divide the dim (vocab=122753 or
-    kv_heads=8 on a 16-way axis stay replicated): the reference's
-    ``_divisible_sharding(...).spec``, candidate for candidate (the
-    whole tuple first, then each single axis), a mesh axis used once."""
-    rules = shd.current_rules()
-    sizes = _sizes(mesh)
-    parts = []
-    used = set()
-    for dim, ax in zip(shape, tuple(axes) + (None,) * len(shape)):
-        val = rules.get(ax) if ax else None
-        if val is None:
-            parts.append(None)
-            continue
-        cand = (val,) if isinstance(val, str) else tuple(val)
-        cand = tuple(a for a in cand if a in sizes and a not in used)
-        pick = None
-        options = [cand] + [(a,) for a in cand] if len(cand) > 1 \
-            else [cand]
-        for opt in options:
-            if not opt:
-                continue
-            size = math.prod(sizes[a] for a in opt)
-            if size > 1 and dim % size == 0:
-                pick = opt
-                break
-        if pick is None:
-            parts.append(None)
-        else:
-            parts.append(pick[0] if len(pick) == 1 else pick)
-            used.update(pick)
-    return tuple(parts)
-
-
-def placements(mesh, axes_tree, shapes_tree):
-    """:func:`divisible_placement` of every leaf (the reference's
-    ``_shardings``): ``axes_tree`` and ``shapes_tree`` (tensors or
-    shapes) are nested dicts with the same keys."""
-    axes = dict(tree_flatten(axes_tree))
-    return tree_unflatten(
-        [p for p, _ in tree_flatten(shapes_tree)],
-        [divisible_placement(mesh, tuple(getattr(t, "shape", t)), axes[p])
-         for p, t in tree_flatten(shapes_tree)])
-
-
 def batch_placement(mesh, specs: Mapping[str, Any]) -> Dict[str, tuple]:
     """Dim 0 over the ``batch`` axes (pod, data) where they divide it,
     else replicated (the reference's ``_batch_sharding``)."""
@@ -116,7 +68,7 @@ def cache_placement(mesh, shape, axes) -> tuple:
     """The spec of one cache leaf: its logical axes placed as named, the
     ``batch`` axis dropped where the request batch does not divide the
     batch axes (long_500k's B=1; the reference's ``_cache_sharding``)."""
-    sizes = _sizes(mesh)
+    sizes = mesh_sizes(mesh)
     n_batch = math.prod(sizes.get(a, 1) for a in shd.BATCH_AXES)
     fixed = [None if ax == "batch" and dim % n_batch else ax
              for dim, ax in zip(shape, axes)]
@@ -125,7 +77,7 @@ def cache_placement(mesh, shape, axes) -> tuple:
 
 def placed_bytes(mesh, t, spec) -> int:
     """The bytes of ``t``'s part on one device under ``spec``."""
-    sizes = _sizes(mesh)
+    sizes = mesh_sizes(mesh)
     parts = 1
     for entry in spec:
         for a in ((entry,) if isinstance(entry, str) else entry or ()):
@@ -368,11 +320,13 @@ def trace_program(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
     with FakeTensorMode():
         if shape.kind == "train":
             from ..training.train import init_state, make_jitted_train_step
-            state = _fake(init_state(model, 0, "meta", mesh=live), device)
+            with shd.use_mesh(live, rules):     # the state's placement
+                state = _fake(init_state(model, 0, "meta", mesh=live),
+                              device)
+                fn = make_jitted_train_step(
+                    model, dataclasses.replace(tc, microbatches=n),
+                    mesh=live, donate=True)
             rows = _train_rows(shape, tc.microbatches, live) * n
-            fn = make_jitted_train_step(
-                model, dataclasses.replace(tc, microbatches=n), mesh=live,
-                donate=True)
             args = (state, _fake(_batch(cfg, shape, rows), device))
         else:
             params = _fake(model.init(0, "meta"), device)
@@ -467,7 +421,8 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
     microbatches when the cell has more (each further one adds what the
     trace's ``microbatch`` regions cost).  ``rules`` overrides
     logical-axis mappings, as the reference's: they steer the placements
-    the record reports and serving's cache placement; the models' own
+    the record reports, a train cell's state and serving's cache
+    placement; the models' own
     split compute (``tp_psum``, the expert-parallel MoE) is the
     same under any rules."""
     from ..training.train import TrainConfig

@@ -22,12 +22,14 @@ may share a card), one device without one, the same as ``none``::
         --nproc-per-node 2 -m repro_torch.launch.train --smoke \
         --device cpu --mesh host
 
-Every rank runs the mesh train step on its rows of each batch
+Every rank holds its part of the train state (the reference's
+placement: ``init_state(..., mesh=)``, restored into that part) and runs
+the mesh train step on its rows of each batch
 (``SyntheticTokens.batch_rows``); rank 0 logs and writes the
-checkpoints (the reference's whole layout), the others wait at its
-barrier.  A SIGTERM marks only the rank that gets it: after each step
-the ranks agree on "preempted" with a collective, so every rank saves
-the same step and exits 143.
+checkpoints (the reference's whole layout, every part gathered), the
+others wait at its barrier.  A SIGTERM marks only the rank that gets
+it: after each step the ranks agree on "preempted" with a collective,
+so every rank saves the same step and exits 143.
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@ Conventions (the reference's)
   ``x @ w.to(x.dtype)`` with an output in ``x``'s dtype; norms, rope,
   the softmax statistics and the logits run in f32, as the reference's.
 * the reference's logical-axis annotations are placement only: every
-  rank holds each tensor whole.  Its ``shard_map`` branches are written
-  out: under ``tp_psum`` on a live mesh with a ``model`` axis
+  rank computes with each tensor whole (the mesh train step gathers the
+  params it holds in part at use: :func:`layer_views`).  Its
+  ``shard_map`` branches are written out: under ``tp_psum`` on a live
+  mesh with a ``model`` axis
   (``repro_torch.distributed.sharding.use_mesh``) the row- and
   column-parallel projections contract this rank's part of the
   ``mlp``/``heads`` dim and combine the parts over ``model``; with no
@@ -110,10 +112,18 @@ def layer_views(stacked, n: int) -> List[Any]:
     by one ``torch.unbind``, whose backward stacks the layers' gradients
     once; ``t[i]``'s backward would add a zero-filled ``(L, ...)``
     gradient for every layer.  Any other leaf is indexed: a cache is
-    written in place, which unbind's views refuse under autograd."""
+    written in place, which unbind's views refuse under autograd.  In the
+    mesh train step a leaf the rank holds in part gives its layers'
+    parts, which :func:`maybe_remat` gathers inside each layer's body
+    (``distributed.sharding.current_gather``)."""
+    from ..distributed.sharding import current_gather
+    gather = current_gather()
+
     def split(t):
         if isinstance(t, dict):
             return {k: split(v) for k, v in t.items()}
+        if gather is not None and gather.owns(t):
+            return gather.layers(t, n)
         if torch.is_grad_enabled() and t.requires_grad:
             return torch.unbind(t, 0)
         return [t[i] for i in range(n)]
@@ -133,22 +143,27 @@ def maybe_remat(cfg, fn):
     backward, ``"dots"`` saves the outputs of its matrix products and
     recomputes the rest, ``"none"`` (or anything else) saves all.  Only
     while autograd records: serving and the captured decode steps run
-    ``fn`` itself."""
-    if cfg.remat not in ("full", "dots"):
-        return fn
+    ``fn`` itself.  In the mesh train step the body first gathers the
+    layer's params from the rank's parts (:func:`layer_views`), so a
+    recompute gathers them again rather than keep them."""
+    remat = cfg.remat in ("full", "dots")
 
     def run(*args):
-        if not torch.is_grad_enabled():
+        from ..distributed.sharding import (current_context, current_gather,
+                                            use_context)
+        gather = current_gather()
+        if not torch.is_grad_enabled() or not (remat or gather):
             return fn(*args)
         from torch.utils.checkpoint import checkpoint
-        from ..distributed.sharding import current_context, use_context
         ctx = current_context()
 
         def body(*a):
             # the recompute may run on autograd's device thread: it sees
             # the mesh (and the rows' placement) of the forward
             with use_context(ctx):
-                return fn(*a)
+                return fn(*(a if gather is None else gather.at_use(a)))
+        if not remat:
+            return body(*args)
         kw = {"context_fn": _save_dots} if cfg.remat == "dots" else {}
         # the layers draw no random numbers, so no RNG state is kept
         return checkpoint(body, *args, use_reentrant=False,
@@ -539,13 +554,13 @@ def row_parallel_out(h, w, tp_psum: bool = False):
     reference's ``shard_map`` with an explicit ``psum``).  Under autograd
     a whole h's part gathers its gradient back whole, and the sum passes
     the output's gradient on to every rank's part."""
-    split = _model_split(tp_psum, (w.shape[0],))
+    from ..distributed.sharding import split_param, whole_dim
+    split = _model_split(tp_psum, (whole_dim(w, 0),))
     if split is None:
         return torch.matmul(h, w.to(h.dtype))
     from ..dist.collectives import reduce_from_model, split_to_model
-    from ..distributed.sharding import split_param
     mesh, k, i = split
-    if h.shape[-1] == w.shape[0]:
+    if h.shape[-1] == whole_dim(w, 0):
         h = split_to_model(h, ("model",), mesh, -1)
     y = torch.matmul(h, split_param(w, k, i, 0).to(h.dtype))
     return reduce_from_model(y, ("model",), mesh)
@@ -558,11 +573,11 @@ def col_parallel_in(x, weights, tp_psum: bool = False):
     :func:`row_parallel_out` reduces: a consumer that needs the outputs
     whole calls it without ``tp_psum``.  Under autograd x's gradient,
     each rank's columns' part, is summed over ``model``."""
-    split = _model_split(tp_psum, [w.shape[-1] for w in weights])
+    from ..distributed.sharding import split_param, whole_dim
+    split = _model_split(tp_psum, [whole_dim(w, -1) for w in weights])
     if split is None:
         return [torch.matmul(x, w.to(x.dtype)) for w in weights]
     from ..dist.collectives import copy_to_model
-    from ..distributed.sharding import split_param
     mesh, k, i = split
     x = copy_to_model(x, ("model",), mesh)
     return [torch.matmul(x, split_param(w, k, i, -1).to(x.dtype))

@@ -5,10 +5,10 @@ from .optim import (OptConfig, adamw_init, adamw_update, global_norm,
                     opt_state_axes, schedule_lr)
 from .train import (StateLayout, TrainConfig, init_state, local_batch,
                     make_jitted_train_step, make_mesh_train_step,
-                    make_train_step, rank_rows, shard_params, state_axes)
+                    make_train_step, rank_rows, shard_state, state_axes)
 
 __all__ = ["OptConfig", "StateLayout", "TrainConfig", "adamw_init",
            "adamw_update", "global_norm", "init_state", "local_batch",
            "make_jitted_train_step", "make_mesh_train_step",
            "make_train_step", "opt_state_axes", "rank_rows", "schedule_lr",
-           "shard_params", "state_axes"]
+           "shard_state", "state_axes"]

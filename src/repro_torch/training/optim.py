@@ -6,7 +6,12 @@ int32}``, every tensor on the params' device, so a step never waits on
 the host.  :func:`adamw_update` returns new tensors, as the reference's
 does; with ``inplace=True`` it writes the params and both moments where
 they lie (the reference's donated buffers: at minicpm-2b's widths a
-second copy of them would not fit the card beside the first).
+second copy of them would not fit the card beside the first).  On a
+mesh the params and moments are the rank's part of each leaf
+(``training.train.StateLayout``): the update is elementwise, so each
+part's update is the slice of the whole update given the same
+gradient, and only the clip's ``grad_norm`` needs the mesh (the caller
+passes it).
 """
 
 from __future__ import annotations

@@ -17,8 +17,15 @@ expectation.
 
 **The mesh step** (a mesh of more than one device: one process a rank
 of a ``torch.distributed`` group that the mesh fills) computes what the
-reference's GSPMD program computes on that mesh:
+reference's GSPMD program computes on that mesh, with the reference's
+placement of the train state:
 
+* *the state*: every param leaf and both its moments are held in part,
+  placed as the reference's jitted step places them
+  (``state_axes(model)`` under the rules, ``sharding.placements``:
+  ``fsdp`` over ``data``; ``mlp``, ``heads``, ``kv_heads``, ``vocab`` and
+  ``experts`` over ``model``, each where its mesh axes divide the dim):
+  :func:`shard_state`, :class:`StateLayout`;
 * *rows*: each rank is given only its rows of the global batch
   (:func:`rank_rows`, :func:`local_batch`), in the reference's
   grouping: microbatch ``i`` is global rows ``[i·B/n, (i+1)·B/n)``, and
@@ -32,21 +39,31 @@ reference's GSPMD program computes on that mesh:
   first part's aux loss (``Model.loss``); on a mesh without one it
   routes the whole microbatch, as the reference's GSPMD program does
   (``moe.whole_microbatch``);
+* *gathered at use* (``dist.collectives.gather_param``): each layer of
+  a stacked ``(L, ...)`` leaf inside that layer's checkpointed body
+  (``models.common.maybe_remat``), so a recompute gathers again, as the
+  reference's scan does; every other leaf (embedding, final norm, head)
+  once a step; under ``cast_params`` the bf16 copy of the parts is made
+  once a step and gathered, and with ``pregather_params`` every leaf's
+  bf16 copy is gathered once a step (the reference's ZeRO-1 layout).  A
+  weight whose ``model`` part is what compute consumes (the routed
+  experts, ``moe.local_experts``; the ``tp_psum`` projections,
+  ``sharding.split_param``) is gathered over its other axes only; the
+  step reads which from a forward on the meta device
+  (``step.cut_leaves``);
 * *split compute*: the ``tp_psum`` projections and the expert-parallel
   MoE run their ``model`` collectives through autograd-aware conjugate
   pairs (``dist.collectives``), so every leaf whose compute ``model``
   does not split gets its whole gradient on every ``model`` rank;
-* *the gradient reduce*, leaf by leaf, after the microbatches (and
-  after ``compress_grads``' bf16 accumulator, per rank): a mean over
-  the ``batch`` axes, plus a sum over ``model`` for the leaves that
-  ``model`` splits in compute and the rank holds whole: the weights
-  model code cut with ``sharding.split_param`` in this step's own
-  forward (``step.cut_leaves`` names them).  A leaf a rank holds only
-  its part of (the routed experts cut by :func:`shard_params`, as
-  :class:`StateLayout` says) needs no ``model`` sum; its squares are
-  summed over ``model`` for ``grad_norm``;
-* *the update*: every rank applies AdamW to the same gradients, so the
-  params and moments stay bit-equal across their replicas.
+* *the gradient reduce*, the backward of each gather, in every
+  microbatch: the whole gradient summed over the ``batch`` axes (and
+  over ``model`` for a weight compute cut from its whole), divided by
+  the row parts, and this rank's part kept (``reduce_scatter``), so the
+  microbatches' accumulators and ``compress_grads``' error feedback are
+  part-sized and hold the global gradient, as the reference's do;
+* *the update*: AdamW on the parts (elementwise, so each part's update
+  is the slice of the whole one); ``grad_norm`` sums the parts' squares
+  over the mesh, the same bits on every rank.
 
 Collectives go through gloo (staged through the host for CUDA tensors),
 so ranks may share a card; NCCL and a step captured as CUDA graphs are
@@ -62,7 +79,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..distributed.sharding import BATCH_AXES, recording_splits, use_mesh
+from ..distributed.sharding import (BATCH_AXES, current_rules, part_of,
+                                    part_shape, placements, recording_splits,
+                                    spec_cuts, use_mesh)
 from ..models.api import Model
 from ..models.common import tree_flatten, tree_unflatten
 from . import optim
@@ -75,19 +94,20 @@ class TrainConfig:
     compress_grads: bool = False    # bf16 accumulator + error feedback
     cast_params: bool = False       # compute layers on a bf16 copy of the
                                     # f32 masters, made once a step
-    pregather_params: bool = False  # the reference's placement of that
-                                    # copy; the port holds tensors whole,
-                                    # so it changes nothing
+                                    # (halves the gathers' bytes)
+    pregather_params: bool = False  # on a mesh, gather that copy of every
+                                    # leaf ONCE a step (ZeRO-1 layout),
+                                    # not each layer at use
 
 
 def init_state(model: Model, seed: int = 0, device="cuda",
                mesh=None) -> Dict[str, Any]:
     """Params drawn from ``seed`` on ``device`` and a fresh AdamW state;
-    on a live ``mesh`` the rank's part of them (:func:`shard_params`),
+    on a live ``mesh`` the rank's part of them (:func:`shard_state`),
     the moments made for that part only."""
     params = model.init(seed, device)
     if mesh is not None:
-        params = shard_params(model, params, mesh)
+        params = shard_state(model, params, mesh)
     return {"params": params, "opt": optim.adamw_init(params)}
 
 
@@ -103,40 +123,38 @@ def _on_device(batch, device) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # One device
 # ---------------------------------------------------------------------------
-def _grad_fn(model: Model, tc: TrainConfig, params, batch, record: bool
-             ) -> Tuple[torch.Tensor, List[torch.Tensor], List[bool]]:
+def _grad_fn(model: Model, tc: TrainConfig, params, batch, gather=None
+             ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(loss, the gradient of each param leaf in flatten order, in the
-    leaf's dtype, and whether model code cut the leaf to this rank's
-    part: ``record`` only).  Under ``cast_params`` the loss runs on a
-    bf16 copy of every f32 leaf with two or more dims, and the copy's
-    gradient, cast back to f32, is the master's: the reference's
-    gradient through the cast."""
+    leaf's dtype).  Under ``cast_params`` the loss runs on a bf16 copy
+    of every f32 leaf with two or more dims, and the copy's gradient,
+    cast back to f32, is the master's: the reference's gradient through
+    the cast.  On a mesh ``gather`` (:class:`_Gathers`) feeds the loss
+    the leaves gathered from the rank's parts, and the gradients are the
+    parts' of the reduced gradients."""
     paths, leaves = zip(*tree_flatten(params))
     inputs = []
     for p in leaves:
-        if tc.cast_params and p.dtype == torch.float32 and p.ndim >= 2:
+        if (gather is None and tc.cast_params and p.dtype == torch.float32
+                and p.ndim >= 2):
             p = p.to(torch.bfloat16)
         inputs.append(p.detach().requires_grad_())
     with torch.enable_grad():
-        with (recording_splits() if record
-              else contextlib.nullcontext([])) as cut:
-            loss = model.loss(tree_unflatten(list(paths), inputs), batch)
+        feed = inputs if gather is None else gather.feed(paths, inputs)
+        loss = model.loss(tree_unflatten(list(paths), feed), batch)
         grads = torch.autograd.grad(loss, inputs, allow_unused=True,
                                     materialize_grads=True)
-    cut = {id(t) for t in cut}
-    return (loss.detach(), [g.to(p.dtype) for g, p in zip(grads, leaves)],
-            [id(x) in cut for x in inputs])
+    return loss.detach(), [g.to(p.dtype) for g, p in zip(grads, leaves)]
 
 
-def _accumulate(model: Model, tc: TrainConfig, params, batch,
-                record: bool = False):
-    """(loss, gradients, cut flags) of ``batch`` over ``tc.microbatches``:
-    the gradients of one pass in each leaf's dtype, or the f32 mean of
-    the microbatches' (through the bf16 accumulator under
+def _accumulate(model: Model, tc: TrainConfig, params, batch, gather=None):
+    """(loss, gradients) of ``batch`` over ``tc.microbatches``: the
+    gradients of one pass in each leaf's dtype, or the f32 mean of the
+    microbatches' (through the bf16 accumulator under
     ``compress_grads``)."""
     n = tc.microbatches
     if n == 1:
-        return _grad_fn(model, tc, params, batch, record)
+        return _grad_fn(model, tc, params, batch, gather)
     for v in batch.values():
         assert v.shape[0] % n == 0, (v.shape[0], n)
     leaves = [p for _, p in tree_flatten(params)]
@@ -146,15 +164,13 @@ def _accumulate(model: Model, tc: TrainConfig, params, batch,
     err = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for p in leaves] if tc.compress_grads else None
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    cut = [False] * len(leaves)
     for i in range(n):
         # one region a microbatch: the dry-run's op counter takes what
         # one more microbatch adds from it (launch/op_analysis.py)
         with torch.profiler.record_function("microbatch"):
             mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                   for k, v in batch.items()}
-            loss, grads, mb_cut = _grad_fn(model, tc, params, mb, record)
-            cut = [a or b for a, b in zip(cut, mb_cut)]
+            loss, grads = _grad_fn(model, tc, params, mb, gather)
             for j, g in enumerate(grads):
                 if tc.compress_grads:
                     # quantize with error feedback: e <- (g+e) - bf16(g+e)
@@ -165,7 +181,7 @@ def _accumulate(model: Model, tc: TrainConfig, params, batch,
                 else:
                     acc[j] = acc[j] + g.float()
             loss_sum = loss_sum + loss
-    return loss_sum / n, [a.float() / n for a in acc], cut
+    return loss_sum / n, [a.float() / n for a in acc]
 
 
 def _as_tree(params, flat):
@@ -181,7 +197,7 @@ def make_train_step(model: Model, tc: TrainConfig,
 
     def step(state, batch):
         batch = _on_device(batch, state["opt"]["step"].device)
-        loss, grads, _ = _accumulate(model, tc, state["params"], batch)
+        loss, grads = _accumulate(model, tc, state["params"], batch)
         params, opt, m = optim.adamw_update(
             tc.opt, state["params"], _as_tree(state["params"], grads),
             state["opt"], inplace=donate)
@@ -228,54 +244,61 @@ def local_batch(batch, microbatches: int, mesh) -> Dict[str, Any]:
     return out
 
 
-def shard_params(model: Model, params, mesh):
-    """The rank's part of whole ``params`` on a live ``mesh``: each MoE
-    layer's routed experts cut to this rank's (``moe.local_experts``:
-    its experts, or its part of each one's hidden width), copied so the
-    whole can be freed; every other leaf as it is.  A rank then holds
-    only its experts' params and moments."""
-    from ..models.moe import local_experts
-
-    def walk(t):
-        if not isinstance(t, dict):
-            return t
-        if "router" in t and model.cfg.n_experts:
-            cut = local_experts(t, model.cfg, mesh)
-            return {k: v if v is t[k] else v.clone() for k, v in cut.items()}
-        return {k: walk(v) for k, v in t.items()}
-    return walk(params)
+def shard_state(model: Model, params, mesh):
+    """The rank's part of whole ``params`` on a live ``mesh``: every leaf
+    cut to its placement (:class:`StateLayout`), copied so the whole can
+    be freed; a leaf placed on no axis as it is."""
+    layout = StateLayout(model, mesh)
+    flat = tree_flatten(params)
+    return tree_unflatten([p for p, _ in flat], [
+        layout.local("params/" + p, t).clone(
+            memory_format=torch.contiguous_format)
+        if layout.part("params/" + p) else t for p, t in flat])
 
 
 class StateLayout:
-    """Where a mesh rank's train state lives: which leaves are the rank's
-    part (dim, parts, part) of the whole, as :func:`shard_params` cuts
-    them (shapes from the meta device).  The mesh step reads it for
-    ``grad_norm``; the checkpointer gathers those leaves over ``model``
-    before global rank 0 writes the reference's whole layout, and cuts
-    them again on restore.  The other leaves are the same on every
-    rank."""
+    """Where a mesh rank's train state lives, the reference's placement:
+    each leaf's partition spec over every mesh axis (``specs``, keyed
+    ``params/...``, ``opt/m/...``, ``opt/v/...``; ``sharding.placements``
+    of :func:`state_axes` under the current rules), the dims it cuts
+    (``parts``: the leaves held in part, ``[(dim, mesh axes)]``) and the
+    shape the rank holds of each param (``shapes``).
+    The mesh step reads it for its gathers and ``grad_norm``; the
+    checkpointer gathers every part before global rank 0 writes the
+    reference's whole layout, and cuts each leaf again on restore."""
 
     def __init__(self, model: Model, mesh) -> None:
         import torch.distributed as dist
         self.mesh = mesh
-        whole = dict(tree_flatten(model.init(0, "meta")))
-        local = tree_flatten(shard_params(model, model.init(0, "meta"),
-                                          mesh))
+        # a MoE's axes are those of this mesh's ``model`` axis; the rules
+        # are the caller's
+        with use_mesh(mesh, current_rules()):
+            axes = state_axes(model)["params"]
+        whole = model.init(0, "meta")
+        specs = dict(tree_flatten(placements(mesh, axes, whole)))
+        axes = dict(tree_flatten(axes))
+        self.specs: Dict[str, tuple] = {"opt/step": ()}
+        self.parts: Dict[str, list] = {}
         #: param path -> the shape this rank holds
-        self.shapes = {path: tuple(t.shape) for path, t in local}
-        k, i = mesh.split(("model",))
-        self.parts = {}
-        for path, t in local:
-            diff = [d for d, (a, b) in enumerate(zip(t.shape,
-                                                     whole[path].shape))
-                    if a != b]
-            if diff:
-                self.parts.update({f"{pre}{path}": (diff[0], k, i) for pre
-                                   in ("params/", "opt/m/", "opt/v/")})
+        self.shapes: Dict[str, Tuple[int, ...]] = {}
+        #: the param paths stacked on a leading ``layers`` dim
+        self.stacked = {p for p, ax in axes.items() if ax[:1] == ("layers",)}
+        for path, t in tree_flatten(whole):
+            cuts = spec_cuts(mesh, specs[path])
+            self.shapes[path] = part_shape(mesh, tuple(t.shape), cuts)
+            for pre in ("params/", "opt/m/", "opt/v/"):
+                self.specs[pre + path] = specs[path]
+                if cuts:
+                    self.parts[pre + path] = cuts
         self.writer = dist.get_rank() == 0
 
-    def part(self, path: str) -> Optional[Tuple[int, int, int]]:
+    def part(self, path: str) -> Optional[list]:
+        """The cuts of state leaf ``path`` (None: held whole)."""
         return self.parts.get(path)
+
+    def local(self, path: str, whole):
+        """This rank's part (views) of state leaf ``path``'s ``whole``."""
+        return part_of(whole, self.part(path) or (), self.mesh)
 
     def check(self, params) -> None:
         """Raise unless ``params`` has the leaves this layout holds."""
@@ -284,18 +307,23 @@ class StateLayout:
                 raise ValueError(
                     f"param {path} is {tuple(leaf.shape)}, not this rank's "
                     f"{self.shapes.get(path)}: give the mesh step the state "
-                    f"init_state(..., mesh=) or shard_params makes")
+                    f"init_state(..., mesh=) or shard_state makes")
+
+    def gathered(self, tree) -> List[torch.Tensor]:
+        """The leaves of ``tree`` (keyed like the state) whole, in flatten
+        order, on every rank: each part gathered over its axes."""
+        from ..dist.collectives import all_gather
+        out = []
+        for path, leaf in tree_flatten(tree):
+            for dim, axes in self.part(path) or ():
+                leaf = all_gather(leaf, axes, self.mesh, dim)
+            out.append(leaf)
+        return out
 
     def whole_leaves(self, tree) -> Optional[List[torch.Tensor]]:
         """The state's leaves whole, in flatten order, on the writer
         (None on the other ranks, which take part in the gathers)."""
-        from ..dist.collectives import all_gather
-        out = []
-        for path, leaf in tree_flatten(tree):
-            part = self.part(path)
-            if part is not None:
-                leaf = all_gather(leaf, ("model",), self.mesh, part[0])
-            out.append(leaf)
+        out = self.gathered(tree)
         return out if self.writer else None
 
     def barrier(self) -> None:
@@ -303,25 +331,152 @@ class StateLayout:
         dist.barrier()
 
 
-def _grad_norm(grads: Sequence[torch.Tensor], parted: Sequence[bool],
-               mesh) -> torch.Tensor:
-    """The global f32 norm of the reduced gradients, the same bits on
-    every rank: the leaves held whole locally, plus the squares of the
-    leaves held in part summed over ``model``."""
-    from ..dist.collectives import all_reduce_
+#: Tokens a row in the meta-device forward that finds the weights model
+#: code cuts (:func:`compute_cuts`; the image tokens come first).
+_PROBE_SEQ = 16
 
-    def squares(gs):
-        if not gs:
-            return torch.zeros((), dtype=torch.float32,
-                               device=grads[0].device)
-        return torch.sum(torch.stack(
-            [torch.sum(torch.square(g.float())) for g in gs]))
-    whole = squares([g for g, p in zip(grads, parted) if not p])
-    if not any(parted):
-        return torch.sqrt(whole)
-    part = all_reduce_(squares([g for g, p in zip(grads, parted) if p]),
-                       ("model",), mesh)
-    return torch.sqrt(whole + part)
+
+def compute_cuts(model: Model, mesh) -> Dict[str, int]:
+    """{param path: the dim, counted from the end, that model code cuts
+    to this rank's ``model`` part} on the live ``mesh``: the
+    ``split_param`` records of one forward of the loss on the meta device
+    (nothing is allocated or sent) under the mesh step's context, one
+    row a rank."""
+    from ..configs import ShapeSpec, input_specs
+    params = model.init(0, "meta")
+    paths = {id(t): p for p, t in tree_flatten(params)}
+    seq = _PROBE_SEQ + (model.cfg.num_image_tokens or 0)
+    batch = input_specs(model.cfg, ShapeSpec("probe", seq, 1, "train"))
+    with torch.no_grad(), recording_splits() as cut, \
+            use_mesh(mesh, current_rules(), local_batch=True):
+        model.loss(params, batch)
+    return {paths[id(root)]: dim for root, dim in cut if id(root) in paths}
+
+
+def param_plans(model: Model, mesh, layout: StateLayout):
+    """{param path: its ``dist.collectives.ParamPlan``}: each leaf is
+    gathered over the axes it is cut on, except a ``model`` part that
+    compute consumes (:func:`compute_cuts`, where its placement cuts the
+    same dim over ``model`` alone); its gradient is summed over the
+    ``batch`` axes, and over ``model`` where compute cuts it from the
+    whole."""
+    from ..dist.collectives import ParamPlan
+    cut = compute_cuts(model, mesh)
+    rows = mesh.split(BATCH_AXES)[0]
+    k_model = mesh.split(("model",))[0]
+    plans = {}
+    for path, shape in layout.shapes.items():
+        cuts = layout.part("params/" + path) or []
+        held, reduce = None, BATCH_AXES
+        if path in cut:
+            keep = [c for c in cuts if c[1] == ("model",)
+                    and c[0] - len(shape) == cut[path]]
+            if keep:
+                held, cuts = (cut[path], k_model), [c for c in cuts
+                                                    if c not in keep]
+            else:
+                reduce = BATCH_AXES + ("model",)
+        plans[path] = ParamPlan(tuple(cuts), reduce, rows, held)
+    return plans, tuple(p for p in layout.shapes if p in cut)
+
+
+class _Gathers:
+    """One mesh step's gathers (``sharding.current_gather``): made once a
+    step from the rank's params, the bf16 copies of their parts under
+    ``cast_params`` and the leaves gathered once a step (every leaf not
+    stacked on a ``layers`` dim; every leaf with ``pregather_params``);
+    then, for each microbatch, :meth:`feed` gives the loss its params
+    and ``models.common`` gathers each stacked leaf's layer at use."""
+
+    def __init__(self, plans, stacked, params, tc: TrainConfig,
+                 mesh) -> None:
+        from ..dist.collectives import gather_param
+        self.plans, self.mesh = plans, mesh
+        self.src: Dict[str, torch.Tensor] = {}
+        self.whole: Dict[str, torch.Tensor] = {}
+        once = tc.cast_params and tc.pregather_params
+        with torch.no_grad():
+            for path, p in tree_flatten(params):
+                if (tc.cast_params and p.dtype == torch.float32
+                        and p.ndim >= 2):
+                    self.src[path] = p.to(torch.bfloat16)
+                if once or path not in stacked:
+                    # (an alias: a mark on what is gathered never reaches
+                    # the state's own tensor)
+                    self.whole[path] = gather_param(
+                        p.detach(), plans[path], mesh,
+                        src=self.src.get(path))
+        self._stacked: Dict[int, Tuple[torch.Tensor, str]] = {}
+        self._layers: Dict[int, tuple] = {}
+
+    def feed(self, paths, inputs) -> List[torch.Tensor]:
+        """The loss's param leaves for the parts ``inputs`` (which
+        autograd records): a leaf gathered once a step as it is, through
+        ``gather_param`` so its part gets its gradient; a stacked leaf
+        as its part, for :meth:`layers`."""
+        from ..dist.collectives import gather_param
+        self._stacked.clear()
+        self._layers.clear()
+        out = []
+        for path, x in zip(paths, inputs):
+            if path in self.whole:
+                x = gather_param(x, self.plans[path], self.mesh,
+                                 whole=self.whole[path])
+            else:
+                self._stacked[id(x)] = (x, path)
+            out.append(x)
+        return out
+
+    def owns(self, t) -> bool:
+        hit = self._stacked.get(id(t))
+        return hit is not None and hit[0] is t
+
+    def layers(self, t, n: int) -> List[torch.Tensor]:
+        """The ``n`` layers' parts of a stacked part ``t`` (one unbind),
+        each gathered by :meth:`at_use` in its layer's body."""
+        path = self._stacked[id(t)][1]
+        plan, src = self.plans[path].layer(), self.src.get(path)
+        views = torch.unbind(t, 0)
+        assert len(views) == n, (len(views), n)
+        for i, v in enumerate(views):
+            self._layers[id(v)] = (v, None if src is None else src[i], plan)
+        return list(views)
+
+    def at_use(self, args):
+        """``args`` with every layer part of :meth:`layers` gathered whole
+        (dicts, lists and tuples walked)."""
+        from ..dist.collectives import gather_param
+
+        def walk(a):
+            if isinstance(a, dict):
+                return {k: walk(v) for k, v in a.items()}
+            if isinstance(a, (list, tuple)):
+                return type(a)(walk(v) for v in a)
+            hit = self._layers.get(id(a))
+            if hit is None or hit[0] is not a:
+                return a
+            return gather_param(a, hit[2], self.mesh, src=hit[1])
+        return walk(args)
+
+
+def _grad_norm(grads: Sequence[torch.Tensor], paths: Sequence[str],
+               layout: StateLayout) -> torch.Tensor:
+    """The global f32 norm of the reduced gradients' parts, the same bits
+    on every rank: each leaf's sum of squares from the ranks whose
+    coordinate is 0 on every axis the leaf is not cut over (one replica
+    of each part), summed over the mesh in one all-reduce."""
+    from ..dist.collectives import all_reduce_
+    mesh = layout.mesh
+    sums = []
+    for path, g in zip(paths, grads):
+        cut = {a for _, axes in layout.part("params/" + path) or ()
+               for a in axes}
+        s = torch.sum(torch.square(g.float()))
+        first = all(mesh.coords[a] == 0 for a in mesh.spec.names
+                    if a not in cut)
+        sums.append(s if first else torch.zeros_like(s))
+    total = all_reduce_(torch.stack(sums), mesh.spec.names, mesh)
+    return torch.sqrt(torch.sum(total))
 
 
 def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
@@ -329,15 +484,15 @@ def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
     """The train step of one rank of a live ``mesh`` (module docstring):
     ``step(state, batch)`` with ``batch`` this rank's rows
     (:func:`local_batch`) and ``state`` the rank's part
-    (:func:`init_state` with ``mesh``, or :func:`shard_params`; a state
+    (:func:`init_state` with ``mesh``, or :func:`shard_state`; a state
     of other shapes raises ``ValueError``).  Every rank of the group
     calls it together.  The metrics are the same on every rank.  The
     step carries its mesh (``step.mesh``), its :class:`StateLayout`
-    (``step.layout``) and the paths of the leaves whose gradients its
-    last call summed over ``model`` (``step.cut_leaves``).  A spec is
-    bound to the default process group, which must hold exactly its
-    ranks (``MeshUnavailableError`` when it holds fewer), on ``device``
-    (a ``LiveMesh`` carries its own): ``"cuda"`` without a card raises
+    (``step.layout``) and the paths of the leaves model code cuts over
+    ``model`` in compute (``step.cut_leaves``).  A spec is bound to the
+    default process group, which must hold exactly its ranks
+    (``MeshUnavailableError`` when it holds fewer), on ``device`` (a
+    ``LiveMesh`` carries its own): ``"cuda"`` without a card raises
     rather than run on the CPU."""
     from ..dist.collectives import LiveMesh, all_reduce_
     if isinstance(mesh, LiveMesh):
@@ -351,30 +506,27 @@ def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
                 "the CPU")
         live = LiveMesh(_spec(mesh), device)
     layout = StateLayout(model, live)
+    plans, cut_leaves = param_plans(model, live, layout)
     k_rows = live.split(BATCH_AXES)[0]
 
     def step(state, batch):
         layout.check(state["params"])
         batch = _on_device(batch, state["opt"]["step"].device)
-        with use_mesh(live, local_batch=True):
-            loss, grads, cut = _accumulate(model, tc, state["params"], batch,
-                                           record=True)
-        paths = [path for path, _ in tree_flatten(state["params"])]
-        step.cut_leaves = tuple(p for p, c in zip(paths, cut) if c)
-        parted = [layout.part("params/" + p) is not None for p in paths]
-        for g, c in zip(grads, cut):
-            all_reduce_(g, BATCH_AXES + (("model",) if c else ()), live)
-            if k_rows > 1:
-                g.div_(k_rows)
+        gather = _Gathers(plans, layout.stacked, state["params"], tc, live)
+        with use_mesh(live, local_batch=True, gather=gather):
+            loss, grads = _accumulate(model, tc, state["params"], batch,
+                                      gather)
+        del gather
         loss = all_reduce_(loss.clone(), BATCH_AXES, live) / k_rows
+        paths = [path for path, _ in tree_flatten(state["params"])]
         params, opt, m = optim.adamw_update(
             tc.opt, state["params"], _as_tree(state["params"], grads),
             state["opt"], inplace=donate,
-            grad_norm=_grad_norm(grads, parted, live))
+            grad_norm=_grad_norm(grads, paths, layout))
         metrics = {"loss": loss, **m}
         return (state if donate else {"params": params, "opt": opt}), metrics
 
-    step.mesh, step.layout, step.cut_leaves = live, layout, ()
+    step.mesh, step.layout, step.cut_leaves = live, layout, cut_leaves
     return step
 
 

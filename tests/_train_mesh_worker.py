@@ -58,6 +58,10 @@ def _cases():
     out["data2_microbatches/mixtral-8x22b"] = (
         "data=2", "mixtral-8x22b", {}, {"microbatches": 2}, False)
     out["data2_unequal/minicpm-2b"] = ("data=2", "minicpm-2b", {}, {}, True)
+    # the partitioned state under each option that changes its gathers
+    # or its accumulator (test_torch_train_placement.py)
+    for name, (mesh, arch, over, tc_over) in PLACEMENT_CASES.items():
+        out[name] = (mesh, arch, over, tc_over, False)
     for name in THREADED:
         kind, arch = name.split("/")
         mesh = {"model2_tp_threaded": "model=2",
@@ -65,6 +69,42 @@ def _cases():
         out[name] = (mesh, arch, {"tp_psum": True} if "tp" in kind else {},
                      {}, False)
     return out
+
+
+#: name -> (mesh, arch, config overrides, TrainConfig overrides): the
+#: partitioned state with microbatches, ``compress_grads`` (its bf16
+#: accumulator of the parts' global gradients) and ``cast_params`` with
+#: and without ``pregather_params`` (the bf16 copy gathered at use or
+#: once a step).
+MICRO_COMPRESS = {"microbatches": 2, "compress_grads": True}
+PREGATHER = {"cast_params": True, "pregather_params": True}
+PLACEMENT_CASES = {
+    "place_data2_pregather/minicpm-2b": ("data=2", "minicpm-2b", {},
+                                         PREGATHER),
+    "place_data2_micro/mixtral-8x22b": (
+        "data=2", "mixtral-8x22b", {}, {"microbatches": 2}),
+    "place_model2_tp_micro/qwen2.5-14b": (
+        "model=2", "qwen2.5-14b", {"tp_psum": True}, {"microbatches": 2}),
+    "place_model2_pregather/qwen2.5-14b": (
+        "model=2", "qwen2.5-14b", {}, {**PREGATHER, "microbatches": 2}),
+    "place_model2_cast/minicpm-2b": ("model=2", "minicpm-2b", {},
+                                     {"cast_params": True}),
+    "place_model2_micro/deepseek-v3-671b": (
+        "model=2", "deepseek-v3-671b", {"tp_psum": True},
+        {"microbatches": 2}),
+    "place_data2model2_micro_compress/qwen2.5-14b": (
+        "data=2,model=2", "qwen2.5-14b", {}, MICRO_COMPRESS),
+    "place_data2model2_cast/qwen2.5-14b": (
+        "data=2,model=2", "qwen2.5-14b", {},
+        {"cast_params": True, "microbatches": 2}),
+    "place_data2model2_micro_compress/mixtral-8x22b": (
+        "data=2,model=2", "mixtral-8x22b", {}, MICRO_COMPRESS),
+    "place_data2model2_pregather/mixtral-8x22b": (
+        "data=2,model=2", "mixtral-8x22b", {}, PREGATHER),
+    "place_data2model2_micro/whisper-base": (
+        "data=2,model=2", "whisper-base", {"tp_psum": True},
+        {"microbatches": 2}),
+}
 
 
 #: Cases whose backward runs on a thread of its own, as autograd runs a
@@ -149,14 +189,17 @@ def expected_step(model, tc, params, batch, k_rows, device="cpu",
     batch: (loss, gradients in flatten order, grad_norm).
 
     The one-device step on the global batch itself, except where the
-    mesh step's arithmetic is per row part by design, where it is the
-    mean over the row parts of the one-device step on each part's rows:
-    the bf16 accumulator of ``compress_grads`` and the bf16 gradients of
-    ``cast_params`` are each rank's before the reduce, and on a mesh with
-    a ``model`` axis (``model_axis``) a MoE routes each part's rows alone
-    (capacity and aux loss per part, the reference's ``shard_map``), its
-    reported loss carrying the first part's aux loss.  On a mesh without
-    one a MoE routes the whole microbatch: the one-device step."""
+    mesh step's arithmetic is per row part by design, where each
+    microbatch's gradient is the mean over the row parts of the
+    one-device gradient on each part's rows: the bf16 gradients of
+    ``cast_params`` are each rank's before the reduce; ``compress_grads``
+    rounds the reduced mean of each microbatch to bf16 (so the mean the
+    error feedback starts from is the mesh's, bit for bit); and on a
+    mesh with a ``model`` axis (``model_axis``) a MoE routes each part's
+    rows alone (capacity and aux loss per part, the reference's
+    ``shard_map``), its reported loss carrying the first part's aux
+    loss.  On a mesh without one a MoE routes the whole microbatch: the
+    one-device step."""
     from repro_torch.models.common import tree_flatten, tree_unflatten
     from repro_torch.training import global_norm
     from repro_torch.training.train import _accumulate
@@ -164,19 +207,36 @@ def expected_step(model, tc, params, batch, k_rows, device="cpu",
     moe = bool(model.cfg.n_experts) and model_axis
     tb = lambda b: {k: torch.as_tensor(v, device=device)
                     for k, v in b.items()}
-    if k_rows == 1 or not (moe or tc.compress_grads or tc.cast_params):
-        loss, grads, _ = _accumulate(model, tc, params, tb(batch))
+    per_part = k_rows > 1 and (moe or tc.cast_params or tc.compress_grads)
+    if not per_part:
+        loss, grads = _accumulate(model, tc, params, tb(batch))
         grads = [g.float() for g in grads]
     else:
-        parts = [_accumulate(model, tc, params, tb(rows_of(
-            batch, part_rows(B, n, k_rows, d)))) for d in range(k_rows)]
-        loss = sum(p[0] for p in parts) / k_rows
-        grads = [sum(g.float() for g in gs) / k_rows
+        one = dataclasses.replace(tc, microbatches=1, compress_grads=False)
+        loss, acc, err = 0.0, None, None
+        for i in range(n):
+            parts = [_accumulate(model, one, params, tb(rows_of(
+                batch, part_rows(B, n, k_rows, d)[i:i + 1])))
+                for d in range(k_rows)]
+            loss = loss + sum(p[0] for p in parts) / k_rows
+            g = [sum(x.float() for x in gs) / k_rows
                  for gs in zip(*(p[1] for p in parts))]
+            if tc.compress_grads:
+                err = err or [torch.zeros_like(x) for x in g]
+                corrected = [x + e for x, e in zip(g, err)]
+                g = [c.to(torch.bfloat16) for c in corrected]
+                err = [c - q.float() for c, q in zip(corrected, g)]
+            acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+        loss = loss / n
+        grads = [a.float() / n for a in acc]
         if moe:
+            fwd = params if not tc.cast_params else tree_unflatten(
+                [p for p, _ in tree_flatten(params)],
+                [t.to(torch.bfloat16) if t.ndim >= 2 else t
+                 for _, t in tree_flatten(params)])
             with torch.no_grad():
                 for i in range(n):
-                    aux = [float(model.forward(params, tb(rows_of(
+                    aux = [float(model.forward(fwd, tb(rows_of(
                         batch, part_rows(B, n, k_rows, d)[i:i + 1])))[1][
                         "aux_loss"]) for d in range(k_rows)]
                     loss = loss + (aux[0] - sum(aux) / k_rows) / n
@@ -190,34 +250,33 @@ def _sha(t):
                           ).hexdigest()[:16]
 
 
-def whole_params(params, layout):
-    """Every rank's whole params: the parts gathered over ``model``."""
-    from repro_torch.dist.collectives import all_gather
+def _tree(leaves, like):
     from repro_torch.models.common import tree_flatten, tree_unflatten
-    flat = tree_flatten(params)
-    out = []
-    for path, leaf in flat:
-        part = layout.part("params/" + path)
-        out.append(leaf if part is None else
-                   all_gather(leaf, ("model",), layout.mesh, part[0]))
-    return tree_unflatten([p for p, _ in flat], out)
+    return tree_unflatten([p for p, _ in tree_flatten(like)], list(leaves))
+
+
+def replicated(state, layout):
+    """Every rank's whole copy of ``state`` (``params``, and ``opt`` when
+    it has one): each part gathered over its axes, each leaf a copy."""
+    return _tree([t.clone() for t in layout.gathered(state)], state)
 
 
 def run_case(name, live, device="cpu"):
     """Three mesh steps of ``name`` against the one-device computation,
     on ``device``."""
     from repro_torch.models import get_model
-    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.models.common import tree_flatten, tree_leaves, \
+        tree_map
     from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                       make_jitted_train_step)
     from repro_torch.training import optim
     from repro_torch.training.train import local_batch, rank_rows, \
-        shard_params
+        shard_state
     _, arch, over, tc_over, masked = CASES[name]
     model = get_model(config(arch, **over))
     tc = TrainConfig(opt=OptConfig(**OPT), **tc_over)
-    params = shard_params(model, tree_map(lambda t: t.to(device),
-                                          draw_params(model)), live)
+    params = shard_state(model, tree_map(lambda t: t.to(device),
+                                         draw_params(model)), live)
     state = {"params": params, "opt": adamw_init(params)}
     step = make_jitted_train_step(model, tc, mesh=live)
     layout = step.layout
@@ -232,9 +291,12 @@ def run_case(name, live, device="cpu"):
 
     res = {"loss": [], "loss_want": [], "norm": [], "norm_want": [],
            "grad_ratio": [], "worst_leaf": [], "param_sha": [],
-           "moment_sha": [], "finite": True, "coords": live.coords,
+           "moment_sha": [], "whole_equal": [], "finite": True,
+           "coords": live.coords,
            "rows": rank_rows(B, tc.microbatches, live),
-           "parts": sorted(p for p in layout.parts if p.startswith("params/"))}
+           "parts": sorted(p for p in layout.parts if p.startswith("params/")),
+           "cut_axes": {p: sorted({a for _, axes in cuts for a in axes})
+                        for p, cuts in layout.parts.items()}}
     optim.adamw_update = capture
     real_grad = torch.autograd.grad
     if name in THREADED:
@@ -242,20 +304,28 @@ def run_case(name, live, device="cpu"):
     try:
         for s in range(STEPS):
             gb = make_batch(model.cfg, seed=s + 1, masked=masked)
-            whole = whole_params(state["params"], layout)
+            before = replicated(state, layout)
+            whole = before["params"]
             want_loss, want_grads, want_norm = expected_step(
                 model, tc, whole, gb, k_rows, device, model_axis)
             state, met = step(state, local_batch(gb, tc.microbatches, live))
+            # the replicated layout's update: AdamW on the whole state with
+            # the whole reduced gradients, bit-equal to the parts' gathered
+            grads = replicated({"params": _tree(seen[-1], state["params"])},
+                               layout)["params"]
+            new_p, new_opt, _ = real(tc.opt, before["params"], grads,
+                                     before["opt"],
+                                     grad_norm=met["grad_norm"])
+            res["whole_equal"].append(all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves({"params": new_p, "opt": new_opt}),
+                    tree_leaves(replicated(state, layout)))))
             if s == 0:
                 res["cut"] = list(step.cut_leaves)
             ratio, worst = 0.0, None
             flat = tree_flatten(state["params"])
             for (path, leaf), got, want in zip(flat, seen[-1], want_grads):
-                part = layout.part("params/" + path)
-                if part is not None:
-                    dim, k, i = part
-                    want = want.narrow(dim, i * (want.shape[dim] // k),
-                                       want.shape[dim] // k)
+                want = layout.local("params/" + path, want)
                 scale = max(1.0, float(want.abs().max()))
                 r = float((got - want).abs().max()) / scale
                 if r > ratio:
@@ -373,7 +443,7 @@ def checkpoint_checks(live, out_dir):
     mesh_dir = os.path.join(out_dir, "ck_mesh")
     Checkpointer(mesh_dir).save(4, state, blocking=True, layout=layout)
     whole = layout.whole_leaves(state)
-    out = {"parts": len(layout.parts)}
+    out = {"parts": sorted(layout.parts)}
     one_dir = os.path.join(out_dir, "ck_one")
     if whole is not None:
         paths = [p for p, _ in tree_flatten(state)]
@@ -399,6 +469,64 @@ def checkpoint_checks(live, out_dir):
     return out
 
 
+#: The partitioned checkpoint's config and step: saved on
+#: ``data=2,model=2`` (``ck_save``), restored on another mesh
+#: (``ck_restore=<dir>``) and by the reference.
+CK_ARCH, CK_STEP = "qwen2.5-14b", 4
+
+
+def placement_checkpoint(live, out_dir, name):
+    """``ck_save``: a partitioned state (every leaf in part) saved on
+    ``live``, against rank 0's one-device save of the gathered state
+    (byte-equal), restored whole on one device and in part on each rank
+    (bit-equal), in ``<out_dir>/ck_place``.  ``ck_restore=<dir>``: that
+    checkpoint restored into this mesh's parts, against the one-device
+    restore cut to them."""
+    import filecmp
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_flatten, tree_map
+    from repro_torch.training import init_state
+    from repro_torch.training.train import StateLayout
+    model = get_model(config(CK_ARCH))
+    layout = StateLayout(model, live)
+    like = init_state(model, 0, "cpu", mesh=live)
+    same = lambda a, b: all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        tree_flatten(a), tree_flatten(b)))
+    if name.startswith("ck_restore="):
+        src = name.split("=", 1)[1]
+        back = Checkpointer(src).restore(CK_STEP, like, layout=layout)
+        whole = Checkpointer(src).restore(CK_STEP, init_state(model, 0,
+                                                              "cpu"))
+        mine = _tree([layout.local(p, t) for p, t in tree_flatten(whole)],
+                     whole)
+        return {"parts": len(layout.parts), "rank_equal": same(back, mine)}
+    state = init_state(model, 3, "cpu", mesh=live)
+    state["opt"]["m"] = tree_map(lambda t: t + 0.5, state["opt"]["m"])
+    state["opt"]["step"].fill_(CK_STEP)
+    mesh_dir = os.path.join(out_dir, "ck_place")
+    Checkpointer(mesh_dir).save(CK_STEP, state, blocking=True, layout=layout)
+    whole = layout.whole_leaves(state)
+    out = {"parts": len(layout.parts), "dir": mesh_dir}
+    if whole is not None:
+        whole = _tree(whole, state)
+        one_dir = os.path.join(out_dir, "ck_place_one")
+        Checkpointer(one_dir).save(CK_STEP, whole, blocking=True)
+        a, b = (os.path.join(d, f"step_{CK_STEP:09d}")
+                for d in (mesh_dir, one_dir))
+        names = sorted(os.listdir(a))
+        out["byte_equal"] = names == sorted(os.listdir(b)) and all(
+            filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                        shallow=False) for n in names)
+        out["one_device_equal"] = same(Checkpointer(mesh_dir).restore(
+            CK_STEP, init_state(model, 0, "cpu")), whole)
+    dist.barrier()
+    out["rank_equal"] = same(Checkpointer(mesh_dir).restore(
+        CK_STEP, like, layout=layout), state)
+    return out
+
+
 def run_group(rank: int, world: int, init_file: str, mesh: str,
               out_dir: str, names, oracle=None, device="cpu") -> None:
     """One rank: every case of ``names`` on ``mesh`` (and, given the
@@ -412,7 +540,9 @@ def run_group(rank: int, world: int, init_file: str, mesh: str,
                             rank=rank, world_size=world)
     try:
         live = LiveMesh(MeshSpec.parse(mesh), torch.device(device))
-        results = {name: run_case(name, live, device) for name in names}
+        results = {name: placement_checkpoint(live, out_dir, name)
+                   if name.startswith("ck_") else run_case(name, live, device)
+                   for name in names}
         for arch, path in (oracle or {}).items():
             results[f"oracle/{arch}"] = run_oracle(arch, path, live)
         if "model" in mesh:
@@ -443,7 +573,9 @@ ORACLE_MICROBATCHES = 2
 
 #: The reference's jitted mesh step, run by :func:`reference_oracle` in a
 #: process of its own: argv is the mesh (``data=2,model=2`` or
-#: ``data=2``) then (arch, output file) pairs.  The mesh is built with
+#: ``data=2``) then (case, output file) pairs, a case an arch with the
+#: TrainConfig flags it turns on after a colon, joined by ``+``
+#: (``qwen2.5-14b:compress_grads``).  The mesh is built with
 #: Auto axes: under jax 0.9 ``jax.make_mesh`` makes Explicit ones, which
 #: the reference's ``with_sharding_constraint`` refuses.
 ORACLE_SCRIPT = textwrap.dedent("""
@@ -465,12 +597,14 @@ ORACLE_SCRIPT = textwrap.dedent("""
 
     mesh = jax.make_mesh(shape, names,
                          axis_types=(AxisType.Auto,) * len(names))
-    for arch, out in zip(sys.argv[2::2], sys.argv[3::2]):
+    for case, out in zip(sys.argv[2::2], sys.argv[3::2]):
+        arch, _, opts = case.partition(":")
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   dtype="float32")
         m = get_model(cfg)
         tc = TrainConfig(opt=OptConfig(lr=1e-3, total_steps=4,
-                                       warmup_steps=0), microbatches=2)
+                                       warmup_steps=0), microbatches=2,
+                         **{o: True for o in opts.split("+") if o})
         with shd.use_mesh(mesh):
             state = init_state(m, jax.random.PRNGKey(0))
             params = {
@@ -495,13 +629,15 @@ ORACLE_SCRIPT = textwrap.dedent("""
 """)
 
 
-def reference_oracle(mesh: str, out_dir: str, root: str):
-    """Run the reference's mesh step on ``mesh`` for each of
-    :data:`ORACLE_ARCHS` in a subprocess; {arch: the file of its params,
-    batch and 3 losses}."""
+def reference_oracle(mesh: str, out_dir: str, root: str,
+                     cases=ORACLE_ARCHS):
+    """Run the reference's mesh step on ``mesh`` for each of ``cases``
+    (archs, each with its TrainConfig flags: ``ORACLE_SCRIPT``) in a
+    subprocess; {case: the file of its params, batch and 3 losses}."""
     import subprocess
     import sys
-    files = {a: os.path.join(out_dir, f"{a}.npz") for a in ORACLE_ARCHS}
+    files = {a: os.path.join(out_dir, a.replace(":", "__") + ".npz")
+             for a in cases}
     args = [x for a, f in files.items() for x in (a, f)]
     out = subprocess.run([sys.executable, "-c", ORACLE_SCRIPT, mesh, *args],
                          capture_output=True, text=True, cwd=root,
@@ -524,18 +660,20 @@ def load_oracle(path):
     return params_from_reference(params), batch, losses
 
 
-def run_oracle(arch, path, live):
-    """The port's mesh step from the reference's params and batch: its 3
-    losses and the reference's."""
+def run_oracle(case, path, live):
+    """The port's mesh step from the reference's params and batch (with
+    the case's TrainConfig flags): its 3 losses and the reference's."""
     from repro_torch.models import get_model
     from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                       make_jitted_train_step)
-    from repro_torch.training.train import local_batch, shard_params
+    from repro_torch.training.train import local_batch, shard_state
     params, batch, want = load_oracle(path)
+    arch, _, opts = case.partition(":")
     model = get_model(config(arch))
     tc = TrainConfig(opt=OptConfig(**ORACLE_OPT),
-                     microbatches=ORACLE_MICROBATCHES)
-    params = shard_params(model, params, live)
+                     microbatches=ORACLE_MICROBATCHES,
+                     **{o: True for o in opts.split("+") if o})
+    params = shard_state(model, params, live)
     state = {"params": params, "opt": adamw_init(params)}
     step = make_jitted_train_step(model, tc, mesh=live)
     rows = local_batch(batch, tc.microbatches, live)

@@ -6,10 +6,11 @@ qwen2.5-14b and mixtral-8x22b x train_4k on the 16x16 production mesh
 (rank 0 of a fake group of 256) each write their record in a subprocess
 under 180 s; the record has the reference's keys that carry over, finite
 terms, and the rank's argument bytes: its state, as ``StateLayout`` says
-the rank holds it (mixtral: only its part of each expert), plus its rows
-of the batch.  ``--shape long_500k`` is skipped with the reference's
-reason, and ``--device cuda`` on a machine without a card exits with an
-error naming ``--device cpu`` before anything is traced."""
+the rank holds it (its part of every leaf, the reference's placement:
+equal to ``argument_size_if_placed``), plus its rows of the batch.
+``--shape long_500k`` is skipped with the reference's reason, and
+``--device cuda`` on a machine without a card exits with an error
+naming ``--device cpu`` before anything is traced."""
 
 import json
 import math
@@ -104,6 +105,7 @@ def test_train_4k_record(records, arch):
     assert [t["depth"]["layer"] for t in rec["traced"]] == [1, 2]
     mem = rec["memory_analysis"]
     assert mem["argument_size_in_bytes"] == _state_bytes(arch)
+    assert mem["argument_size_in_bytes"] == rec["argument_size_if_placed"]
     assert mem["alias_size_in_bytes"] == mem["argument_size_in_bytes"] \
         - 2 * 16 * 4096 * 4
     # the gradient reduce over data, and (mixtral) the experts' sums
@@ -112,16 +114,19 @@ def test_train_4k_record(records, arch):
 
 def test_mixtral_rank_holds_its_part_of_each_expert(records):
     """mixtral's 8 experts on a 16-way model axis: each rank holds a
-    sixteenth of every expert's hidden width, params and moments."""
+    sixteenth of every expert's hidden width and, over ``data``, a
+    sixteenth of its ``d_model`` (``fsdp``), params and moments; its
+    arguments are the placed bytes."""
     cfg = get_config("mixtral-8x22b")
     model = get_model(cfg)
-    whole = sum(t.numel() * t.element_size()
-                for _, t in _flat(model.init(0, "meta")))
-    expert = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * \
-        cfg.num_layers * 4
-    held = records["mixtral-8x22b"]["memory_analysis"][
-        "argument_size_in_bytes"] - 4 - 2 * 16 * 4096 * 4
-    assert held == 3 * (whole - expert + expert // 16)
+    with cells.dry_group(production_mesh_spec(), 0, "cpu") as live:
+        layout = StateLayout(model, live)
+    L, e, d, f = cfg.num_layers, cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    assert layout.shapes["layers/ffn/wi_gate"] == (L, e, d // 16, f // 16)
+    assert layout.shapes["layers/ffn/wo"] == (L, e, f // 16, d // 16)
+    rec = records["mixtral-8x22b"]
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        rec["argument_size_if_placed"]
 
 
 def test_long_500k_is_skipped(tmp_path):

@@ -10,10 +10,14 @@ one-device computation of that step from the same state and global batch
 
 * the loss within 1e-5 x max(1, |loss|), each reduced gradient leaf
   within 1e-4 x max(1, max|g|), ``grad_norm`` within 1e-5 relative;
-* params and moments bit-equal on both ranks after every step, and the
-  loss and ``grad_norm`` the same bits on both;
+* params and moments bit-equal on every rank that holds the same part
+  (each rank holds its part of every leaf with an ``fsdp`` dim), the
+  state gathered whole the same bits as the replicated layout's (AdamW
+  on the whole state with the whole reduced gradients), and the loss
+  and ``grad_norm`` the same bits on both;
 * each rank's rows the reference's microbatch grouping (``rank_rows``);
-* nothing cut over ``model`` on a ``data``-only mesh;
+* nothing cut over ``model`` in compute on a ``data``-only mesh, the
+  state cut over ``data`` alone;
 * the reference oracle on ``data=2`` (``_train_mesh_worker.ORACLE_SCRIPT``
   on 2 host devices, Auto axes): qwen2.5-14b and mixtral-8x22b SMOKE at
   f32, the port's 3 losses from the same params within the limits of
@@ -22,10 +26,10 @@ one-device computation of that step from the same state and global batch
 
 The one-device computation is the one-device step on the global batch
 (a MoE too: it routes the whole microbatch here), except where the mesh
-step is per row part by design (the bf16 accumulator and bf16 gradients
-of ``compress_grads`` and ``cast_params`` are each rank's, before the
-reduce): there it is the mean over the row parts of the one-device step
-on each part's rows.
+step is per row part by design (the bf16 gradients of ``cast_params``
+are each rank's, before the reduce; ``compress_grads`` rounds each
+microbatch's reduced mean): there each microbatch's gradient is the mean
+over the row parts of the one-device gradient on each part's rows.
 """
 
 import json
@@ -38,7 +42,8 @@ torch = pytest.importorskip("torch")
 import _train_mesh_worker as W
 
 MESH = "data=2"
-NAMES = [n for n, c in W.CASES.items() if c[0] == MESH]
+NAMES = [n for n, c in W.CASES.items()
+         if c[0] == MESH and n not in W.PLACEMENT_CASES]
 LOSS_TOL, GRAD_TOL, NORM_TOL = 1e-5, 1e-4, 1e-5
 ORACLE_TOL = (1e-5, 1e-4, 1e-4)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,33 +79,26 @@ def check_against_one_device(res):
         assert abs(norm - want) <= NORM_TOL * want, (s, norm, want)
 
 
-def _param_of(key, path):
-    """The param path of a ``param_sha`` / ``moment_sha`` entry (None for
-    the step count)."""
-    if key == "param_sha":
-        return path
-    head, _, rest = path.partition("/")
-    return rest if head in ("m", "v") else None
-
-
 def check_replicas_bit_equal(results):
     """Params and moments the same bits on every rank that holds the
-    same part of a leaf (every rank, for a leaf held whole); the loss and
-    ``grad_norm`` the same bits on every rank."""
+    same part of a leaf (the ranks whose coordinates agree on every axis
+    the leaf is cut over; every rank, for a leaf held whole); the state
+    gathered whole on each rank the same bits as the replicated layout's
+    (AdamW on the whole state with the whole reduced gradients); the
+    loss and ``grad_norm`` the same bits on every rank."""
     for s in range(W.STEPS):
-        for key in ("param_sha", "moment_sha"):
+        for key, pre in (("param_sha", "params/"), ("moment_sha", "opt/")):
             for path in results[0][key][s]:
-                param = _param_of(key, path)
                 groups = {}
                 for res in results:
-                    part = param is not None and f"params/{param}" in \
-                        res["parts"]
-                    coord = res["coords"].get("model", 0) if part else 0
+                    axes = res["cut_axes"].get(pre + path, [])
+                    coord = tuple(res["coords"][a] for a in axes)
                     groups.setdefault(coord, set()).add(res[key][s][path])
                 assert all(len(v) == 1 for v in groups.values()), (
                     s, key, path)
         for key in ("loss", "norm"):
             assert len({res[key][s] for res in results}) == 1, (s, key)
+        assert all(res["whole_equal"][s] for res in results), s
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -116,11 +114,14 @@ def test_state_bit_equal_across_ranks(ranks, name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_rows_are_the_reference_grouping_and_nothing_is_cut(ranks, name):
+    """Nothing is cut in compute; the state is cut over ``data`` alone
+    (its ``fsdp`` dims)."""
     n = W.CASES[name][3].get("microbatches", 1)
     for r, res in enumerate(ranks):
         assert res[name]["rows"] == [list(x) for x in W.part_rows(W.B, n, 2,
                                                                   r)]
-        assert res[name]["cut"] == [] and res[name]["parts"] == []
+        assert res[name]["cut"] == [] and res[name]["parts"]
+        assert all(a == ["data"] for a in res[name]["cut_axes"].values())
 
 
 def test_unequal_case_counts_differ_between_row_parts():

@@ -2,28 +2,29 @@
 own mesh step as an oracle: gloo groups of two (``model=2``) and four
 (``data=2,model=2``) ranks on the CPU (``tests/_train_mesh_worker.py``).
 
-* ``model=2``: the MoE configs expert-parallel (each rank holding only
-  its experts' params and moments), and ``tp_psum=True`` for the
-  transformer (qwen2.5-14b), mla (deepseek-v3-671b), rglru
+* ``model=2``: the MoE configs expert-parallel, and ``tp_psum=True``
+  for the transformer (qwen2.5-14b), mla (deepseek-v3-671b), rglru
   (recurrentgemma-9b) and whisper families; ``data=2,model=2``:
-  qwen2.5-14b (plain and ``tp_psum``) and mixtral-8x22b.  Three steps
+  qwen2.5-14b (plain and ``tp_psum``) and mixtral-8x22b.  Every rank
+  holds its part of the state (the reference's placement).  Three steps
   each against the one-device computation of the same step, within the
   limits of ``test_torch_train_mesh.py``, params and moments bit-equal
-  across the ranks that hold the same part, the loss and ``grad_norm``
-  the same bits everywhere;
-* the leaves whose gradients the step summed over ``model``
-  (``step.cut_leaves``, from its own forward's ``split_param`` marks)
-  are exactly the weights the ``tp_psum`` projections cut (never a norm,
-  an embedding, the router or attention's q/k/v), and none where the
-  rank holds its experts cut;
+  across the ranks that hold the same part and, gathered, the
+  replicated layout's, the loss and ``grad_norm`` the same bits
+  everywhere;
+* the leaves model code cuts over ``model`` in compute
+  (``step.cut_leaves``, from the ``split_param`` marks of a forward on
+  the meta device) are exactly the weights the ``tp_psum`` projections
+  cut and the routed experts (never a norm, an embedding, the router or
+  attention's q/k/v), each held in part over ``model``;
 * each autograd-aware collective's forward and backward against the
   one-process computation over every rank's inputs; a mesh larger than
   the group is refused with ``MeshUnavailableError``, a smaller one with
   ``ValueError``, and so is a state whose experts are whole where the
   rank holds its part;
-* a checkpoint of a state whose experts are cut: byte-equal to one
-  device's save of the gathered state, restored whole on one device and
-  in part on each rank;
+* a checkpoint of a partitioned state (the experts among its parts):
+  byte-equal to one device's save of the gathered state, restored whole
+  on one device and in part on each rank;
 * the reference oracle (``_train_mesh_worker.ORACLE_SCRIPT``):
   ``repro.training.make_jitted_train_step`` on 4 host devices, the
   ``(data, model)`` mesh built with Auto axes (under jax 0.9
@@ -48,7 +49,8 @@ import _train_mesh_worker as W
 from test_torch_train_mesh import (check_against_one_device, check_oracle,
                                    check_replicas_bit_equal)
 
-NAMES = {m: [n for n, c in W.CASES.items() if c[0] == m]
+NAMES = {m: [n for n, c in W.CASES.items()
+             if c[0] == m and n not in W.PLACEMENT_CASES]
          for m in ("model=2", "data=2,model=2")}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,7 +87,7 @@ def test_state_bit_equal_across_ranks(groups, mesh, name):
     check_replicas_bit_equal([res[name] for res in groups[mesh]])
 
 
-#: The leaves ``model`` cuts in compute that a rank holds whole.
+#: The leaves the ``tp_psum`` projections cut in compute.
 TP_CUT = {
     "qwen2.5-14b": ["layers/attn/wo", "layers/ffn/wi_gate", "layers/ffn/wi_up",
                     "layers/ffn/wo"],
@@ -94,34 +96,39 @@ TP_CUT = {
     "whisper-base": ["dec/cross/wo", "dec/mlp/w2", "dec/self/wo",
                      "enc/attn/wo", "enc/mlp/w2"],
 }
-#: The leaves a rank holds only its experts' part of.
-MOE_PARTS = {
-    "mixtral-8x22b": [f"params/layers/ffn/{e}"
-                      for e in ("wi_gate", "wi_up", "wo")],
-    "deepseek-v3-671b": [f"params/{pre}/ffn/{e}"
-                         for pre in ("layers", "mtp/block")
+#: The routed experts' weights, cut to this rank's experts in compute.
+MOE_CUT = {
+    "mixtral-8x22b": [f"layers/ffn/{e}" for e in ("wi_gate", "wi_up", "wo")],
+    "deepseek-v3-671b": [f"{pre}/ffn/{e}" for pre in ("layers", "mtp/block")
                          for e in ("wi_gate", "wi_up", "wo")],
 }
 
 
 @pytest.mark.parametrize("mesh,name", CASES)
 def test_split_leaves_are_the_cut_weights(groups, mesh, name):
+    """The leaves model code cuts over ``model`` in compute
+    (``step.cut_leaves``) are the ``tp_psum`` projections' weights and
+    the routed experts; each is held in part over ``model``, as is
+    every leaf the placement cuts (``parts``)."""
     arch = W.CASES[name][1]
     tp = W.CASES[name][2].get("tp_psum", False)
     for res in groups[mesh]:
         got = res[name]["cut"]
+        experts = MOE_CUT.get(arch, [])
         if tp and arch in TP_CUT:
-            assert got == TP_CUT[arch]
+            assert got == sorted(TP_CUT[arch] + experts)
         elif tp:                                    # recurrentgemma
             assert got and all(p.endswith(("/wo", "/wi_gate", "/wi_up"))
                                for p in got), got
         else:
-            assert got == []
+            assert got == experts
         for path in got:
             assert not any(k in path for k in ("ln", "norm", "embed",
                                                "router", "/wq", "/wk",
                                                "/wv")), path
-        assert res[name]["parts"] == MOE_PARTS.get(arch, [])
+            assert "model" in res[name]["cut_axes"]["params/" + path], path
+        assert set(experts) <= {p[len("params/"):]
+                                for p in res[name]["parts"]}
 
 
 @pytest.mark.parametrize("mesh", list(NAMES))
@@ -143,7 +150,10 @@ def test_mesh_leaving_ranks_out_is_refused(groups):
                                    "rank_equal"])
 def test_checkpoint_of_cut_experts(groups, check):
     ranks = groups["model=2"]
-    assert all(res["checkpoint"]["parts"] == 9 for res in ranks)
+    experts = {f"{pre}layers/ffn/{e}" for pre in ("params/", "opt/m/",
+                                                  "opt/v/")
+               for e in ("wi_gate", "wi_up", "wo")}
+    assert all(experts <= set(res["checkpoint"]["parts"]) for res in ranks)
     have = [res["checkpoint"][check] for res in ranks
             if check in res["checkpoint"]]
     assert have and all(have), (check, have)
