@@ -3396,10 +3396,18 @@ def _step_probe(torch, sched):
     (``step_rows`` as the step sets it) against the full-slots step's;
     and the bare eager step (no ``step_rows``) at each bucket against
     the full-slots one, op by op (STEP_PROBE_OPS, row 0 of each output):
-    the first op whose row 0 differs."""
+    the first op whose row 0 differs.  Also the probe buckets that were
+    still cold when the serve run ended (returned second, sorted)."""
     from repro_torch.models import common as C
     from repro_torch.runtime import Bucket
     sm = sched.slot_manager
+    # a bucket whose background capture failed (a device-wide sync during
+    # it) and that no later batch asked for again stays cold: it is
+    # recorded, then captured here, with no traffic beside it
+    cold = sorted(b for b in PROBE_ROWS
+                  if sched._decode_engine.peek(Bucket(b)) is None)
+    sched._decode_engine.warm_up([Bucket(b) for b in PROBE_ROWS],
+                                 block=True)
     steps = {b: sched._decode_engine.peek(Bucket(b))
              for b in sorted(PROBE_ROWS, reverse=True)}
     top = max(PROBE_ROWS)
@@ -3460,7 +3468,7 @@ def _step_probe(torch, sched):
                                         .abs().max()),
             "bare_first_difference": first}
     del saved
-    return out
+    return out, cold
 
 
 def _tensor_bytes(tensors):
@@ -3622,9 +3630,10 @@ def phase_serve_qwen(torch, np):
         problems.append(f"serve qwen: {summ['completed']} completed, prefix "
                         f"cache {summ['prefix_cache']}")
 
-    probe = _step_probe(torch, sched)
+    probe, cold = _step_probe(torch, sched)
     emit({"phase": "serve", "case": "qwen2.5-14b", "op": "step_probe",
-          "row0_max_abs_diff": probe})
+          "row0_max_abs_diff": probe, "cold_after_serve": cold,
+          "cold_after_serve_count": len(cold)})
     if any(r["captured_vs_full"] for r in probe.values()):
         problems.append(f"serve qwen: a bucket's captured step gives row 0 "
                         f"other logits than the full-slots step: {probe}")
@@ -5079,9 +5088,14 @@ def phase_train():
 #: one-device computation of each step on the card (the CPU tests'
 #: limits): {ranks: [(case, mesh, arch, config overrides, TrainConfig
 #: overrides)]}, global batch x tokens.
+#: Every case with a ``model`` axis runs with its compute split over it
+#: (heads, MLP columns, vocab; the MoE expert-parallel).
 TM1 = {4: [("tm1", "data=2,model=2", "qwen2.5-14b", {}, {}),
-           ("tm1", "data=2,model=2", "mixtral-8x22b", {}, {})],
+           ("tm1", "data=2,model=2", "mixtral-8x22b", {}, {}),
+           ("tm1", "data=2,model=2", "deepseek-v3-671b", {}, {})],
        2: [("tm1", "model=2", "qwen2.5-14b", {"tp_psum": True}, {}),
+           ("tm1", "model=2", "whisper-base", {}, {}),
+           ("tm1", "model=2", "recurrentgemma-9b", {}, {}),
            ("tm1", "data=2", "minicpm-2b", {}, {"microbatches": 2}),
            ("tm1", "data=2", "mixtral-8x22b", {}, {})]}
 TM1_BATCH = (4, 16)
@@ -5106,8 +5120,15 @@ TM2_NORM_TOL = 1e-2
 TM3 = (4, 128, 1)
 TM3_LR = 1e-5
 TM3_PARAM_TOL = 1e-4
-TM_RANK_TIMEOUT_S = {4: 90, 2: 180}
-TRAIN_MESH_TIMEOUT_S = 300
+#: (tm4): minicpm-2b at its published widths (d_model 2304, 36 heads,
+#: d_ff 5760, vocab 122753: an odd vocab, so the vocab rows split
+#: unevenly) on model=2 with its compute split over ``model``, depth cut
+#: from 40 layers to TM4[3]: global batch x tokens x steps x layers, WSD
+#: warm-up over the steps to TRAIN_LR; step 1's loss and grad_norm
+#: against the one-device step within tm2's limits.
+TM4 = (4, 512, 2, 4)
+TM_RANK_TIMEOUT_S = {4: 150, 2: 330}
+TRAIN_MESH_TIMEOUT_S = 500
 TRAIN_MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
 TM_ALLOC_CONF = "expandable_segments:True"
 
@@ -5125,8 +5146,12 @@ def _tm_sha(t):
 
 def _tm_batch(np, cfg, b, s, seed):
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _tm_expected(torch, np, model, tc, params, batch, k_rows, model_axis):
@@ -5254,6 +5279,43 @@ def _tm_collectives(torch):
 
     def undo():
         col._gather_whole, col.reduce_scatter = real_gather, real_reduce
+    return rec, undo
+
+
+def _tm_model_reduces(torch):
+    """Time the split compute's collectives over ``model`` (the sums and
+    maxes of ``dist.collectives._summed`` over ``model`` outside the
+    gradient reduce), each call between two device syncs; returns (the
+    totals, a function that undoes the patch)."""
+    import repro_torch.dist.collectives as col
+    rec = {"model_reduces": 0, "model_reduce_bytes": 0,
+           "model_reduce_ms": 0.0}
+    real_summed, real_reduce = col._summed, col.reduce_scatter
+    inside = []
+
+    def summed(x, axes, mesh, op=None):
+        if inside or mesh.canonical(axes) != ("model",) or \
+                x.device.type == "meta":
+            return real_summed(x, axes, mesh, op)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_summed(x, axes, mesh, op)
+        torch.cuda.synchronize()
+        rec["model_reduces"] += 1
+        rec["model_reduce_bytes"] += x.numel() * x.element_size()
+        rec["model_reduce_ms"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def reduce(*args):
+        inside.append(True)
+        try:
+            return real_reduce(*args)
+        finally:
+            inside.pop()
+    col._summed, col.reduce_scatter = summed, reduce
+
+    def undo():
+        col._summed, col.reduce_scatter = real_summed, real_reduce
     return rec, undo
 
 
@@ -5497,9 +5559,99 @@ def _tm_minicpm(torch, np, live, rank):
     return row
 
 
+def _tm_minicpm_model(torch, np, live, rank):
+    """(tm4) minicpm-2b at its widths on model=2, its compute split over
+    ``model``: 2 steps of 4 x 512, step 1 against one device."""
+    import dataclasses
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import get_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import (OptConfig, TrainConfig, init_state,
+                                      make_jitted_train_step)
+    b, s, steps, layers = TM4
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=layers)
+    model = get_model(cfg)
+    tc = TrainConfig(opt=OptConfig(lr=TRAIN_LR, total_steps=steps,
+                                   warmup_steps=steps,
+                                   schedule=cfg.lr_schedule))
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab, global_batch=b,
+                                      seq_len=s, seed=0))
+    want, one_peak, one_ms = None, None, None
+    if rank == 0:                         # one device; the other rank waits
+        # its peak over what the mesh rank's covers: the state (params
+        # and both AdamW moments) and a whole step
+        torch.cuda.reset_peak_memory_stats()
+        one = init_state(model, 0, DEVICE)
+        one_step = make_jitted_train_step(model, tc)
+        whole = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in data.batch(0).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one, met = one_step(one, whole)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t) * 1e3
+        want = (float(met["loss"]), float(met["grad_norm"]))
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        del one, one_step, whole, met
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, 0, DEVICE, mesh=live)
+    n_params = sum(t.numel() for t in tree_leaves(model.init(0, "meta")))
+    held = _tm_held(state)
+    step = make_jitted_train_step(model, tc, mesh=live)
+    losses, norms, ms, coll = [], [], [], {}
+    for i in range(steps):
+        # every row on every model rank
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in data.batch(i).items()}
+        # the first step's collectives timed one call at a time; the
+        # second step's time is the step's own
+        if i == 0:
+            coll, undo = _tm_collectives(torch)
+            split, undo_split = _tm_model_reduces(torch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            if i == 0:
+                undo_split()
+                undo()
+                coll.update(split)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cut = list(step.cut_leaves)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"case": "tm4", "arch": "minicpm-2b", "mesh": "model=2",
+           "layers": layers, "params": n_params, "batch": [b, s],
+           "cut_leaves": cut, "losses": losses, "grad_norms": norms,
+           "step_ms": ms, "step2_ms": ms[-1],
+           "tokens_per_s": b * s / (ms[-1] / 1e3),
+           "state_bytes_rank": held, "placed_bytes": _tm_placed(model, live),
+           "state_gb_rank": held / 1e9, "peak_gb_rank": peak, **coll}
+    if want is not None:
+        row.update(one_device_loss=want[0], one_device_grad_norm=want[1],
+                   one_device_peak_gb=one_peak, one_device_step_ms=one_ms,
+                   loss_err=abs(losses[0] - want[0]),
+                   loss_limit=TM2_LOSS_TOL * max(1.0, abs(want[0])),
+                   norm_rel_err=abs(norms[0] - want[1]) / want[1],
+                   norm_limit=TM2_NORM_TOL)
+    return row
+
+
 def train_mesh_rank_main(rank: int, world: int, work: str) -> int:
     """One rank of a train_mesh group: (tm1)'s cases for this group size,
-    then with two ranks (tm3) and (tm2); one JSON row a case on stdout,
+    then with two ranks (tm3), (tm2) and (tm4); one JSON row a case on stdout,
     checked by the parent.  Every rank makes the same calls in the same
     order (the collectives pair up across ranks)."""
     import numpy as np
@@ -5525,7 +5677,8 @@ def train_mesh_rank_main(rank: int, world: int, work: str) -> int:
                      **row})
         if world == 2:
             for mesh, fn in (("model=2", _tm_mixtral),
-                             ("data=2", _tm_minicpm)):
+                             ("data=2", _tm_minicpm),
+                             ("model=2", _tm_minicpm_model)):
                 t0 = time.perf_counter()
                 live = meshes.get(mesh) or LiveMesh(MeshSpec.parse(mesh),
                                                     torch.device(DEVICE))
@@ -5607,17 +5760,26 @@ def _tm_problems(world, rows):
             if len(vals) > 1:
                 problems.append(f"train_mesh {key}: {field} differs "
                                 f"across ranks")
-        if key[0] == "tm2":
+        if key[0] in ("tm2", "tm4"):
             losses = group[0]["losses"]
             if not all(math.isfinite(x) for x in losses):
-                problems.append(f"train_mesh tm2: losses {losses}")
+                problems.append(f"train_mesh {key[0]}: losses {losses}")
+        if key[0] == "tm4" and not (
+                group[0].get("model_reduces", 0) > 0
+                and "embed" in group[0].get("cut_leaves", ())
+                and any("/wq" in p for p in group[0]["cut_leaves"])):
+            problems.append("train_mesh tm4: the step did not split its "
+                            "heads and vocab over model")
+        if key[0] == "tm4" and "loss_err" not in \
+                {k for r in group for k in r}:
+            problems.append("train_mesh tm4: no one-device reference")
     return problems
 
 
 def train_mesh_main() -> int:
     """The train_mesh phase, in its own process: a group of four rank
     processes on the card ((tm1) on data=2,model=2), then a group of two
-    ((tm1) on model=2 and data=2, (tm3), (tm2)), over gloo."""
+    ((tm1) on model=2 and data=2, (tm3), (tm2), (tm4)), over gloo."""
     import shutil
     import torch
     if not torch.cuda.is_available():
@@ -5629,7 +5791,7 @@ def train_mesh_main() -> int:
     os.makedirs(TRAIN_MESH_DIR)
     problems = []
     # a row a rank for each (tm1) case, and for (tm3) and (tm2) with two
-    expected = {w: (len(TM1[w]) + (2 if w == 2 else 0)) * w for w in TM1}
+    expected = {w: (len(TM1[w]) + (3 if w == 2 else 0)) * w for w in TM1}
     for world in (4, 2):
         t0 = time.perf_counter()
         rcs, rows = _tm_ranks(world, TRAIN_MESH_DIR)
@@ -5682,6 +5844,12 @@ DRY_D3 = (4, 2, 512)
 #: DRY_CELL_TIMEOUT_S after the script starts to wait for it.
 DRY_BUDGET_S = 45
 DRY_CELL_TIMEOUT_S = 120
+#: (d1) against the reference's committed record, since the mesh step
+#: splits its compute over ``model``: FLOPs a rank at most this many
+#: times the reference's ``flops_per_device``, and a
+#: ``useful_flops_ratio`` of at least DRY_D1_USEFUL (0.046 before).
+DRY_D1_FLOPS_OVER_REF = 1.25
+DRY_D1_USEFUL = 0.55
 _DRY_TERMS = ("compute_s", "memory_s", "collective_s", "step_time_bound_s",
               "roofline_fraction", "useful_flops_ratio")
 
@@ -5755,6 +5923,16 @@ def _dry_d1_problems(row) -> list:
             or row.get("microbatches") != 8:
         problems.append("dryrun d1: traced depths missing or the cell's "
                         "depth is not 48 layers x 8 microbatches")
+    ref = (row.get("reference") or {}).get("flops_per_device")
+    flops = row.get("flops_per_device")
+    if not ref or not isinstance(flops, (int, float)) \
+            or flops > DRY_D1_FLOPS_OVER_REF * ref:
+        problems.append(f"dryrun d1: {flops} FLOPs a rank, over "
+                        f"{DRY_D1_FLOPS_OVER_REF} x the reference's {ref}")
+    if not row.get("useful_flops_ratio", 0) >= DRY_D1_USEFUL:
+        problems.append(f"dryrun d1: useful_flops_ratio "
+                        f"{row.get('useful_flops_ratio')} under "
+                        f"{DRY_D1_USEFUL}")
     return problems
 
 

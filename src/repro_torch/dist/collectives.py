@@ -34,9 +34,10 @@ through the host (gloo's collectives take host tensors), as
 
 Model code that autograd records (the mesh train step) uses the
 conjugate pairs :func:`copy_to_model`, :func:`reduce_from_model`,
-:func:`gather_rows` and :func:`split_to_model`, whose backward is the
-collective the forward's placement implies; :func:`all_reduce_` is a
-plain sum in place.  The mesh step's params are held in part:
+:func:`gather_rows`, :func:`gather_part` and :func:`split_to_model`,
+whose backward is the collective the forward's placement implies;
+:func:`all_reduce_` is a plain sum in place and :func:`all_max` a max
+outside autograd.  The mesh step's params are held in part:
 :func:`gather_param` gathers a leaf whole at use, and its backward is
 :func:`reduce_scatter`, this rank's part of the reduced gradient.
 
@@ -210,15 +211,17 @@ def _host(x: torch.Tensor, mesh: LiveMesh) -> bool:
     return mesh.stages(x.device)
 
 
-def _summed(x: torch.Tensor, axes, mesh: LiveMesh) -> torch.Tensor:
-    """A new tensor: the sum of ``x`` over the ranks of ``axes``."""
+def _summed(x: torch.Tensor, axes, mesh: LiveMesh, op=None
+            ) -> torch.Tensor:
+    """A new tensor: the sum (or ``op``, a ``ReduceOp``) of ``x`` over
+    the ranks of ``axes``."""
     import torch.distributed as dist
     if x.device.type == "meta":
         return x.detach().clone()
     host = _host(x, mesh)
     buf = x.detach().to("cpu", copy=True) if host \
         else x.detach().contiguous().clone()
-    dist.all_reduce(buf, group=mesh.group(axes))
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=mesh.group(axes))
     return buf.to(x.device) if host else buf
 
 
@@ -244,6 +247,16 @@ def all_reduce(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
     if mesh is None or mesh.split(axes)[0] == 1:
         return x
     return _summed(x, axes, mesh)
+
+
+def all_max(x: torch.Tensor, axes, mesh: Optional[LiveMesh]
+            ) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axes``, a new
+    tensor outside autograd (x, detached, with no live mesh)."""
+    if mesh is None or mesh.split(axes)[0] == 1:
+        return x.detach()
+    import torch.distributed as dist
+    return _summed(x, axes, mesh, dist.ReduceOp.MAX)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -292,6 +305,43 @@ class _SplitToModel(torch.autograd.Function):
         return _gathered(g, ctx.axes, ctx.mesh, ctx.dim), None, None, None
 
 
+def _ranges(n: int, axes, mesh: LiveMesh):
+    from ..distributed.sharding import unit_range
+    k = mesh.split(axes)[0]
+    return [unit_range(n, k, r) for r in range(k)]
+
+
+def _gathered_ranges(x: torch.Tensor, axes, mesh: LiveMesh, dim: int,
+                     n: int) -> torch.Tensor:
+    """The ranks' ranges of a dim of ``n`` (``sharding.unit_range``,
+    which may differ in size by one), this rank's ``x``, concatenated
+    along ``dim``: each part padded to the largest and gathered."""
+    ranges = _ranges(n, axes, mesh)
+    most = max(hi - lo for lo, hi in ranges)
+    dim = dim % x.ndim
+    if x.shape[dim] < most:
+        pad = [0, 0] * (x.ndim - 1 - dim) + [0, most - x.shape[dim]]
+        x = torch.nn.functional.pad(x, pad)
+    whole = _gathered(x, axes, mesh, dim)
+    return torch.cat([whole.narrow(dim, r * most, hi - lo)
+                      for r, (lo, hi) in enumerate(ranges)], dim=dim)
+
+
+class _GatherPart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim, n):
+        ctx.axes, ctx.mesh, ctx.dim, ctx.n = axes, mesh, dim, n
+        return _gathered_ranges(x, axes, mesh, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _summed(g, ctx.axes, ctx.mesh)
+        lo, hi = _ranges(ctx.n, ctx.axes, ctx.mesh)[
+            ctx.mesh.split(ctx.axes)[1]]
+        return (g.narrow(ctx.dim, lo, hi - lo).contiguous(), None, None,
+                None, None)
+
+
 def _recorded(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -335,6 +385,20 @@ def gather_rows(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
     if not _recorded(x):
         return _gathered(x, axes, mesh, dim)
     return _GatherRows.apply(x, tuple(axes), mesh, dim, sum_grad)
+
+
+def gather_part(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
+                dim: int, n: int) -> torch.Tensor:
+    """The whole of a dim of ``n`` from each rank's range of it
+    (``sharding.unit_range``; ``x`` is this rank's), concatenated along
+    ``dim``; its backward sums the gradient over ``axes`` and keeps this
+    rank's range (a reduce-scatter: each rank reads the whole its own
+    way, as the RG-LRU's gates read every channel for their own)."""
+    if _split(mesh, axes)[0] == 1:
+        return x
+    if not _recorded(x):
+        return _gathered_ranges(x, axes, mesh, dim, n)
+    return _GatherPart.apply(x, tuple(axes), mesh, dim, n)
 
 
 def split_to_model(x: torch.Tensor, axes, mesh: Optional[LiveMesh],

@@ -7,26 +7,41 @@ axes of whatever mesh is active.  The graph compiler's propagation pass
 every annotation is a no-op, so the same model code runs everywhere.
 
 The active mesh is a :class:`repro_torch.dist.collectives.LiveMesh` (one
-process a device).  A constraint is placement only: :func:`logical`
-returns its tensor, and :func:`named_sharding` describes where a
-tensor's parts would live.  The partitioned compute is what the models
-write out (the row- and column-parallel projections under ``tp_psum``,
-the expert-parallel MoE), as the reference's ``shard_map`` branches do,
-and, in the mesh train step (``use_mesh(..., local_batch=True)``), the
-``batch`` rows: each rank then holds only its rows, the loss averages
-over the global batch, and the step reduces each gradient leaf over the
-``batch`` axes.  Model code marks each weight it cuts with
-:func:`split_param`, and the step reads those marks from a forward on
-the meta device (:func:`recording_splits`), so the rule lives where the
-cut is made.
+process a device).  :func:`logical` returns its tensor and
+:func:`named_sharding` describes where a tensor's parts would live; the
+partitioned compute is written out in the models, where the reference's
+constraints let GSPMD split it:
+
+* in the mesh train step (``use_mesh(..., local_batch=True, gather=)``)
+  the ``batch`` rows: each rank holds only its rows, the loss averages
+  over the global batch, and the step reduces each gradient over the
+  ``batch`` axes;
+* in the mesh train step, over ``model``, everything the reference's
+  constraints put there (``heads``, ``kv_heads``, ``mlp``, ``vocab``):
+  a rank computes its attention heads (and the KV heads they read), its
+  MLP columns, its channels of the RG-LRU and its vocab rows of the
+  embedding, the logits and the cross-entropy (:func:`model_part`: the
+  contiguous units ``[⌈r·n/k⌉, ⌈(r+1)·n/k⌉)`` of ``n`` on rank ``r`` of
+  ``k``).  Mamba2's mixer and the MoE router stay whole; the routed
+  experts are expert-parallel.  On one device, on a mesh without
+  ``model`` and in serving nothing is split this way;
+* in serving, the row- and column-parallel projections under
+  ``tp_psum`` and the expert-parallel MoE, as the reference's
+  ``shard_map`` branches.
+
+Model code marks each weight it cuts with :func:`split_param`, and the
+step reads those marks from a forward on the meta device
+(:func:`recording_splits`), so the rule lives where the cut is made.
 
 The train state's placement is the reference's: :func:`placements`
 (``_divisible_sharding``: a logical axis is kept only where its mesh
 axes divide the dim) of ``state_axes``, a rank holding its part of each
 leaf (:func:`part_of`).  The mesh step gathers the parts at use (the
 ``gather`` a :func:`use_mesh` carries, which ``models.common`` calls
-inside each layer's body); a weight whose ``model`` part is what compute
-consumes stays that part (:func:`held_part`, :func:`whole_dim`).
+inside each layer's body); a weight whose ``model`` part is the range
+compute consumes (the split divides the units evenly) stays that part
+(:func:`held_part`, :func:`whole_dim`); any other cut weight is gathered
+whole and sliced.
 """
 
 from __future__ import annotations
@@ -155,7 +170,8 @@ def recording_splits():
     """Record, on this thread, every tensor model code cuts to this
     rank's part with :func:`split_param`: (its root tensor, the param
     leaf a layer's view was taken from; the dim cut, counted from the
-    end).  Yields the list."""
+    end; whether the range is the rank's equal part).  Yields the
+    list."""
     prev = getattr(_local, "splits", None)
     _local.splits = []
     try:
@@ -188,20 +204,107 @@ def whole_dim(w, dim: int) -> int:
     return n
 
 
-def split_param(w, k: int, i: int, dim: int):
-    """Part ``i`` of ``k`` of the weight ``w`` along ``dim``: a rank's
+def unit_range(n: int, k: int, i: int) -> Tuple[int, int]:
+    """The split rule: rank ``i`` of ``k`` takes the contiguous units
+    ``[⌈i·n/k⌉, ⌈(i+1)·n/k⌉)`` of ``n`` whole units (heads, MLP columns,
+    vocab rows).  Rank 0 takes ⌈n/k⌉, the most any rank takes; where
+    ``k`` divides ``n`` each range is :func:`part_of`'s part."""
+    return -(-i * n // k), -(-(i + 1) * n // k)
+
+
+class Part(NamedTuple):
+    """This rank's range ``[lo, hi)`` of a dim of ``n`` (rank ``i`` of
+    ``k`` on ``model``)."""
+    lo: int
+    hi: int
+    n: int
+    k: int
+    i: int
+
+    @property
+    def size(self) -> int:
+        return self.hi - self.lo
+
+    @property
+    def even(self) -> bool:
+        """Whether the range is the rank's equal part of the dim, the part
+        :func:`part_of` places on it."""
+        return (self.n % self.k == 0 and self.size == self.n // self.k
+                and self.lo == self.i * self.size)
+
+    def times(self, unit: int) -> "Part":
+        """The range in elements, a unit being ``unit`` of them (a head's
+        ``head_dim`` columns)."""
+        return Part(self.lo * unit, self.hi * unit, self.n * unit, self.k,
+                    self.i)
+
+
+def equal_part(n: int, k: int, i: int) -> Part:
+    """Part ``i`` of ``k`` equal parts of a dim of ``n`` (``k`` divides
+    ``n``): :func:`part_of`'s part."""
+    return Part(i * (n // k), (i + 1) * (n // k), n, k, i)
+
+
+def model_split():
+    """(the mesh, parts, this rank's part) of the ``model`` axis where
+    compute is partitioned over it: in the mesh train step (a
+    :func:`use_mesh` with ``local_batch`` and a ``gather``) on a mesh
+    whose ``model`` axis splits; else None."""
+    mesh = current_mesh()
+    if mesh is None or not getattr(_local, "local_batch", False) or \
+            getattr(_local, "gather", None) is None:
+        return None
+    k, i = mesh.split(("model",))
+    return None if k == 1 else (mesh, k, i)
+
+
+def psum_parts(tp_psum: bool, dims) -> Optional[list]:
+    """Serving's split over ``model`` (the reference's ``shard_map``
+    branches): under ``tp_psum`` on a live mesh whose ``model`` axis
+    splits and divides every one of ``dims``, this rank's equal part of
+    each (:func:`equal_part`); else None."""
+    mesh = current_mesh() if tp_psum else None
+    if mesh is None:
+        return None
+    k, i = mesh.split(("model",))
+    if k == 1 or any(d % k for d in dims):
+        return None
+    return [equal_part(d, k, i) for d in dims]
+
+
+def model_part(n: int, unit: int = 1) -> Optional[Part]:
+    """This rank's range of ``n`` units (:func:`unit_range`), in elements
+    of ``unit`` each, where compute is partitioned over ``model``
+    (:func:`model_split`); else None (every unit).  A dim of fewer units
+    than ``model`` has ranks is computed whole on every rank (None), as
+    the reference's divisibility rule drops such a constraint, so no
+    rank gets an empty range."""
+    split = model_split()
+    if split is None:
+        return None
+    _, k, i = split
+    if n < k:
+        return None
+    return Part(*unit_range(n, k, i), n, k, i).times(unit)
+
+
+def split_param(w, dim: int, part: Part):
+    """The range ``part`` of the weight ``w`` along ``dim``: a rank's
     share of a weight whose compute the ``model`` axis splits, recorded
-    (:func:`recording_splits`).  A weight that is that part already
-    (:func:`held_part`) is returned as it is."""
-    from ..dist.collectives import local_part
+    with whether it is the rank's equal part (:func:`recording_splits`).
+    A weight that is that part already (:func:`held_part`) is returned as
+    it is."""
     neg = dim - w.ndim if dim >= 0 else dim
     splits = getattr(_local, "splits", None)
     if splits is not None:
-        splits.append((_root(w), neg))
+        splits.append((_root(w), neg, part.even))
     held = held_part(w)
-    if held is not None and held == (neg, k):
+    if held is not None and held == (neg, part.k):
+        if not part.even:
+            raise ValueError(f"a weight held as its equal part along dim "
+                             f"{neg} cannot give the range {part}")
         return w
-    return local_part(w, k, i, dim)
+    return w.narrow(dim, part.lo, part.size)
 
 
 def spec_for(*logical_axes: Optional[str]) -> tuple:
@@ -363,9 +466,9 @@ def part_of(whole, cuts, mesh):
 
 
 def logical(x, *logical_axes: Optional[str]):
-    """The sharding constraint by logical axis names.  Every rank holds
-    the tensor whole, so it is placement only: ``x`` itself, with or
-    without an active mesh."""
+    """The sharding constraint by logical axis names: ``x`` itself, with
+    or without an active mesh (the models write the split it implies
+    out: module docstring)."""
     return x
 
 

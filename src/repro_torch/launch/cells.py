@@ -12,7 +12,10 @@ parameter, cache or batch tensor is ever allocated, and counts its ops
   state (``init_state(..., mesh=)``: its part of every leaf, the
   reference's placement, as
   :class:`~repro_torch.training.train.StateLayout` says) and its rows of
-  the global batch (``rank_rows``), in ``microbatches`` microbatches;
+  the global batch (``rank_rows``), in ``microbatches`` microbatches,
+  its compute split over ``model`` where the reference's constraints
+  split it (the rank's heads, MLP columns and vocab rows:
+  ``distributed.sharding.model_part``);
 * **prefill** and **decode**: ``Model.prefill`` and
   ``Model.decode_step`` on the rank's rows under ``use_mesh``, the cache
   placed as mesh serving places it (``serve/slots.py``: slots over the
@@ -28,8 +31,11 @@ its own (:func:`repro_torch.launch.op_analysis.weigh`).
 The record (:func:`analyze`) has the reference's keys where their
 meaning carries over, per rank: "per device" is this rank's measured
 program, not the global count over the chips, so ``useful_flops_ratio``
-shows the compute the port repeats on ``model`` (ROADMAP C: "No
-automatic partitioning from constraints").  :func:`divisible_placement`
+shows the compute a rank repeats: in a train cell only what the
+reference's constraints leave whole on ``model`` (MLA's down
+projections, the MoE router, mamba2's mixer, a KV head shared by two
+ranks' heads), and rank 0's range being the largest (⌈n/k⌉ units); a
+serving cell computes every head on every ``model`` rank.  :func:`divisible_placement`
 and :func:`placements` (``distributed.sharding``) are the reference's
 placement rules: the train state a rank holds follows them, so a train
 cell's ``argument_size_in_bytes`` equals ``argument_size_if_placed``,
@@ -423,8 +429,8 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
     logical-axis mappings, as the reference's: they steer the placements
     the record reports, a train cell's state and serving's cache
     placement; the models' own
-    split compute (``tp_psum``, the expert-parallel MoE) is the
-    same under any rules."""
+    split compute (a train step's over ``model``, ``tp_psum``, the
+    expert-parallel MoE) is the same under any rules."""
     from ..training.train import TrainConfig
     check_device(device)
     live = _live(mesh, device)

@@ -129,12 +129,16 @@ class Model:
         share of unmasked labels, and the aux loss is the whole
         microbatch's or, where each row part routes alone, the first
         part's (:func:`_first_shard`); the mean over the ``batch`` ranks
-        is then the reference's loss."""
+        is then the reference's loss.  Where compute is split over
+        ``model`` the logits are each rank's vocab columns and the
+        cross-entropies are vocab-parallel, so the loss is the same on
+        every ``model`` rank."""
         device = params["embed"].device
         logits, extras = self.forward(params, batch)
         labels = _as_tensor(batch["labels"], device)
         count = _batch_share(labels)
-        loss = C.cross_entropy(logits, labels, count=count)
+        vocab = self.cfg.vocab
+        loss = C.cross_entropy(logits, labels, count=count, vocab=vocab)
         aux = extras.get("aux_loss", 0.0)
         loss = loss + (_first_shard(aux) if self.cfg.n_experts else aux)
         if self.cfg.mtp and "mtp_hidden" in extras:
@@ -142,7 +146,8 @@ class Model:
                 self.cfg, params, extras["mtp_hidden"],
                 _as_tensor(batch["tokens"], device))
             loss = loss + 0.1 * C.cross_entropy(
-                mtp, torch.roll(labels, -1, dims=1), count=count)
+                mtp, torch.roll(labels, -1, dims=1), count=count,
+                vocab=vocab)
         return loss
 
     # -- serving -------------------------------------------------------

@@ -14,15 +14,18 @@ Conventions (the reference's)
   params are kept in ``cfg.param_dtype``; every projection is
   ``x @ w.to(x.dtype)`` with an output in ``x``'s dtype; norms, rope,
   the softmax statistics and the logits run in f32, as the reference's.
-* the reference's logical-axis annotations are placement only: every
-  rank computes with each tensor whole (the mesh train step gathers the
-  params it holds in part at use: :func:`layer_views`).  Its
-  ``shard_map`` branches are written out: under ``tp_psum`` on a live
-  mesh with a ``model`` axis
-  (``repro_torch.distributed.sharding.use_mesh``) the row- and
-  column-parallel projections contract this rank's part of the
-  ``mlp``/``heads`` dim and combine the parts over ``model``; with no
-  mesh they are the plain products.
+* the reference's logical-axis annotations split compute where they
+  would let GSPMD split it, written out: in the mesh train step on a
+  mesh with a ``model`` axis (``distributed.sharding.model_part``) the
+  projections take this rank's heads, MLP columns or vocab rows
+  (:func:`col_parallel_in`, :func:`row_parallel_out`,
+  :func:`gated_mlp`, :func:`embed_tokens`, :func:`lm_logits`,
+  :func:`cross_entropy`), the params it holds in part gathered at use
+  (:func:`layer_views`).  In serving the reference's ``shard_map``
+  branches are written out: under ``tp_psum`` on a live mesh with a
+  ``model`` axis the row- and column-parallel projections contract this
+  rank's part of the ``mlp``/``heads`` dim and combine the parts over
+  ``model``.  With no mesh every product is the plain one;
 * a row's result must not depend on how many rows share the call: a
   serve decode step runs at its batch bucket's row count, and on the
   H100 the norms' f32 reductions and the f32 head product round some
@@ -505,83 +508,157 @@ def ring_insert(cache: torch.Tensor, new: torch.Tensor,
 # ---------------------------------------------------------------------------
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
-    return F.embedding(tokens.long(), table).to(torch_dtype(dtype))
+    """The rows of ``table`` (V, D) the tokens name, in ``dtype``.  Where
+    compute is split over ``model`` each rank looks up the tokens in its
+    vocab rows (zero elsewhere) and the rows are summed over ``model``:
+    one nonzero term each, so the result is the whole lookup's."""
+    from ..distributed.sharding import model_part, whole_dim
+    part = model_part(whole_dim(table, 0))
+    if part is None:
+        return F.embedding(tokens.long(), table).to(torch_dtype(dtype))
+    from ..dist.collectives import reduce_from_model
+    from ..distributed.sharding import current_mesh, split_param
+    t = tokens.long() - part.lo
+    inside = ((t >= 0) & (t < part.size))[..., None]
+    rows = F.embedding(t.clamp(0, part.size - 1),
+                       split_param(table, 0, part)).to(torch_dtype(dtype))
+    return reduce_from_model(torch.where(inside, rows, 0.0), ("model",),
+                             current_mesh())
 
 
-def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x: (B,S,D) @ head: (D,V) -> (B,S,V); f32 logits."""
+def lm_logits(x: torch.Tensor, head: torch.Tensor,
+              tied: bool = False) -> torch.Tensor:
+    """x: (B,S,D) @ head: (D,V) -> (B,S,V); f32 logits.  ``tied``: head
+    is the embedding table (V, D), used transposed.  Where compute is
+    split over ``model`` the logits are this rank's vocab columns
+    (:func:`cross_entropy` takes them so)."""
+    from ..distributed.sharding import model_part, whole_dim
+    part = model_part(whole_dim(head, 0 if tied else -1))
+    if part is not None:
+        from ..dist.collectives import copy_to_model
+        from ..distributed.sharding import current_mesh, split_param
+        head = split_param(head, 0 if tied else -1, part)
+        x = copy_to_model(x, ("model",), current_mesh())
+    if tied:
+        head = head.T
     return _at_rows(lambda a: torch.matmul(a.float(), head.float()), x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_id: int = -1, count=None) -> torch.Tensor:
+                  ignore_id: int = -1, count=None, vocab=None
+                  ) -> torch.Tensor:
     """Mean token cross-entropy; logits (B,S,V) f32, labels (B,S) int.
     ``count``: the number of unmasked labels to divide by (default:
-    these labels'; the mesh train step gives its global batch's share)."""
-    m = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(m, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    these labels'; the mesh train step gives its global batch's share).
+    ``vocab``: V, where compute may be split over ``model``; then the
+    logits are this rank's vocab columns (:func:`lm_logits`) and the
+    softmax is vocab-parallel: the max over ``model`` (no gradient), the
+    sum of ``exp`` and the label's logit, from the rank that holds it,
+    summed over ``model``."""
+    from ..distributed.sharding import model_part
+    part = None if vocab is None else model_part(vocab)
     mask = (labels != ignore_id).float()
     if count is None:
         count = torch.clamp(torch.sum(mask), min=1.0)
+    if part is None:
+        m = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(m, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+        return -torch.sum(ll * mask) / count
+    from ..dist.collectives import all_max, reduce_from_model
+    from ..distributed.sharding import current_mesh
+    mesh, ax = current_mesh(), ("model",)
+    z = logits - all_max(logits.amax(dim=-1, keepdim=True), ax, mesh)
+    total = reduce_from_model(torch.sum(torch.exp(z), dim=-1), ax, mesh)
+    t = labels.long() - part.lo
+    inside = (t >= 0) & (t < part.size)
+    mine = torch.gather(z, -1, t.clamp(0, part.size - 1)[..., None])[..., 0]
+    label = reduce_from_model(torch.where(inside, mine, 0.0), ax, mesh)
+    ll = label - torch.log(total)
     return -torch.sum(ll * mask) / count
 
 
 # ---------------------------------------------------------------------------
-# Row- and column-parallel projections (TP collectives in the compute dtype)
+# Row- and column-parallel projections
 # ---------------------------------------------------------------------------
-def _model_split(tp_psum: bool, dims):
-    """(mesh, parts, this rank's part) of the ``model`` axis when
-    ``tp_psum`` is on, a live mesh is active, its ``model`` axis splits
-    and divides every one of ``dims``; else None (the plain product)."""
-    if not tp_psum:
-        return None
-    from ..distributed.sharding import current_mesh
-    mesh = current_mesh()
-    if mesh is None:
-        return None
-    k, i = mesh.split(("model",))
-    if k == 1 or any(d % k for d in dims):
-        return None
-    return mesh, k, i
-
-
-def row_parallel_out(h, w, tp_psum: bool = False):
+def row_parallel_out(h, w, tp_psum: bool = False, part=None):
     """y = h @ w in h's dtype, where h's last dim is the model-sharded
-    one (row-parallel).  Under ``tp_psum`` on a live mesh this rank
-    contracts its part of that dim (h whole, or already this rank's part
-    of it, as :func:`col_parallel_in` gives it) with its rows of ``w``,
-    and the partial products are summed over ``model`` in h's dtype (the
-    reference's ``shard_map`` with an explicit ``psum``).  Under autograd
-    a whole h's part gathers its gradient back whole, and the sum passes
-    the output's gradient on to every rank's part."""
-    from ..distributed.sharding import split_param, whole_dim
-    split = _model_split(tp_psum, (whole_dim(w, 0),))
-    if split is None:
-        return torch.matmul(h, w.to(h.dtype))
+    one (row-parallel).  This rank contracts its range ``part`` of that
+    dim with the same rows of ``w``, and the partial products (each in
+    h's dtype) are summed over ``model``: in h's dtype under ``tp_psum``
+    (the reference's ``shard_map`` pins it), else in f32 and rounded
+    once (the reference's GSPMD program sinks the reduce past the norm's
+    f32 convert).  Under autograd the sum passes the output's gradient on
+    to every rank's part.
+
+    ``part`` is the mesh train step's (``sharding.model_part``), h this
+    rank's range.  Without it, under ``tp_psum`` on a live mesh (serving)
+    the range is the rank's equal part (``sharding.psum_parts``), h whole
+    or already that part, as :func:`col_parallel_in` gives it; else the
+    plain product."""
+    from ..distributed.sharding import (current_mesh, psum_parts, split_param,
+                                        whole_dim)
+    n = whole_dim(w, 0)
+    if part is None:
+        parts = psum_parts(tp_psum, (n,))
+        if parts is None:
+            return torch.matmul(h, w.to(h.dtype))
+        part, = parts
     from ..dist.collectives import reduce_from_model, split_to_model
-    mesh, k, i = split
-    if h.shape[-1] == whole_dim(w, 0):
+    mesh = current_mesh()
+    if h.shape[-1] == n:
         h = split_to_model(h, ("model",), mesh, -1)
-    y = torch.matmul(h, split_param(w, k, i, 0).to(h.dtype))
-    return reduce_from_model(y, ("model",), mesh)
+    y = torch.matmul(h, split_param(w, 0, part).to(h.dtype))
+    if tp_psum:
+        return reduce_from_model(y, ("model",), mesh)
+    return reduce_from_model(y.float(), ("model",), mesh).to(h.dtype)
 
 
-def col_parallel_in(x, weights, tp_psum: bool = False):
-    """[x @ w for w in weights], each in x's dtype (column-parallel).
-    Under ``tp_psum`` on a live mesh each output is this rank's part of
-    its columns, as the reference's ``out_specs`` keep it, and only
-    :func:`row_parallel_out` reduces: a consumer that needs the outputs
-    whole calls it without ``tp_psum``.  Under autograd x's gradient,
-    each rank's columns' part, is summed over ``model``."""
-    from ..distributed.sharding import split_param, whole_dim
-    split = _model_split(tp_psum, [whole_dim(w, -1) for w in weights])
-    if split is None:
-        return [torch.matmul(x, w.to(x.dtype)) for w in weights]
+def col_parallel_in(x, weights, tp_psum: bool = False, parts=None):
+    """[x @ w for w in weights], each in x's dtype (column-parallel): each
+    output is this rank's range of its weight's columns, and only
+    :func:`row_parallel_out` reduces.  Under autograd x's gradient, each
+    range's part of it, is summed over ``model``.
+
+    ``parts`` (the mesh train step): for each weight, this rank's range
+    of its columns (``sharding.model_part``), or None for every column.
+    Without a range, under ``tp_psum`` on a live mesh (serving) each
+    output is this rank's equal part of its columns
+    (``sharding.psum_parts``), as the reference's ``out_specs`` keep it:
+    a consumer that needs the outputs whole calls it without
+    ``tp_psum``; else the plain products."""
+    from ..distributed.sharding import (current_mesh, psum_parts, split_param,
+                                        whole_dim)
+    if parts is None or all(p is None for p in parts):
+        parts = psum_parts(tp_psum, [whole_dim(w, -1) for w in weights])
+        if parts is None:
+            return [torch.matmul(x, w.to(x.dtype)) for w in weights]
     from ..dist.collectives import copy_to_model
-    mesh, k, i = split
-    x = copy_to_model(x, ("model",), mesh)
-    return [torch.matmul(x, split_param(w, k, i, -1).to(x.dtype))
-            for w in weights]
+    xs = copy_to_model(x, ("model",), current_mesh())
+    return [torch.matmul(x, w.to(x.dtype)) if p is None else
+            torch.matmul(xs, split_param(w, -1, p).to(x.dtype))
+            for w, p in zip(weights, parts)]
+
+
+def column_part(t, part):
+    """The range ``part`` of ``t``'s last dim (a column-parallel output's
+    bias, a per-channel weight), recorded as a cut; ``t`` with no
+    ``part``."""
+    if part is None:
+        return t
+    from ..distributed.sharding import split_param
+    return split_param(t, -1, part)
+
+
+def shared_part(t):
+    """``t``, a tensor every ``model`` rank holds whole, as the input of
+    a computation that compute split over ``model`` reads per rank (a
+    norm's scale over a rank's heads): its gradient is summed over
+    ``model``.  ``t`` itself where compute is not split."""
+    from ..distributed.sharding import current_mesh, model_split
+    if model_split() is None:
+        return t
+    from ..dist.collectives import copy_to_model
+    return copy_to_model(t, ("model",), current_mesh())
 
 
 # ---------------------------------------------------------------------------
@@ -613,10 +690,14 @@ def activation(name: str):
 
 def gated_mlp(x, wi_gate, wi_up, wo, act: str = "silu",
               tp_psum: bool = False):
-    """x: (B,S,D); wi_*: (D,F); wo: (F,D)."""
-    h_gate, h_up = col_parallel_in(x, (wi_gate, wi_up), tp_psum)
+    """x: (B,S,D); wi_*: (D,F); wo: (F,D).  In the mesh train step each
+    rank computes its range of the ``mlp`` columns."""
+    from ..distributed.sharding import model_part, whole_dim
+    part = model_part(whole_dim(wi_gate, -1))
+    h_gate, h_up = col_parallel_in(x, (wi_gate, wi_up), tp_psum,
+                                   parts=(part, part))
     h = activation(act)(h_gate) * h_up
-    return row_parallel_out(h, wo, tp_psum)
+    return row_parallel_out(h, wo, tp_psum, part)
 
 
 def mlp_init(init: Init, lead, d_model, d_ff, dtype):

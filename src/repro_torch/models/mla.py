@@ -52,14 +52,18 @@ def mla_axes(cfg):
     }
 
 
-def _latent(p, cfg, x, positions):
-    """Shared front: queries (nope+rope) and the compressed KV latent."""
+def _latent(p, cfg, x, positions, heads=None):
+    """Shared front: queries (nope+rope) and the compressed KV latent.
+    ``heads``: this rank's range of heads (``sharding.Part``) where
+    compute is split over ``model``; the down projections, their norms
+    and the shared rope key stay whole."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    h = cfg.n_heads if heads is None else heads.size
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     q = torch.matmul(x, p["q_down"].to(x.dtype))
     q = C.rms_norm(q, p["q_norm"], cfg.norm_eps)
-    q = torch.matmul(q, p["q_up"].to(x.dtype))
+    q = C.col_parallel_in(q, (p["q_up"],), parts=(
+        None if heads is None else heads.times(dn + dr),))[0]
     q = q.reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = C.apply_rope(q_rope, positions, cfg.rope_theta)
@@ -74,15 +78,23 @@ def _latent(p, cfg, x, positions):
 
 def mla_apply(p, cfg, x, positions, window):
     """Full-sequence form: expand K/V per head, run chunked attention.
-    Returns (out, (c_kv_4d, k_rope_4d)) cache slices."""
+    Returns (out, (c_kv_4d, k_rope_4d)) cache slices.  Where compute is
+    split over ``model`` a rank expands, attends and projects out its
+    range of the heads."""
+    from ..distributed.sharding import model_part
     b, s, _ = x.shape
-    h = cfg.n_heads
+    heads = model_part(cfg.n_heads)
+    h = cfg.n_heads if heads is None else heads.size
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_rope, c_kv, k_rope = _latent(p, cfg, x, positions)
+    q_nope, q_rope, c_kv, k_rope = _latent(p, cfg, x, positions, heads)
 
-    k_nope = torch.matmul(c_kv, p["k_up"].to(x.dtype)).reshape(b, s, h, dn)
-    v = torch.matmul(c_kv, p["v_up"].to(x.dtype)).reshape(b, s, h, dv)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    cols = (None, None) if heads is None else (heads.times(dn),
+                                               heads.times(dv))
+    k_nope, v = C.col_parallel_in(c_kv, (p["k_up"], p["v_up"]), parts=cols)
+    k_nope = k_nope.reshape(b, s, h, dn)
+    v = v.reshape(b, s, h, dv)
+    k = torch.cat([k_nope, C.shared_part(k_rope).expand(b, s, h, dr)],
+                  dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
 
     out = C.chunked_attention(
@@ -92,7 +104,7 @@ def mla_apply(p, cfg, x, positions, window):
         compute_dtype=cfg.attn_compute_dtype,
         causal_skip=cfg.causal_skip)
     out = out.reshape(b, s, h * dv)
-    y = C.row_parallel_out(out, p["wo"], cfg.tp_psum)
+    y = C.row_parallel_out(out, p["wo"], cfg.tp_psum, cols[1])
     return y, (c_kv[:, :, None, :], k_rope)
 
 

@@ -48,8 +48,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import BATCH_AXES, current_mesh, local_batch, \
-    mesh_axis_names, mesh_axis_size, split_param
+from ..distributed.sharding import BATCH_AXES, current_mesh, equal_part, \
+    local_batch, mesh_axis_names, mesh_axis_size, model_part, split_param, \
+    whole_dim
 from . import common as C
 
 #: The routed experts' weights: (expert dim, hidden-width dim), counted
@@ -124,7 +125,7 @@ def local_experts(p, cfg, mesh=None):
     out = dict(p)
     for name, (dim, whole) in expert_dims(cfg, ep).items():
         if p[name].shape[dim] == whole:
-            out[name] = split_param(p[name], k, i, dim)
+            out[name] = split_param(p[name], dim, equal_part(whole, k, i))
     return out
 
 
@@ -279,9 +280,12 @@ def moe_apply(p, cfg, x) -> Tuple[torch.Tensor, torch.Tensor]:
             y = gather_rows(y, BATCH_AXES, mesh, dim=0)
     y = y.reshape(b, s, d)
     if cfg.n_shared:
+        # the shared experts' MLP: in the mesh train step a rank's range
+        # of its ``mlp`` columns
         sp = p["shared"]
-        h_g = torch.matmul(x, sp["wi_gate"].to(x.dtype))
-        h_u = torch.matmul(x, sp["wi_up"].to(x.dtype))
+        cols = model_part(whole_dim(sp["wi_gate"], -1))
+        h_g, h_u = C.col_parallel_in(x, (sp["wi_gate"], sp["wi_up"]),
+                                     parts=(cols, cols))
         y = y + C.row_parallel_out(C.silu(h_g) * h_u, sp["wo"],
-                                   cfg.tp_psum)
+                                   cfg.tp_psum, cols)
     return y, aux

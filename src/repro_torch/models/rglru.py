@@ -99,11 +99,16 @@ def _sigmoid(x):
     return 1.0 / (1.0 + torch.exp(-x))
 
 
-def _gates(p, x):
-    """i gate and log-decay from the conv'd branch x (B,S,dr), in f32."""
-    r = _sigmoid(torch.matmul(x, p["w_rg"].to(x.dtype)).float())
-    i = _sigmoid(torch.matmul(x, p["w_in"].to(x.dtype)).float())
-    log_a = -_C_RGLRU * softplus(p["a_param"].float()) * r   # (B,S,dr)
+def _gates(p, x, part=None):
+    """i gate and log-decay from the conv'd branch x (B,S,dr), in f32.
+    ``part``: this rank's range of the channels (``sharding.Part``),
+    where compute is split over ``model``: x holds every channel, the
+    gates and the decay the rank's."""
+    w_rg, w_in, a = (C.column_part(p[n], part) for n in ("w_rg", "w_in",
+                                                       "a_param"))
+    r = _sigmoid(torch.matmul(x, w_rg.to(x.dtype)).float())
+    i = _sigmoid(torch.matmul(x, w_in.to(x.dtype)).float())
+    log_a = -_C_RGLRU * softplus(a.float()) * r              # (B,S,dr)
     return i, log_a
 
 
@@ -114,25 +119,38 @@ def _decay_input(log_a, i_g, xc):
 
 
 def rec_apply(p, cfg, x):
-    """x: (B,S,D).  Returns (out, (conv_tail, h_final))."""
+    """x: (B,S,D).  Returns (out, (conv_tail, h_final)).  Where compute
+    is split over ``model`` a rank runs its range of the ``mlp``
+    channels: the conv, the gates' columns and the recurrence are per
+    channel; the gates read every channel of the conv's output, gathered
+    over ``model``."""
+    from ..distributed.sharding import model_part
+    part = model_part(cfg.lru_width)
     s = x.shape[1]
-    xb = torch.matmul(x, p["wx"].to(x.dtype))
-    gate = C.gelu_tanh(torch.matmul(x, p["wy"].to(x.dtype)))
+    xb, gate = C.col_parallel_in(x, (p["wx"], p["wy"]), parts=(part, part))
+    gate = C.gelu_tanh(gate)
     k = cfg.conv_width
     tail = F.pad(xb[:, -(k - 1):], (0, 0, max(0, k - 1 - s), 0))
+    conv_w, conv_b = (C.column_part(p[n], part) for n in ("conv_w", "conv_b"))
     # causal depthwise conv
     padded = F.pad(xb, (0, 0, k - 1, 0))
-    xc = padded[:, 0:s] * p["conv_w"][0].to(xb.dtype)
+    xc = padded[:, 0:s] * conv_w[0].to(xb.dtype)
     for i in range(1, k):
-        xc = xc + padded[:, i:i + s] * p["conv_w"][i].to(xb.dtype)
-    xc = xc + p["conv_b"].to(xb.dtype)
+        xc = xc + padded[:, i:i + s] * conv_w[i].to(xb.dtype)
+    xc = xc + conv_b.to(xb.dtype)
 
-    i_g, log_a = _gates(p, xc)
+    every = xc
+    if part is not None:
+        from ..dist.collectives import gather_part
+        from ..distributed.sharding import current_mesh
+        every = gather_part(xc, ("model",), current_mesh(), -1,
+                            cfg.lru_width)
+    i_g, log_a = _gates(p, every, part)
     a, bx = _decay_input(log_a, i_g, xc)
     # h_t = a_t h_{t-1} + bx_t  via the parallel prefix scan.
     _, h = associative_scan(_lru_combine, [a, bx], dim=1)
     y = h.to(x.dtype) * gate
-    return (C.row_parallel_out(y, p["wo"], cfg.tp_psum),
+    return (C.row_parallel_out(y, p["wo"], cfg.tp_psum, part),
             (tail, h[:, -1]))
 
 
@@ -246,7 +264,7 @@ def _embed(cfg, params, tokens):
 
 def _head(cfg, params, x):
     x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = C.lm_logits(x, params["embed"].T)   # tied embeddings
+    logits = C.lm_logits(x, params["embed"], tied=True)  # tied embeddings
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

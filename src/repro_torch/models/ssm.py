@@ -249,7 +249,7 @@ def param_axes(cfg) -> Dict[str, Any]:
 
 def _head(cfg, params, x):
     x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return C.lm_logits(x, params["embed"].T)     # mamba ties embeddings
+    return C.lm_logits(x, params["embed"], tied=True)  # mamba ties them
 
 
 def _layers(cfg, params):

@@ -95,37 +95,71 @@ def attn_axes(cfg):
     return p
 
 
+def head_parts(cfg):
+    """(this rank's query heads, the KV heads they read), as
+    ``sharding.Part`` ranges of heads, where compute is split over
+    ``model`` (the mesh train step); else None.  A KV head shared by two
+    ranks' query heads is computed on both."""
+    from ..distributed.sharding import Part, model_part
+    q = model_part(cfg.n_heads)
+    if q is None:
+        return None
+    g = cfg.n_heads // cfg.n_kv_heads
+    return q, Part(q.lo // g, -(-q.hi // g), cfg.n_kv_heads, q.k, q.i)
+
+
+def _grouped(q_part, kv_part, g, k, v):
+    """k and v (B, S, Hkv_local, D) laid out for the rank's query heads:
+    as they are where the query heads fall into whole groups of their KV
+    heads, else one KV head per query head (the one it reads)."""
+    idx = [(q_part.lo + j) // g - kv_part.lo for j in range(q_part.size)]
+    per = q_part.size // kv_part.size
+    if q_part.size % kv_part.size == 0 and \
+            idx == [j // per for j in range(q_part.size)]:
+        return k, v
+    idx = torch.tensor(idx, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _qkv(p, cfg, x, positions):
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    # whole heads: the port's attention and its cache take every head,
-    # so only ``wo``'s row-parallel product splits them under tp_psum
-    q, k, v = C.col_parallel_in(x, (p["wq"], p["wk"], p["wv"]))
+    parts = head_parts(cfg)
+    cols = (None,) * 3 if parts is None else \
+        (parts[0].times(hd),) + (parts[1].times(hd),) * 2
+    q, k, v = C.col_parallel_in(x, (p["wq"], p["wk"], p["wv"]), parts=cols)
     if cfg.qkv_bias:
-        q, k, v = (q + p["bq"].to(x.dtype), k + p["bk"].to(x.dtype),
-                   v + p["bv"].to(x.dtype))
+        q, k, v = (t + C.column_part(p[name], c).to(x.dtype)
+                   for t, name, c in zip((q, k, v), ("bq", "bk", "bv"), cols))
+    if parts is not None:
+        h, hkv = parts[0].size, parts[1].size
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = C.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = C.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = C.rms_norm(q, C.shared_part(p["q_norm"]), cfg.norm_eps)
+        k = C.rms_norm(k, C.shared_part(p["k_norm"]), cfg.norm_eps)
     if cfg.rope_theta:
         q = C.apply_rope(q, positions, cfg.rope_theta)
         k = C.apply_rope(k, positions, cfg.rope_theta)
+    if parts is not None:
+        k, v = _grouped(*parts, cfg.n_heads // cfg.n_kv_heads, k, v)
     return q, k, v
 
 
 def _attend(p, cfg, q, k, v, window, q_offset=0):
-    b, s = q.shape[:2]
+    b, s, h = q.shape[:3]
     out = C.chunked_attention(
         q, k, v, causal=True, window_arr=window, q_offset=q_offset,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
         softcap=cfg.attn_softcap, scale=cfg.attn_scale,
         compute_dtype=cfg.attn_compute_dtype,
         causal_skip=cfg.causal_skip)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return C.row_parallel_out(out, p["wo"], cfg.tp_psum)
+    out = out.reshape(b, s, h * cfg.head_dim)
+    parts = head_parts(cfg)
+    return C.row_parallel_out(out, p["wo"], cfg.tp_psum,
+                              None if parts is None
+                              else parts[0].times(cfg.head_dim))
 
 
 def attn_apply(p, cfg, x, positions, window):
@@ -284,8 +318,10 @@ def _embed_in(cfg, params, tokens, patches=None):
 
 def _head(cfg, params, x):
     x = C.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = C.lm_logits(x, head)
+    if cfg.tie_embeddings:
+        logits = C.lm_logits(x, params["embed"], tied=True)
+    else:
+        logits = C.lm_logits(x, params["head"])
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

@@ -56,24 +56,42 @@ def _mha_axes():
             "bv": ("heads",), "wo": ("heads", "fsdp"), "bo": (None,)}
 
 
+def _heads(cfg):
+    """This rank's range of the heads' columns where compute is split
+    over ``model`` (the mesh train step); else None."""
+    from ..distributed.sharding import model_part
+    return model_part(cfg.n_heads, cfg.head_dim)
+
+
+def _proj(p, cfg, x, names):
+    """The projections ``names`` (of ``q``, ``k``, ``v``) of ``x``, with
+    their biases, each (B, S, heads, hd): the rank's heads where compute
+    is split over ``model``."""
+    b, s, _ = x.shape
+    cols = _heads(cfg)
+    bias = {"q": "bq", "v": "bv"}
+    outs = C.col_parallel_in(x, [p["w" + n] for n in names],
+                             parts=(cols,) * len(names))
+    out = []
+    for n, t in zip(names, outs):
+        if n in bias:
+            t = t + C.column_part(p[bias[n]], cols).to(x.dtype)
+        out.append(t.reshape(b, s, -1, cfg.head_dim))
+    return out
+
+
 def _proj_kv(p, cfg, src):
-    b, s, _ = src.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    k = torch.matmul(src, p["wk"].to(src.dtype))
-    v = torch.matmul(src, p["wv"].to(src.dtype)) + p["bv"].to(src.dtype)
-    return k.reshape(b, s, h, hd), v.reshape(b, s, h, hd)
+    return _proj(p, cfg, src, ("k", "v"))
 
 
 def _proj_q(p, cfg, x):
-    b, s, _ = x.shape
-    q = torch.matmul(x, p["wq"].to(x.dtype)) + p["bq"].to(x.dtype)
-    return q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return _proj(p, cfg, x, ("q",))[0]
 
 
 def _out(p, cfg, o):
     b, s = o.shape[:2]
-    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return (C.row_parallel_out(o, p["wo"], cfg.tp_psum)
+    o = o.reshape(b, s, -1)
+    return (C.row_parallel_out(o, p["wo"], cfg.tp_psum, _heads(cfg))
             + p["bo"].to(o.dtype))
 
 
@@ -86,9 +104,14 @@ def _mlp_init(init: C.Init, lead, cfg):
 
 
 def _mlp(p, cfg, x):
-    h = C.gelu_tanh(torch.matmul(x, p["w1"].to(x.dtype))
-                    + p["b1"].to(x.dtype))
-    return (C.row_parallel_out(h, p["w2"], cfg.tp_psum)
+    """The MLP; where compute is split over ``model`` a rank computes its
+    range of the ``mlp`` columns, and the output's bias is added once,
+    after the sum over ``model``."""
+    from ..distributed.sharding import model_part, whole_dim
+    cols = model_part(whole_dim(p["w1"], -1))
+    h = C.gelu_tanh(C.col_parallel_in(x, (p["w1"],), parts=(cols,))[0]
+                    + C.column_part(p["b1"], cols).to(x.dtype))
+    return (C.row_parallel_out(h, p["w2"], cfg.tp_psum, cols)
             + p["b2"].to(x.dtype))
 
 
@@ -164,8 +187,7 @@ def encode(cfg, params, frames):
 
     def body(lp, x):
         xn = _ln(lp["ln1"], cfg, x)
-        q = _proj_q(lp["attn"], cfg, xn)
-        k, v = _proj_kv(lp["attn"], cfg, xn)
+        q, k, v = _proj(lp["attn"], cfg, xn, ("q", "k", "v"))
         o = C.chunked_attention(q, k, v, causal=False,
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                                 compute_dtype=cfg.attn_compute_dtype)
@@ -192,8 +214,7 @@ def _decoder_layer(lp, cfg, x, enc, cross_dtype):
     cross-attention over ``enc`` and the MLP.  Returns (x, k, v, xk, xv):
     the self and the cross K/V, for the cache."""
     xn = _ln(lp["ln1"], cfg, x)
-    q = _proj_q(lp["self"], cfg, xn)
-    k, v = _proj_kv(lp["self"], cfg, xn)
+    q, k, v = _proj(lp["self"], cfg, xn, ("q", "k", "v"))
     o = C.chunked_attention(q, k, v, causal=True,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                             compute_dtype=cfg.attn_compute_dtype,
@@ -210,7 +231,7 @@ def _decoder_layer(lp, cfg, x, enc, cross_dtype):
 
 def _logits(cfg, params, x):
     x = _ln(params["dec_ln"], cfg, x)
-    return C.lm_logits(x, params["embed"].T)     # whisper ties embeddings
+    return C.lm_logits(x, params["embed"], tied=True)  # whisper ties them
 
 
 def forward(cfg, params, tokens, frames=None):

@@ -47,14 +47,21 @@ placement of the train state:
   once a step and gathered, and with ``pregather_params`` every leaf's
   bf16 copy is gathered once a step (the reference's ZeRO-1 layout).  A
   weight whose ``model`` part is what compute consumes (the routed
-  experts, ``moe.local_experts``; the ``tp_psum`` projections,
-  ``sharding.split_param``) is gathered over its other axes only; the
-  step reads which from a forward on the meta device
+  experts, ``moe.local_experts``; a split projection whose range is the
+  rank's equal part, ``sharding.split_param``) is gathered over its
+  other axes only; any other weight compute cuts is gathered whole and
+  sliced.  The step reads which from a forward on the meta device
   (``step.cut_leaves``);
-* *split compute*: the ``tp_psum`` projections and the expert-parallel
-  MoE run their ``model`` collectives through autograd-aware conjugate
-  pairs (``dist.collectives``), so every leaf whose compute ``model``
-  does not split gets its whole gradient on every ``model`` rank;
+* *split compute*: on a mesh with a ``model`` axis each rank computes
+  its range of the attention heads (and the KV heads they read), of the
+  MLP columns, of the RG-LRU's channels and of the vocab (embedding,
+  logits, a vocab-parallel cross-entropy), where the reference's
+  constraints let GSPMD split them (``sharding.model_part``;
+  ``models.common``); the expert-parallel MoE runs its experts.  The
+  ``model`` collectives go through autograd-aware conjugate pairs
+  (``dist.collectives``), so every leaf whose compute ``model`` does not
+  split (norms, the router, MLA's down projections, mamba2's mixer) gets
+  its whole gradient on every ``model`` rank;
 * *the gradient reduce*, the backward of each gather, in every
   microbatch: the whole gradient summed over the ``batch`` axes (and
   over ``model`` for a weight compute cut from its whole), divided by
@@ -336,30 +343,44 @@ class StateLayout:
 _PROBE_SEQ = 16
 
 
-def compute_cuts(model: Model, mesh) -> Dict[str, int]:
-    """{param path: the dim, counted from the end, that model code cuts
-    to this rank's ``model`` part} on the live ``mesh``: the
-    ``split_param`` records of one forward of the loss on the meta device
-    (nothing is allocated or sent) under the mesh step's context, one
-    row a rank."""
+class _WholeLeaves:
+    """The gathers of :func:`compute_cuts`' forward on the meta device:
+    every leaf is whole there (``sharding.current_gather``)."""
+
+    def owns(self, t) -> bool:
+        return False
+
+
+def compute_cuts(model: Model, mesh) -> Dict[str, Tuple[int, bool]]:
+    """{param path: (the dim, counted from the end, that model code cuts
+    to this rank's range over ``model``, whether that range is the
+    rank's equal part)} on the live ``mesh``: the ``split_param``
+    records of one forward of the loss on the meta device (nothing is
+    allocated or sent) under the mesh step's context, one row a rank."""
     from ..configs import ShapeSpec, input_specs
     params = model.init(0, "meta")
     paths = {id(t): p for p, t in tree_flatten(params)}
     seq = _PROBE_SEQ + (model.cfg.num_image_tokens or 0)
     batch = input_specs(model.cfg, ShapeSpec("probe", seq, 1, "train"))
     with torch.no_grad(), recording_splits() as cut, \
-            use_mesh(mesh, current_rules(), local_batch=True):
+            use_mesh(mesh, current_rules(), local_batch=True,
+                     gather=_WholeLeaves()):
         model.loss(params, batch)
-    return {paths[id(root)]: dim for root, dim in cut if id(root) in paths}
+    out: Dict[str, Tuple[int, bool]] = {}
+    for root, dim, even in cut:
+        if id(root) in paths:
+            path = paths[id(root)]
+            out[path] = (dim, even and out.get(path, (dim, True))[1])
+    return out
 
 
 def param_plans(model: Model, mesh, layout: StateLayout):
     """{param path: its ``dist.collectives.ParamPlan``}: each leaf is
     gathered over the axes it is cut on, except a ``model`` part that
-    compute consumes (:func:`compute_cuts`, where its placement cuts the
-    same dim over ``model`` alone); its gradient is summed over the
-    ``batch`` axes, and over ``model`` where compute cuts it from the
-    whole."""
+    compute consumes (:func:`compute_cuts`: the rank's equal part, where
+    its placement cuts the same dim over ``model`` alone); its gradient
+    is summed over the ``batch`` axes, and over ``model`` where compute
+    cuts its range from the whole."""
     from ..dist.collectives import ParamPlan
     cut = compute_cuts(model, mesh)
     rows = mesh.split(BATCH_AXES)[0]
@@ -369,11 +390,12 @@ def param_plans(model: Model, mesh, layout: StateLayout):
         cuts = layout.part("params/" + path) or []
         held, reduce = None, BATCH_AXES
         if path in cut:
+            dim, even = cut[path]
             keep = [c for c in cuts if c[1] == ("model",)
-                    and c[0] - len(shape) == cut[path]]
+                    and c[0] - len(shape) == dim] if even else []
             if keep:
-                held, cuts = (cut[path], k_model), [c for c in cuts
-                                                    if c not in keep]
+                held, cuts = (dim, k_model), [c for c in cuts
+                                              if c not in keep]
             else:
                 reduce = BATCH_AXES + ("model",)
         plans[path] = ParamPlan(tuple(cuts), reduce, rows, held)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import textwrap
 
@@ -127,8 +128,28 @@ def _grad_on_a_thread(real):
     return grad
 
 
+#: name -> (mesh, arch, config overrides, TrainConfig overrides): the
+#: compute split over ``model`` with no ``tp_psum`` (the row-parallel
+#: sums in f32): every SMOKE config on ``model=2``, four families on
+#: ``data=2,model=2``, and an uneven split on ``model=4`` (6 heads over
+#: 2 KV heads, a vocab and an MLP width that 4 does not divide: ranges of
+#: 2, 1, 2, 1 heads, a KV head computed on two ranks, weights gathered
+#: whole and sliced), and whisper-base with 2 heads on ``model=4``
+#: (``FEW_HEADS``: fewer heads than ranks, computed whole on every rank).
+FEW_HEADS = "tp_model4_fewheads/whisper-base"
+UNEVEN = {"n_heads": 6, "n_kv_heads": 2, "vocab": 250, "d_ff": 130}
+TP_CASES = {
+    **{f"tp_model2/{a}": ("model=2", a, {}, {}) for a in ARCHS},
+    **{f"tp_data2model2/{a}": ("data=2,model=2", a, {}, {})
+       for a in ("qwen2.5-14b", "deepseek-v3-671b", "whisper-base",
+                 "recurrentgemma-9b")},
+    "tp_model4_uneven/qwen2.5-14b": ("model=4", "qwen2.5-14b", UNEVEN, {}),
+    FEW_HEADS: ("model=4", "whisper-base", {"n_heads": 2}, {}),
+}
+
 CASES = _cases()
-GROUPS = {"data=2": 2, "model=2": 2, "data=2,model=2": 4}
+CASES.update({n: (*c, False) for n, c in TP_CASES.items()})
+GROUPS = {"data=2": 2, "model=2": 2, "data=2,model=2": 4, "model=4": 4}
 
 
 def config(arch, **kw):
@@ -261,17 +282,61 @@ def replicated(state, layout):
     return _tree([t.clone() for t in layout.gathered(state)], state)
 
 
+#: The param axes a whole (replicated) state maps to no mesh axis.
+WHOLE_RULES = {a: None for a in ("fsdp", "heads", "kv_heads", "mlp",
+                                 "vocab", "experts")}
+
+
+def rounds_split_grads(mesh, tc_over) -> bool:
+    """Whether a case's gradients are rounded to bf16 (``cast_params``'
+    bf16 copies, ``compress_grads``' accumulator) on a mesh whose compute
+    splits over ``model``: the split sums its f32 products in another
+    order than one device, so a value near a bf16 rounding boundary may
+    round the other way, one bf16 ulp.  Such a case's gradient leaves are
+    held to the same mesh's step on the whole (replicated) state, which
+    rounds at the same points, and to one device's within one bf16 ulp
+    (:func:`bf16_ulps`); its loss and ``grad_norm`` to one device."""
+    return "model" in mesh and bool(tc_over.get("cast_params")
+                                    or tc_over.get("compress_grads"))
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest difference of ``got`` from ``want``, in bf16 ulps at
+    ``want``'s largest magnitude (the spacing of bf16 values in its
+    binade, 2^(e - 7) for a largest magnitude in [2^e, 2^(e+1)))."""
+    top = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    if top == 0.0:
+        return 0.0 if diff == 0.0 else math.inf
+    return diff / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def _whole_state_grads(model, tc, live, before, rows, seen):
+    """The reduced gradients (whole leaves, flatten order) of one step of
+    the same mesh on the whole state ``before`` (every param axis mapped
+    to no mesh axis, so nothing is held in part), taken from ``seen``,
+    where the patched optimizer of :func:`run_case` puts them."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import make_jitted_train_step
+    with use_mesh(None, WHOLE_RULES):
+        step = make_jitted_train_step(model, tc, mesh=live)
+    step(tree_map(lambda t: t.clone(), before), rows)
+    return seen.pop()
+
+
 def run_case(name, live, device="cpu"):
     """Three mesh steps of ``name`` against the one-device computation,
-    on ``device``."""
+    on ``device`` (the gradients of a case that :func:`rounds_split_grads`
+    against the same mesh's step on the whole state)."""
     from repro_torch.models import get_model
     from repro_torch.models.common import tree_flatten, tree_leaves, \
         tree_map
     from repro_torch.training import (OptConfig, TrainConfig, adamw_init,
                                       make_jitted_train_step)
     from repro_torch.training import optim
-    from repro_torch.training.train import local_batch, rank_rows, \
-        shard_state
+    from repro_torch.training.train import local_batch, param_plans, \
+        rank_rows, shard_state
     _, arch, over, tc_over, masked = CASES[name]
     model = get_model(config(arch, **over))
     tc = TrainConfig(opt=OptConfig(**OPT), **tc_over)
@@ -295,6 +360,9 @@ def run_case(name, live, device="cpu"):
            "coords": live.coords,
            "rows": rank_rows(B, tc.microbatches, live),
            "parts": sorted(p for p in layout.parts if p.startswith("params/")),
+           "held": sorted(p for p, plan in param_plans(model, live,
+                                                       layout)[0].items()
+                          if plan.held is not None),
            "cut_axes": {p: sorted({a for _, axes in cuts for a in axes})
                         for p, cuts in layout.parts.items()}}
     optim.adamw_update = capture
@@ -308,7 +376,13 @@ def run_case(name, live, device="cpu"):
             whole = before["params"]
             want_loss, want_grads, want_norm = expected_step(
                 model, tc, whole, gb, k_rows, device, model_axis)
-            state, met = step(state, local_batch(gb, tc.microbatches, live))
+            rows = local_batch(gb, tc.microbatches, live)
+            one_grads = None
+            if rounds_split_grads(CASES[name][0], tc_over):
+                one_grads = want_grads
+                want_grads = _whole_state_grads(model, tc, live, before,
+                                                rows, seen)
+            state, met = step(state, rows)
             # the replicated layout's update: AdamW on the whole state with
             # the whole reduced gradients, bit-equal to the parts' gathered
             grads = replicated({"params": _tree(seen[-1], state["params"])},
@@ -332,6 +406,11 @@ def run_case(name, live, device="cpu"):
                     ratio, worst = r, path
             res["grad_ratio"].append(ratio)
             res["worst_leaf"].append(worst)
+            if one_grads is not None:
+                res.setdefault("one_ulps", []).append(max(
+                    bf16_ulps(got, layout.local("params/" + path, one))
+                    for (path, _), got, one in zip(flat, seen[-1],
+                                                   one_grads)))
             res["loss"].append(float(met["loss"]))
             res["loss_want"].append(want_loss)
             res["norm"].append(float(met["grad_norm"]))
@@ -358,15 +437,15 @@ def collective_checks(live):
     draw = lambda r, *shape: torch.from_numpy(
         rng(r).standard_normal(shape).astype(np.float32))
     whole = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (4, 6)).astype(np.float32))
-    c = [draw(r, 4, 6) for r in range(k)]
+        (4, 12)).astype(np.float32))
+    c = [draw(r, 4, 12) for r in range(k)]
     out = {}
 
     x = whole.clone().requires_grad_()
     (col.copy_to_model(x, ax, live) * c[me]).sum().backward()
     out["copy_to_model"] = bool(torch.allclose(x.grad, sum(c), atol=1e-6))
 
-    xs = [draw(r, 4, 6) for r in range(k)]
+    xs = [draw(r, 4, 12) for r in range(k)]
     x = xs[me].clone().requires_grad_()
     y = col.reduce_from_model(x, ax, live)
     (y * c[0]).sum().backward()
@@ -382,10 +461,26 @@ def collective_checks(live):
 
     x = whole.clone().requires_grad_()
     y = col.split_to_model(x, ax, live, dim=-1)
-    (y * c[me][:, :6 // k]).sum().backward()
+    (y * c[me][:, :12 // k]).sum().backward()
     out["split_to_model"] = bool(
-        torch.equal(y, whole[:, me * 6 // k:(me + 1) * 6 // k])
-        and torch.equal(x.grad, torch.cat([cr[:, :6 // k] for cr in c], 1)))
+        torch.equal(y, whole[:, me * 12 // k:(me + 1) * 12 // k])
+        and torch.equal(x.grad, torch.cat([cr[:, :12 // k] for cr in c], 1)))
+
+    # the uneven gather of ranges (``sharding.unit_range`` of 2k + 1
+    # columns) and its reduce-scatter backward; the max outside autograd
+    from repro_torch.distributed.sharding import unit_range
+    n = 2 * k + 1
+    lo, hi = unit_range(n, k, me)
+    wide = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, n)).astype(np.float32))
+    x = wide[:, lo:hi].clone().requires_grad_()
+    y = col.gather_part(x, ax, live, -1, n)
+    cw = [draw(r, 4, n) for r in range(k)]
+    (y * cw[me]).sum().backward()
+    out["gather_part"] = bool(torch.equal(y, wide) and torch.allclose(
+        x.grad, sum(cw)[:, lo:hi], atol=1e-6))
+    out["all_max"] = bool(torch.equal(col.all_max(xs[me], ax, live),
+                                      torch.stack(xs).amax(0)))
 
     g = xs[me].clone()
     col.all_reduce_(g, ax, live)
@@ -682,3 +777,66 @@ def run_oracle(case, path, live):
         state, met = step(state, rows)
         got.append(float(met["loss"]))
     return {"loss": got, "want": want}
+
+
+def launcher_twin(rank: int, world: int, init_file: str, out_dir: str,
+                  steps: int, args) -> None:
+    """One rank of the launcher's loop (``repro_torch.launch.train`` with
+    ``--smoke --device cpu --mesh host``), written out with the library:
+    the host mesh's step on ``init_state(..., mesh=)``, the launcher's
+    synthetic batches, schedule and checkpoint steps (``args``: the
+    launcher's ``--arch``, ``--batch``, ``--seq``, ``--lr``,
+    ``--ckpt-every``); rank 0's logged metrics, rounded as the launcher
+    rounds them, to ``<out_dir>/log.json`` and the checkpoints under
+    ``<out_dir>/ck``."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.dist.collectives import destroy_process_group
+    from repro_torch.launch.mesh import host_mesh_spec
+    from repro_torch.models import get_model
+    from repro_torch.training import (OptConfig, TrainConfig, init_state,
+                                      make_jitted_train_step)
+    from repro_torch.training.train import rank_rows
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = get_config(args["arch"], smoke=True)
+        model = get_model(cfg)
+        tc = TrainConfig(opt=OptConfig(
+            lr=args["lr"], total_steps=steps,
+            warmup_steps=max(1, steps // 20), schedule=cfg.lr_schedule))
+        step = make_jitted_train_step(model, tc, mesh=host_mesh_spec(),
+                                      device="cpu")
+        data = SyntheticTokens(DataConfig(vocab=cfg.vocab,
+                                          global_batch=args["batch"],
+                                          seq_len=args["seq"]))
+        rows = rank_rows(args["batch"], 1, step.mesh)
+        state = init_state(model, 0, "cpu", mesh=step.mesh)
+        ck = Checkpointer(os.path.join(out_dir, "ck"))
+        log = {}
+        for i in range(steps):
+            batch = {k: torch.as_tensor(v)
+                     for k, v in data.batch_rows(i, rows).items()}
+            state, met = step(state, batch)
+            log[i] = {"loss": round(float(met["loss"]), 4),
+                      "lr": float(met["lr"]),
+                      "grad_norm": round(float(met["grad_norm"]), 3)}
+            if (i > 0 and i % args["ckpt_every"] == 0) or i == steps - 1:
+                ck.save(i, state, blocking=True, layout=step.layout)
+        if rank == 0:
+            with open(os.path.join(out_dir, "log.json"), "w") as f:
+                json.dump(log, f)
+    finally:
+        destroy_process_group()
+
+
+def run_launcher_twin(out_dir: str, steps: int, args) -> dict:
+    """Run :func:`launcher_twin` over two ranks; ``{step: metrics}``."""
+    import torch.multiprocessing as mp
+    mp.spawn(launcher_twin, args=(2, os.path.join(out_dir, "rendezvous"),
+                                  out_dir, steps, args), nprocs=2, join=True)
+    with open(os.path.join(out_dir, "log.json")) as f:
+        return {int(k): v for k, v in json.load(f).items()}

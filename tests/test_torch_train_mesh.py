@@ -77,6 +77,10 @@ def check_against_one_device(res):
                                                   res["grad_ratio"][s])
         norm, want = res["norm"][s], res["norm_want"][s]
         assert abs(norm - want) <= NORM_TOL * want, (s, norm, want)
+    # gradients rounded to bf16 on a split mesh: also one device's within
+    # one bf16 ulp at each leaf's largest magnitude
+    for s, ulps in enumerate(res.get("one_ulps", [])):
+        assert ulps <= 1.0, (s, ulps)
 
 
 def check_replicas_bit_equal(results):

@@ -5,7 +5,9 @@ own mesh step as an oracle: gloo groups of two (``model=2``) and four
 * ``model=2``: the MoE configs expert-parallel, and ``tp_psum=True``
   for the transformer (qwen2.5-14b), mla (deepseek-v3-671b), rglru
   (recurrentgemma-9b) and whisper families; ``data=2,model=2``:
-  qwen2.5-14b (plain and ``tp_psum``) and mixtral-8x22b.  Every rank
+  qwen2.5-14b (plain and ``tp_psum``) and mixtral-8x22b.  Every case's
+  compute is split over ``model`` (heads, MLP columns, vocab), as the
+  reference's constraints split it.  Every rank
   holds its part of the state (the reference's placement).  Three steps
   each against the one-device computation of the same step, within the
   limits of ``test_torch_train_mesh.py``, params and moments bit-equal
@@ -14,9 +16,10 @@ own mesh step as an oracle: gloo groups of two (``model=2``) and four
   everywhere;
 * the leaves model code cuts over ``model`` in compute
   (``step.cut_leaves``, from the ``split_param`` marks of a forward on
-  the meta device) are exactly the weights the ``tp_psum`` projections
-  cut and the routed experts (never a norm, an embedding, the router or
-  attention's q/k/v), each held in part over ``model``;
+  the meta device) are exactly the weights the reference's constraints
+  split (heads, KV heads, MLP columns, vocab rows, the routed experts;
+  never a norm or the router), each held in part over ``model`` where
+  its placement allows;
 * each autograd-aware collective's forward and backward against the
   one-process computation over every rank's inputs; a mesh larger than
   the group is refused with ``MeshUnavailableError``, a smaller one with
@@ -48,9 +51,11 @@ torch = pytest.importorskip("torch")
 import _train_mesh_worker as W
 from test_torch_train_mesh import (check_against_one_device, check_oracle,
                                    check_replicas_bit_equal)
+from test_torch_train_tp import _expected_cuts, model_ranks
 
 NAMES = {m: [n for n, c in W.CASES.items()
-             if c[0] == m and n not in W.PLACEMENT_CASES]
+             if c[0] == m and n not in W.PLACEMENT_CASES
+             and n not in W.TP_CASES]
          for m in ("model=2", "data=2,model=2")}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -87,48 +92,28 @@ def test_state_bit_equal_across_ranks(groups, mesh, name):
     check_replicas_bit_equal([res[name] for res in groups[mesh]])
 
 
-#: The leaves the ``tp_psum`` projections cut in compute.
-TP_CUT = {
-    "qwen2.5-14b": ["layers/attn/wo", "layers/ffn/wi_gate", "layers/ffn/wi_up",
-                    "layers/ffn/wo"],
-    "deepseek-v3-671b": ["layers/attn/wo", "layers/ffn/shared/wo",
-                         "mtp/block/attn/wo", "mtp/block/ffn/shared/wo"],
-    "whisper-base": ["dec/cross/wo", "dec/mlp/w2", "dec/self/wo",
-                     "enc/attn/wo", "enc/mlp/w2"],
-}
-#: The routed experts' weights, cut to this rank's experts in compute.
-MOE_CUT = {
-    "mixtral-8x22b": [f"layers/ffn/{e}" for e in ("wi_gate", "wi_up", "wo")],
-    "deepseek-v3-671b": [f"{pre}/ffn/{e}" for pre in ("layers", "mtp/block")
-                         for e in ("wi_gate", "wi_up", "wo")],
-}
-
-
 @pytest.mark.parametrize("mesh,name", CASES)
 def test_split_leaves_are_the_cut_weights(groups, mesh, name):
     """The leaves model code cuts over ``model`` in compute
-    (``step.cut_leaves``) are the ``tp_psum`` projections' weights and
-    the routed experts; each is held in part over ``model``, as is
-    every leaf the placement cuts (``parts``)."""
+    (``step.cut_leaves``) are the weights whose logical axes name
+    ``heads``, ``kv_heads``, ``mlp``, ``vocab`` or ``experts``, with or
+    without ``tp_psum`` (the split follows the reference's constraints;
+    ``test_torch_train_tp.py``), never a norm or the router; each is held
+    in part over ``model`` where its placement allows: every one but
+    recurrentgemma's one KV head, which every rank computes whole."""
     arch = W.CASES[name][1]
-    tp = W.CASES[name][2].get("tp_psum", False)
+    want = _expected_cuts(arch, W.CASES[name][2], model_ranks(mesh))
     for res in groups[mesh]:
         got = res[name]["cut"]
-        experts = MOE_CUT.get(arch, [])
-        if tp and arch in TP_CUT:
-            assert got == sorted(TP_CUT[arch] + experts)
-        elif tp:                                    # recurrentgemma
-            assert got and all(p.endswith(("/wo", "/wi_gate", "/wi_up"))
-                               for p in got), got
-        else:
-            assert got == experts
+        assert sorted(got) == want, sorted(set(got) ^ set(want))
+        whole = {p for p in got if arch == "recurrentgemma-9b"
+                 and p.endswith(("/wk", "/wv"))}
+        assert set(res[name]["held"]) == set(got) - whole, name
         for path in got:
-            assert not any(k in path for k in ("ln", "norm", "embed",
-                                               "router", "/wq", "/wk",
-                                               "/wv")), path
+            assert not any(k in path for k in ("ln", "norm", "router")), path
             assert "model" in res[name]["cut_axes"]["params/" + path], path
-        assert set(experts) <= {p[len("params/"):]
-                                for p in res[name]["parts"]}
+        assert set(got) - whole <= {p[len("params/"):]
+                                    for p in res[name]["parts"]}
 
 
 @pytest.mark.parametrize("mesh", list(NAMES))

@@ -24,7 +24,16 @@ gradients reduced and cut to the rank's part.
   gradient part within 1e-4 x max(1, max|g|), ``grad_norm`` within 1e-5
   relative; the replicas of each part bit-equal and the state gathered
   whole bit-equal to the replicated layout's (AdamW on the whole state
-  with the whole reduced gradients);
+  with the whole reduced gradients).  Where the gradients are rounded
+  to bf16 (``cast_params``, ``compress_grads``) on a mesh whose compute
+  splits over ``model``, a split sum in another order can round a value
+  the other way (one bf16 ulp), so their gradient parts are held, under
+  the same limit, to the same mesh's step on the whole (replicated)
+  state, which rounds at the same points
+  (``_train_mesh_worker.rounds_split_grads``), and to one device's
+  within one bf16 ulp at each leaf's largest magnitude
+  (``_train_mesh_worker.bf16_ulps``); their loss and ``grad_norm`` to
+  one device under the limits above;
 * **checkpoint**: a ``data=2,model=2`` save of a partitioned state is
   byte-equal to one device's save of the gathered state, restores
   bit-equal on one device, on each rank, on ``model=2`` (another mesh)
