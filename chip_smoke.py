@@ -89,7 +89,18 @@ JAX package.  Every phase prints one JSON line (also written to
                  mixtral-8x22b at its widths (2 layers, f32), its
                  expert-parallel forward on ``model=2`` (4 of 8 experts a
                  rank) within 1e-5 x max(1, max|logits|) of the unsharded
-                 forward, peak GB a rank.
+                 forward, peak GB a rank; (m5) the partitioned serving
+                 program (``launch.cells.serve_program``, the reference's
+                 prefill and decode cells) of qwen2.5-14b at its widths
+                 (4 of 48 layers, f32) on ``model=2``: a prefill of 4 x
+                 256 tokens, then 8 greedy decode steps, each rank
+                 holding its placed part of the params and of the cache
+                 (flash-decoding over its half of the positions); every
+                 step's gathered logits within 1e-5 x max(1,
+                 max|logits|) of one device's and the tokens equal; step
+                 ms, the ``model`` collectives' count, bytes and ms a
+                 step, the held bytes against the placed, peak GB a
+                 rank.
    ``train``     the trainer (``repro_torch.training``, ``.checkpoint``,
                  ``.data``, ``.launch.train``), in a child process
                  (``python3 chip_smoke.py --train``): (t1) the ten SMOKE
@@ -143,7 +154,11 @@ JAX package.  Every phase prints one JSON line (also written to
                  seconds and depths, and the rank's argument bytes (its
                  part of the state: equal to ``argument_size_if_placed``)
                  beside the card's 80 GB and the reference's committed
-                 record of the cell; (d3) minicpm-2b at its widths,
+                 record of the cell; (d4) the qwen2.5-14b x decode_32k
+                 cell the same way (the partitioned serving program):
+                 argument bytes equal to the placed bytes and to the
+                 reference's, FLOPs a rank within 1.25 x the
+                 reference's; (d3) minicpm-2b at its widths,
                  4 layers, 2 microbatches of 1 x 512: the counts weighed
                  from the traced depths equal the step traced whole;
                  (d2)'s fake counts.  Then, in this process (``python3
@@ -4212,6 +4227,11 @@ MESH_WHISPER_REQUESTS = (8, (4, 32), 32)
 #: unsharded forward, relative to max(1, max|logits|).
 MESH_MIXTRAL = (4, 128)
 MESH_F32_LIMIT = 1e-5
+#: (m5) qwen2.5-14b at its widths cut to this many layers, f32, through
+#: the partitioned serving program on ``model=2``: rows, prompt tokens,
+#: decode steps (the cache holds the prompt and the steps).
+MESH_M5_LAYERS = 4
+MESH_M5 = (4, 256, 8)
 #: Each rank's share of the card's memory, by group size: an overrun is
 #: an error in the rank that made it.  The ranks' allocator maps its
 #: segments in pages (``expandable_segments``): a qwen2.5-14b rank peaks
@@ -4407,6 +4427,133 @@ def _mixtral_forward(torch, np, mesh=None):
     return out, row
 
 
+def _m5_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2.5-14b"),
+                               num_layers=MESH_M5_LAYERS, dtype="float32")
+
+
+def _m5_collectives(torch):
+    """Count and time the ``model`` collectives of the serving program
+    (``dist.collectives._summed``: sums and maxes; ``_gathered``:
+    gathers; ``exchange``: the prefill's all-to-all), each call between
+    two device syncs, bytes those of its result; returns (the totals, a
+    function that undoes the patch)."""
+    import repro_torch.dist.collectives as col
+    rec = {"count": 0, "bytes": 0, "ms": 0.0}
+    real = {n: getattr(col, n) for n in ("_summed", "_gathered", "exchange")}
+
+    def timed(fn):
+        def run(x, axes, mesh, *a, **kw):
+            if x.device.type == "meta" or \
+                    mesh.canonical(axes) != ("model",):
+                return fn(x, axes, mesh, *a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(x, axes, mesh, *a, **kw)
+            torch.cuda.synchronize()
+            rec["count"] += 1
+            rec["bytes"] += out.numel() * out.element_size()
+            rec["ms"] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+    for n, fn in real.items():
+        setattr(col, n, timed(fn))
+
+    def undo():
+        for n, fn in real.items():
+            setattr(col, n, fn)
+    return rec, undo
+
+
+def _m5_placed(prog, rows, max_len):
+    """(the param bytes, the cache bytes) one rank holds under the
+    reference's placement."""
+    from repro_torch.launch.cells import placed_bytes
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.models.common import tree_flatten
+    whole = prog.model.init(0, "meta")
+    specs = dict(tree_flatten(placements(prog.live, prog.model.param_axes(),
+                                         whole)))
+    params = sum(placed_bytes(prog.live, t, specs[p])
+                 for p, t in tree_flatten(whole))
+    cache = prog.model.init_cache(rows, max_len, "meta")
+    cspecs = prog.cache_specs(rows, max_len)
+    return params, sum(placed_bytes(prog.live, t, cspecs[k])
+                       for k, t in cache.items())
+
+
+def _qwen_m5(torch, np, mesh=None):
+    """(m5) the partitioned serving program of qwen2.5-14b at its widths
+    (MESH_M5_LAYERS layers, f32): a prefill of MESH_M5's prompts, then
+    its greedy decode steps, on one device or on the live ``mesh`` (each
+    rank its part of the params and the cache); (the gathered logits of
+    each step, the tokens fed, a row of what it measured)."""
+    import gc
+    from repro_torch.launch.cells import serve_program
+    from repro_torch.models.common import tree_leaves
+    rows, prompt, steps = MESH_M5
+    prog = serve_program(_m5_cfg(), mesh, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    params = prog.init_params(0)          # drawn whole, then cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"layers": MESH_M5_LAYERS, "rows": rows, "prompt": prompt,
+           "steps": steps, "init_peak_gb": _peak_gb(torch),
+           "held_param_bytes": sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(params))}
+    tokens = np.random.default_rng(0).integers(
+        0, prog.cfg.vocab, (rows, prompt)).astype(np.int32)
+    cache = prog.init_cache(rows, prompt + steps)
+    row["held_cache_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in cache.values())
+    if mesh is not None:
+        row["placed_param_bytes"], row["placed_cache_bytes"] = _m5_placed(
+            prog, rows, prompt + steps)
+        prog.plans          # the gathers' plans (a meta forward), untimed
+        rec, undo = _m5_collectives(torch)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = prog.local_batch({"tokens": torch.as_tensor(tokens,
+                                                            device=DEVICE)})
+        logits, cache = prog.prefill(params, batch, cache)
+        whole = prog.gather_logits(logits, rows)[:, -1]
+        torch.cuda.synchronize()
+        row["prefill_ms"] = (time.perf_counter() - t) * 1e3
+        if mesh is not None:
+            row["prefill_collectives"] = dict(rec)
+            rec.update(count=0, bytes=0, ms=0.0)
+        out, fed, step_ms = [whole.float().cpu().numpy()], [], []
+        lo, hi = prog.rows(rows)
+        for _ in range(steps):
+            tok = whole.argmax(-1)
+            fed.append(tok.cpu().numpy())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = prog.decode(params, cache,
+                                        tok[lo:hi, None].int())
+            whole = prog.gather_logits(logits, rows)[:, -1]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            out.append(whole.float().cpu().numpy())
+    finally:
+        if mesh is not None:
+            undo()
+    row["step_ms"] = step_ms
+    row["step_ms_median"] = statistics.median(step_ms)
+    if mesh is not None:
+        row["model_collectives_per_step"] = {k: v / steps
+                                             for k, v in rec.items()}
+    row["peak_gb"] = _peak_gb(torch)
+    del params, cache, logits, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return np.stack(out), np.stack(fed), row
+
+
 def mesh_rank_main(rank: int, world: int, work: str) -> int:
     """One rank of a mesh group: (m1) and (m2) then (m4) in a group of
     two, (m3) in a group of four; one JSON row a case on stdout, the
@@ -4451,6 +4598,17 @@ def mesh_rank_main(rank: int, world: int, work: str) -> int:
             row["bit_equal"] = bool(np.array_equal(logits, want))
             row["held_before_gb"] = held_before
             say("m4", "model=2", None, row)
+            del logits, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            logits, fed, row = _qwen_m5(torch, np, mesh)
+            with np.load(os.path.join(work, "qwen_m5.npz")) as z:
+                want, want_fed = z["logits"], z["tokens"]
+            row["max_abs_err"] = float(np.abs(logits - want).max())
+            row["limit"] = MESH_F32_LIMIT * max(1.0, float(np.abs(
+                want).max()))
+            row["tokens_equal"] = bool(np.array_equal(fed, want_fed))
+            say("m5", "model=2", None, row)
         else:
             exe = _whisper_f32()
             reqs = _plain_requests(np, exe.cfg, MESH_WHISPER_REQUESTS)
@@ -4520,6 +4678,10 @@ def mesh_single_main(work: str) -> int:
     logits, row = _mixtral_forward(torch, np)
     np.save(os.path.join(work, "mixtral.npy"), logits)
     emit({"phase": "mesh", "case": "m4", "mesh": None, **row})
+    del logits
+    logits, fed, row = _qwen_m5(torch, np)
+    np.savez(os.path.join(work, "qwen_m5.npz"), logits=logits, tokens=fed)
+    emit({"phase": "mesh", "case": "m5", "mesh": None, **row})
     with open(os.path.join(work, "want.json"), "w") as f:
         json.dump(want, f)
     return 0
@@ -4555,9 +4717,13 @@ def mesh_main() -> int:
         want = json.load(f)
 
     problems = []
-    expected = {2: ("m1", "m2", "m4"), 4: ("m3",)}
+    expected = {2: ("m1", "m2", "m4", "m5"), 4: ("m3",)}
     for world in (2, 4):
+        t0 = time.perf_counter()
         rcs, rows = _mesh_ranks(world, MESH_DIR)
+        emit({"phase": "mesh", "case": "group_done", "ranks": world,
+              "rcs": rcs, "seconds": time.perf_counter() - t0,
+              "limit_s": MESH_RANK_TIMEOUT_S[world]})
         got = sorted((r["case"], r["rank"]) for r in rows)
         if rcs != [0] * world or got != sorted(
                 (c, r) for c in expected[world] for r in range(world)):
@@ -4585,9 +4751,22 @@ def mesh_main() -> int:
                                 f"gloo reports itself captured")
             if case in ("m1", "m2", "m3") and row["faults"]:
                 problems.append(f"mesh {case}: faults {row['faults']}")
-            if case == "m4" and not row["max_abs_err"] <= row["limit"]:
-                problems.append(f"mesh m4 rank {row['rank']}: err "
+            if case in ("m4", "m5") and not row["max_abs_err"] <= \
+                    row["limit"]:
+                problems.append(f"mesh {case} rank {row['rank']}: err "
                                 f"{row['max_abs_err']} over {row['limit']}")
+            if case == "m5" and not (
+                    row["tokens_equal"]
+                    and row["held_param_bytes"] == row["placed_param_bytes"]
+                    and row["held_cache_bytes"] == row["placed_cache_bytes"]
+                    and row["model_collectives_per_step"]["count"] > 0):
+                problems.append(
+                    f"mesh m5 rank {row['rank']}: tokens equal "
+                    f"{row['tokens_equal']}, held {row['held_param_bytes']}"
+                    f"/{row['held_cache_bytes']} bytes, placed "
+                    f"{row['placed_param_bytes']}/"
+                    f"{row['placed_cache_bytes']}, collectives "
+                    f"{row['model_collectives_per_step']}")
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     if problems:
         raise SystemExit("mesh phase failed: " + "; ".join(problems))
@@ -5850,6 +6029,15 @@ DRY_CELL_TIMEOUT_S = 120
 #: ``useful_flops_ratio`` of at least DRY_D1_USEFUL (0.046 before).
 DRY_D1_FLOPS_OVER_REF = 1.25
 DRY_D1_USEFUL = 0.55
+#: (d4): the qwen2.5-14b x decode_32k x single cell, the partitioned
+#: serving program, at rank 0 of the same fake group; the reference's
+#: count of the cell (its dry-run, ``python -m repro.launch.dryrun
+#: --arch qwen2.5-14b --shape decode_32k``: FLOPs a device, argument
+#: bytes), to which the port's FLOPs a rank are held within
+#: DRY_D1_FLOPS_OVER_REF and its argument bytes equal.
+DRY_D4_CELL = ("qwen2.5-14b", "decode_32k", "single")
+DRY_D4_REFERENCE = {"flops_per_device": 30_096_752_640,
+                    "argument_size_in_bytes": 3_454_066_752}
 _DRY_TERMS = ("compute_s", "memory_s", "collective_s", "step_time_bound_s",
               "roofline_fraction", "useful_flops_ratio")
 
@@ -5894,7 +6082,38 @@ def dryrun_cell_main() -> int:
                           "collective_bytes_per_device", "flops_per_device",
                           "bottleneck", "step_time_bound_s")},
                       "seconds": time.perf_counter() - t0}), flush=True)
+    arch, shape, kind = DRY_D4_CELL
+    t0 = time.perf_counter()
+    with cells.dry_group(spec, 0, "cuda") as live:
+        rec = run_cell(arch, shape, kind, None, device="cuda", mesh=live)
+    print(json.dumps({"phase": "dryrun", "case": "d4", **rec,
+                      "reference": DRY_D4_REFERENCE,
+                      "seconds": time.perf_counter() - t0}), flush=True)
     return 0
+
+
+def _dry_d4_problems(row) -> list:
+    if row is None:
+        return ["dryrun d4: no record"]
+    problems = []
+    if row.get("status") != "ok" or row.get("device") != "cuda" \
+            or row.get("chips") != 256 or row.get("rank") != 0:
+        problems.append(f"dryrun d4: status {row.get('status')} on "
+                        f"{row.get('device')}, {row.get('chips')} chips, "
+                        f"rank {row.get('rank')}")
+    args = row.get("memory_analysis", {}).get("argument_size_in_bytes")
+    want = DRY_D4_REFERENCE["argument_size_in_bytes"]
+    if not args == row.get("argument_size_if_placed") == want:
+        problems.append(f"dryrun d4: {args} argument bytes a rank, "
+                        f"{row.get('argument_size_if_placed')} placed, "
+                        f"the reference's {want}")
+    flops, ref = row.get("flops_per_device"), \
+        DRY_D4_REFERENCE["flops_per_device"]
+    if not isinstance(flops, (int, float)) or not \
+            0 < flops <= DRY_D1_FLOPS_OVER_REF * ref:
+        problems.append(f"dryrun d4: {flops} FLOPs a rank, over "
+                        f"{DRY_D1_FLOPS_OVER_REF} x the reference's {ref}")
+    return problems
 
 
 def _dry_d1_problems(row) -> list:
@@ -6073,7 +6292,8 @@ def finish_dryrun_cell(cell, say, d2) -> list:
     if d3 is None or d3["weighed"] != d3["whole"]:
         problems.append("dryrun d3: the weighed counts differ from the "
                         "whole trace's")
-    return problems + _dry_d1_problems(rows.get("d1"))
+    return problems + _dry_d1_problems(rows.get("d1")) + \
+        _dry_d4_problems(rows.get("d4"))
 
 
 def dryrun_main() -> int:

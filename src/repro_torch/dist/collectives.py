@@ -39,7 +39,11 @@ whose backward is the collective the forward's placement implies;
 :func:`all_reduce_` is a plain sum in place and :func:`all_max` a max
 outside autograd.  The mesh step's params are held in part:
 :func:`gather_param` gathers a leaf whole at use, and its backward is
-:func:`reduce_scatter`, this rank's part of the reduced gradient.
+:func:`reduce_scatter`, this rank's part of the reduced gradient; where
+autograd does not record (the partitioned serving program) it is the
+gather alone.  Serving's cache moves through :func:`gather_units` (the
+ranks' ranges of a dim, which may overlap, made whole) and
+:func:`exchange` (an all-to-all).
 
 A collective of a tensor on the meta device moves nothing: its result
 is one of the right shape (the mesh step reads which weights compute
@@ -311,27 +315,21 @@ def _ranges(n: int, axes, mesh: LiveMesh):
     return [unit_range(n, k, r) for r in range(k)]
 
 
-def _gathered_ranges(x: torch.Tensor, axes, mesh: LiveMesh, dim: int,
-                     n: int) -> torch.Tensor:
-    """The ranks' ranges of a dim of ``n`` (``sharding.unit_range``,
-    which may differ in size by one), this rank's ``x``, concatenated
-    along ``dim``: each part padded to the largest and gathered."""
-    ranges = _ranges(n, axes, mesh)
-    most = max(hi - lo for lo, hi in ranges)
+def _pad_to(x: torch.Tensor, dim: int, most: int) -> torch.Tensor:
+    """``x`` padded with zeros to ``most`` along ``dim`` (a rank's range
+    to the largest, so the ranks' parts gather side by side)."""
+    if x.shape[dim] >= most:
+        return x
     dim = dim % x.ndim
-    if x.shape[dim] < most:
-        pad = [0, 0] * (x.ndim - 1 - dim) + [0, most - x.shape[dim]]
-        x = torch.nn.functional.pad(x, pad)
-    whole = _gathered(x, axes, mesh, dim)
-    return torch.cat([whole.narrow(dim, r * most, hi - lo)
-                      for r, (lo, hi) in enumerate(ranges)], dim=dim)
+    return torch.nn.functional.pad(
+        x, [0, 0] * (x.ndim - 1 - dim) + [0, most - x.shape[dim]])
 
 
 class _GatherPart(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh, dim, n):
         ctx.axes, ctx.mesh, ctx.dim, ctx.n = axes, mesh, dim, n
-        return _gathered_ranges(x, axes, mesh, dim, n)
+        return gather_units(x, axes, mesh, dim, _ranges(n, axes, mesh), n)
 
     @staticmethod
     def backward(ctx, g):
@@ -340,6 +338,97 @@ class _GatherPart(torch.autograd.Function):
             ctx.mesh.split(ctx.axes)[1]]
         return (g.narrow(ctx.dim, lo, hi - lo).contiguous(), None, None,
                 None, None)
+
+
+def gather_units(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
+                 dim: int, ranges: Sequence[Tuple[int, int]],
+                 n: int) -> torch.Tensor:
+    """The whole of a dim of ``n`` units from the ranks' ranges of it
+    (``ranges[r]`` is rank ``r``'s ``[lo, hi)``; ``x`` is this rank's):
+    each part padded to the largest and gathered, every unit taken from
+    the first rank whose range holds it.  Ranges may overlap (the KV
+    heads two ranks' query heads share).  No autograd."""
+    if _split(mesh, axes)[0] == 1:
+        return x
+    dim = dim % x.ndim
+    most = max(hi - lo for lo, hi in ranges)
+    return _owners(_gathered(_pad_to(x, dim, most), axes, mesh, dim), dim,
+                   ranges, n, most)
+
+
+def _owners(parts: torch.Tensor, dim: int, ranges, n: int, most: int
+            ) -> torch.Tensor:
+    """Units ``0..n`` along ``dim`` of ``parts``, the ranks' ranges laid
+    side by side ``most`` units apart: each from the first rank whose
+    range holds it.  The ranges run in order (each starts at or before
+    the end of those before it, as the split rule makes them)."""
+    runs, covered = [], 0
+    for r, (lo, hi) in enumerate(ranges):
+        if lo > covered:
+            raise ValueError(f"the ranges {ranges} leave a gap at {covered}")
+        if hi > covered:
+            runs.append(parts.narrow(dim, r * most + covered - lo,
+                                     hi - covered))
+            covered = hi
+    if covered != n:
+        raise ValueError(f"the ranges {ranges} do not cover {n} units")
+    return runs[0] if len(runs) == 1 else torch.cat(runs, dim=dim)
+
+
+def take(t: torch.Tensor, dim: int, idx: Sequence[int]) -> torch.Tensor:
+    """``t.index_select(dim, idx)`` for host ints ``idx``.  On the meta
+    device (the forward that reads which weights compute cuts runs there,
+    under the dry-run's ``FakeTensorMode``, where an index made from host
+    ints is no fake tensor) the same as narrowed runs of ``idx``."""
+    idx = list(idx)
+    if idx == list(range(idx[0], idx[0] + len(idx))):
+        return t.narrow(dim, idx[0], len(idx))
+    if t.device.type != "meta":
+        return t.index_select(dim, torch.tensor(idx, device=t.device))
+    runs, start = [], 0
+    for j in range(1, len(idx) + 1):
+        if j == len(idx) or idx[j] != idx[j - 1] + 1:
+            runs.append(t.narrow(dim, idx[start], j - start))
+            start = j
+    return torch.cat(runs, dim=dim)
+
+
+def exchange(x: torch.Tensor, axes, mesh: Optional[LiveMesh], split_dim: int,
+             cat_dim: int, ranges: Sequence[Tuple[int, int]],
+             n: int) -> torch.Tensor:
+    """An all-to-all over the ranks of ``axes``: ``x`` cut into equal
+    parts along ``split_dim``, part ``r`` sent to rank ``r``; what each
+    rank sent this rank laid along ``cat_dim``, where each rank holds its
+    range ``ranges[r]`` of a dim of ``n`` units (as :func:`gather_units`
+    takes them): the parts padded to the largest range, each unit taken
+    from the first rank that holds it.  No autograd."""
+    import torch.distributed as dist
+    k = _split(mesh, axes)[0]
+    if k == 1:
+        return x
+    split_dim, cat_dim = split_dim % x.ndim, cat_dim % x.ndim
+    most = max(hi - lo for lo, hi in ranges)
+    x = _pad_to(x, cat_dim, most)
+    size = x.shape[split_dim]
+    if size % k:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split into {k} equal parts")
+    # parts first: (k, ...) with dim split_dim the part's
+    shape = list(x.shape)
+    shape[split_dim:split_dim + 1] = [k, size // k]
+    src = x.reshape(shape).movedim(split_dim, 0)
+    if x.device.type == "meta":
+        got = src.detach().clone()
+    else:
+        host = _host(x, mesh)
+        src = (src.detach().cpu() if host else src.detach()).contiguous()
+        got = torch.empty_like(src)
+        dist.all_to_all_single(got, src, group=mesh.group(axes))
+        if host:
+            got = got.to(x.device)
+    # got[r] is rank r's part for this rank: lay the k along cat_dim
+    out = torch.cat(torch.unbind(got, 0), dim=cat_dim)
+    return _owners(out, cat_dim, ranges, n, most)
 
 
 def _recorded(x: torch.Tensor) -> bool:
@@ -397,7 +486,7 @@ def gather_part(x: torch.Tensor, axes, mesh: Optional[LiveMesh],
     if _split(mesh, axes)[0] == 1:
         return x
     if not _recorded(x):
-        return _gathered_ranges(x, axes, mesh, dim, n)
+        return gather_units(x, axes, mesh, dim, _ranges(n, axes, mesh), n)
     return _GatherPart.apply(x, tuple(axes), mesh, dim, n)
 
 
@@ -436,11 +525,15 @@ class ParamPlan(NamedTuple):
     compute consumes left out), the axes its gradient sums over, the
     ``batch`` parts the sum is divided by, and the ``model`` part it
     keeps for compute (``sharding.held_part``: (dim from the end,
-    parts), or None)."""
+    parts), or None).  ``span`` (the serving program's): (the dim from
+    the end, every ``model`` rank's ``[lo, hi)`` of it) where compute
+    consumes a range that is no equal part: it is gathered from the
+    ranks' equal parts (:func:`gather_span`), not whole."""
     gather: Tuple[Tuple[int, Tuple[str, ...]], ...]
     reduce: Tuple[str, ...]
     rows: int
     held: Optional[Tuple[int, int]]
+    span: Optional[Tuple[int, Tuple[Tuple[int, int], ...]]] = None
 
     def layer(self) -> "ParamPlan":
         """The plan of one layer of a stacked leaf (the ``L`` dim, never
@@ -469,7 +562,45 @@ def _gather_whole(x: torch.Tensor, plan: ParamPlan,
                   mesh: LiveMesh) -> torch.Tensor:
     for dim, axes in plan.gather:
         x = _gathered(x, axes, mesh, dim)
+    if plan.span is not None:
+        x = gather_span(x, ("model",), mesh, *plan.span)
     return x
+
+
+def gather_span(x: torch.Tensor, axes, mesh: LiveMesh, dim: int,
+                ranges: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """This rank's range ``ranges[i]`` of a dim that the ranks of
+    ``axes`` hold in equal parts (``x`` is this rank's): an all-to-all
+    in which each rank sends each other the rows of its part that the
+    other's range holds (the ranges may overlap, and differ in size).
+    No autograd."""
+    import torch.distributed as dist
+    k, i = mesh.split(axes)
+    p = x.shape[dim]
+
+    def overlap(a, b):
+        return max(a[0], b[0]), min(a[1], b[1])
+
+    mine = (i * p, (i + 1) * p)
+    send = [overlap(mine, r) for r in ranges]
+    recv = [overlap((r * p, (r + 1) * p), ranges[i]) for r in range(k)]
+    sizes_in = [max(0, hi - lo) for lo, hi in send]
+    sizes_out = [max(0, hi - lo) for lo, hi in recv]
+    src = x.movedim(dim, 0)
+    shape = (sum(sizes_out),) + tuple(src.shape[1:])
+    if x.device.type == "meta":
+        return torch.empty(shape, dtype=x.dtype,
+                           device=x.device).movedim(0, dim)
+    host = _host(x, mesh)
+    src = torch.cat([src[lo - mine[0]:hi - mine[0]]
+                     for (lo, hi), n in zip(send, sizes_in) if n]
+                    or [src[:0]])
+    src = (src.detach().cpu() if host else src.detach()).contiguous()
+    out = torch.empty(shape, dtype=x.dtype, device=src.device)
+    dist.all_to_all_single(out, src, sizes_out, sizes_in,
+                           group=mesh.group(axes))
+    out = out.to(x.device) if host else out
+    return out.movedim(0, dim)
 
 
 class _GatherParam(torch.autograd.Function):
@@ -494,14 +625,23 @@ def gather_param(part: torch.Tensor, plan: ParamPlan, mesh: LiveMesh,
     :func:`reduce_scatter`, so ``part`` gets its part of the reduced
     gradient, in f32.  ``src`` is what to gather in ``part``'s place
     (its bf16 copy), ``whole`` what was gathered of it already (once a
-    step); either way the gradient is ``part``'s."""
-    if whole is None and not plan.gather:
+    step); either way the gradient is ``part``'s.  Where autograd does
+    not record (serving) it is the gather alone."""
+    if whole is None and not plan.gather and plan.span is None:
         whole = part if src is None else src
-    out = _GatherParam.apply(part, src, whole, plan, mesh)
+    if not torch.is_grad_enabled():
+        out = whole.view_as(whole) if whole is not None else \
+            _gather_whole(part if src is None else src, plan, mesh)
+    else:
+        out = _GatherParam.apply(part, src, whole, plan, mesh)
     if plan.held is not None:       # on the tensor its views are taken of
         for t in (out, out._base):
             if t is not None:
                 t.held_part = plan.held
+    if plan.span is not None:
+        dim, ranges = plan.span
+        lo, hi = ranges[mesh.split(("model",))[1]]
+        out.held_span = (dim, lo, hi, part.shape[dim] * len(ranges))
     return out
 
 

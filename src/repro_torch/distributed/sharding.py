@@ -10,36 +10,44 @@ The active mesh is a :class:`repro_torch.dist.collectives.LiveMesh` (one
 process a device).  :func:`logical` returns its tensor and
 :func:`named_sharding` describes where a tensor's parts would live; the
 partitioned compute is written out in the models, where the reference's
-constraints let GSPMD split it:
+constraints let GSPMD split it.  Two programs split it, each a
+:func:`use_mesh` with ``local_batch`` and a ``gather`` (the params'
+gathers at use):
 
-* in the mesh train step (``use_mesh(..., local_batch=True, gather=)``)
-  the ``batch`` rows: each rank holds only its rows, the loss averages
-  over the global batch, and the step reduces each gradient over the
-  ``batch`` axes;
-* in the mesh train step, over ``model``, everything the reference's
+* the mesh train step (``training.train.make_mesh_train_step``) and the
+  partitioned serving program (``launch.cells.serve_program``, the
+  reference's prefill and decode cells): each rank holds only its
+  ``batch`` rows, and over ``model`` everything the reference's
   constraints put there (``heads``, ``kv_heads``, ``mlp``, ``vocab``):
   a rank computes its attention heads (and the KV heads they read), its
   MLP columns, its channels of the RG-LRU and its vocab rows of the
-  embedding, the logits and the cross-entropy (:func:`model_part`: the
-  contiguous units ``[⌈r·n/k⌉, ⌈(r+1)·n/k⌉)`` of ``n`` on rank ``r`` of
-  ``k``).  Mamba2's mixer and the MoE router stay whole; the routed
-  experts are expert-parallel.  On one device, on a mesh without
-  ``model`` and in serving nothing is split this way;
-* in serving, the row- and column-parallel projections under
+  embedding and the logits, and, in training, the cross-entropy
+  (:func:`model_part`: the contiguous units ``[⌈r·n/k⌉, ⌈(r+1)·n/k⌉)``
+  of ``n`` on rank ``r`` of ``k``).  Mamba2's mixer, MLA's down
+  projections and the MoE router stay whole; the routed experts are
+  expert-parallel.  The train step's loss averages over the global
+  batch and it reduces each gradient over the ``batch`` axes;
+* the serving program holds its cache as the reference's placement
+  does (``kv_seq`` over ``model``: flash-decoding, each rank attending
+  over its part of the sequence; where ``model`` does not divide the
+  sequence, ``heads`` over ``model`` or whole), each cache leaf held in
+  part marked as :func:`held_part` says (:func:`held_range`);
+* the serve scheduler, on a mesh with a ``model`` axis but no
+  ``gather``, splits only the row- and column-parallel projections under
   ``tp_psum`` and the expert-parallel MoE, as the reference's
-  ``shard_map`` branches.
+  ``shard_map`` branches; on one device nothing is split.
 
 Model code marks each weight it cuts with :func:`split_param`, and the
-step reads those marks from a forward on the meta device
+programs read those marks from a forward on the meta device
 (:func:`recording_splits`), so the rule lives where the cut is made.
 
-The train state's placement is the reference's: :func:`placements`
+The params' placement is the reference's: :func:`placements`
 (``_divisible_sharding``: a logical axis is kept only where its mesh
-axes divide the dim) of ``state_axes``, a rank holding its part of each
-leaf (:func:`part_of`).  The mesh step gathers the parts at use (the
+axes divide the dim) of the param axes, a rank holding its part of each
+leaf (:func:`part_of`).  Both programs gather the parts at use (the
 ``gather`` a :func:`use_mesh` carries, which ``models.common`` calls
-inside each layer's body); a weight whose ``model`` part is the range
-compute consumes (the split divides the units evenly) stays that part
+for each layer); a weight whose ``model`` part is the range compute
+consumes (the split divides the units evenly) stays that part
 (:func:`held_part`, :func:`whole_dim`); any other cut weight is gathered
 whole and sliced.
 """
@@ -170,8 +178,8 @@ def recording_splits():
     """Record, on this thread, every tensor model code cuts to this
     rank's part with :func:`split_param`: (its root tensor, the param
     leaf a layer's view was taken from; the dim cut, counted from the
-    end; whether the range is the rank's equal part).  Yields the
-    list."""
+    end; whether the range is the rank's equal part; the range ``(lo,
+    hi)``).  Yields the list."""
     prev = getattr(_local, "splits", None)
     _local.splits = []
     try:
@@ -194,13 +202,29 @@ def held_part(w) -> Optional[Tuple[int, int]]:
         else getattr(w._base, "held_part", None)
 
 
+def held_span(w) -> Optional[Tuple[int, int, int, int]]:
+    """(the dim counted from the end, lo, hi, the whole dim's size) where
+    ``w`` (or the tensor it is a view of) is already the range ``[lo,
+    hi)`` of a weight's dim that compute consumes, gathered from each
+    rank's equal part (the serving program's ranges that are no equal
+    part: ``dist.collectives.gather_span``).  None otherwise."""
+    span = getattr(w, "held_span", None)
+    return span if span is not None or w._base is None \
+        else getattr(w._base, "held_span", None)
+
+
 def whole_dim(w, dim: int) -> int:
     """The size of ``w``'s whole along ``dim``: ``w.shape[dim]``, times
-    the parts where ``w`` holds only its ``model`` part along it."""
+    the parts where ``w`` holds only its ``model`` part along it, or the
+    whole dim's where it holds a range of it (:func:`held_span`)."""
     held = held_part(w)
+    neg = dim - w.ndim if dim >= 0 else dim
     n = w.shape[dim]
-    if held is not None and held[0] == (dim - w.ndim if dim >= 0 else dim):
+    if held is not None and held[0] == neg:
         n *= held[1]
+    span = held_span(w)
+    if span is not None and span[0] == neg:
+        n = span[3]
     return n
 
 
@@ -247,15 +271,43 @@ def equal_part(n: int, k: int, i: int) -> Part:
 
 def model_split():
     """(the mesh, parts, this rank's part) of the ``model`` axis where
-    compute is partitioned over it: in the mesh train step (a
-    :func:`use_mesh` with ``local_batch`` and a ``gather``) on a mesh
-    whose ``model`` axis splits; else None."""
+    compute is partitioned over it: in the mesh train step or the
+    partitioned serving program (a :func:`use_mesh` with ``local_batch``
+    and a ``gather``) on a mesh whose ``model`` axis splits; else
+    None."""
     mesh = current_mesh()
     if mesh is None or not getattr(_local, "local_batch", False) or \
             getattr(_local, "gather", None) is None:
         return None
     k, i = mesh.split(("model",))
     return None if k == 1 else (mesh, k, i)
+
+
+def held_range(t, dim: int) -> Optional[Part]:
+    """This rank's range of ``t``'s dim ``dim`` where ``t`` (or the
+    tensor it is a view of) holds only its ``model`` part along it
+    (:func:`held_part`) and compute is split over ``model``: the equal
+    part of the whole dim (:func:`whole_dim`).  None where ``t`` is whole
+    along ``dim``."""
+    held = held_part(t)
+    split = model_split()
+    if held is None or split is None or \
+            held[0] != (dim - t.ndim if dim >= 0 else dim):
+        return None
+    return equal_part(whole_dim(t, dim), split[1], split[2])
+
+
+def kv_ranges(n_heads: int, n_kv: int, k: int) -> List[Tuple[int, int]]:
+    """The range of KV heads each of ``k`` ranks reads: those of its
+    query heads (:func:`unit_range` of ``n_heads``), ``n_heads //
+    n_kv`` query heads to a KV head.  Two ranks' ranges overlap where a
+    KV head's query heads fall on both."""
+    g = n_heads // n_kv
+    out = []
+    for r in range(k):
+        lo, hi = unit_range(n_heads, k, r)
+        out.append((lo // g, -(-hi // g)))
+    return out
 
 
 def psum_parts(tp_psum: bool, dims) -> Optional[list]:
@@ -297,7 +349,10 @@ def split_param(w, dim: int, part: Part):
     neg = dim - w.ndim if dim >= 0 else dim
     splits = getattr(_local, "splits", None)
     if splits is not None:
-        splits.append((_root(w), neg, part.even))
+        splits.append((_root(w), neg, part.even, (part.lo, part.hi)))
+    span = held_span(w)
+    if span is not None and span[:3] == (neg, part.lo, part.hi):
+        return w
     held = held_part(w)
     if held is not None and held == (neg, part.k):
         if not part.even:

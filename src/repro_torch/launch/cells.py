@@ -16,14 +16,23 @@ parameter, cache or batch tensor is ever allocated, and counts its ops
   its compute split over ``model`` where the reference's constraints
   split it (the rank's heads, MLP columns and vocab rows:
   ``distributed.sharding.model_part``);
-* **prefill** and **decode**: ``Model.prefill`` and
-  ``Model.decode_step`` on the rank's rows under ``use_mesh``, the cache
-  placed as mesh serving places it (``serve/slots.py``: slots over the
-  ``batch`` axes, ``kv_seq`` over ``model``; a decode step gathers the
-  sequence whole and keeps its part after it, a prefill fills a whole
-  cache of its rows and keeps its part).  A global batch that the
-  ``batch`` axes do not divide (long_500k's one row) is whole on every
-  rank, as ``_cache_sharding`` keeps it.
+* **prefill** and **decode**: :func:`serve_program`'s steps, the
+  counterpart of the reference's prefill and decode branches of
+  ``lower_cell``, which real tensors run too (tests, ``chip_smoke.py``).
+  A rank holds its part of the params, placed as the reference places
+  them (``fsdp`` over ``data``; ``heads``, ``kv_heads``, ``mlp``,
+  ``vocab`` over ``model``) and gathered at use, layer by layer, as the
+  train step gathers them; its rows of the batch (``batch`` over
+  ``pod``, ``data`` where they divide it; long_500k's one row is whole on
+  every rank); and its part of the cache, placed by ``cache_axes`` under
+  :func:`divisible_placement` (``kv_seq`` over ``model``, the recurrent
+  states' ``mlp`` channels over ``model``).  The models split compute
+  over ``model`` as in the train step, and a decode step attends over
+  the rank's part of the sequence in the flash-decoding form
+  (``models.common.decode_attention_jnp``).  A step returns the rank's
+  vocab part of the logits of its rows, as the reference's
+  ``logical(y, ..., "vocab")`` leaves them
+  (:meth:`ServeProgram.gather_logits` makes them whole).
 
 A cell is traced at a few depths (:func:`depth_points`) and weighed to
 its own (:func:`repro_torch.launch.op_analysis.weigh`).
@@ -31,16 +40,14 @@ its own (:func:`repro_torch.launch.op_analysis.weigh`).
 The record (:func:`analyze`) has the reference's keys where their
 meaning carries over, per rank: "per device" is this rank's measured
 program, not the global count over the chips, so ``useful_flops_ratio``
-shows the compute a rank repeats: in a train cell only what the
-reference's constraints leave whole on ``model`` (MLA's down
-projections, the MoE router, mamba2's mixer, a KV head shared by two
-ranks' heads), and rank 0's range being the largest (⌈n/k⌉ units); a
-serving cell computes every head on every ``model`` rank.  :func:`divisible_placement`
-and :func:`placements` (``distributed.sharding``) are the reference's
-placement rules: the train state a rank holds follows them, so a train
-cell's ``argument_size_in_bytes`` equals ``argument_size_if_placed``,
-the arguments' bytes under them, which serving cells (params whole on
-every rank) do not reach.
+shows the compute a rank repeats: only what the reference's constraints
+leave whole on ``model`` (MLA's down projections, the MoE router,
+mamba2's mixer, a KV head shared by two ranks' heads, a dim of fewer
+units than ``model`` has ranks), and rank 0's range being the largest
+(⌈n/k⌉ units).  :func:`divisible_placement` and :func:`placements`
+(``distributed.sharding``) are the reference's placement rules: what a
+rank holds follows them in every cell, so ``argument_size_in_bytes``
+equals ``argument_size_if_placed``, the arguments' bytes under them.
 """
 
 from __future__ import annotations
@@ -255,50 +262,226 @@ def _train_rows(shape, n: int, live) -> int:
     return hi - lo
 
 
-def _serve_slots(model, shape, live, rules, device):
-    """Serving's slot manager of the cell: ``global_batch`` slots of
-    ``seq_len`` rows, placed on the mesh as the scheduler places them."""
-    from ..serve.slots import CachePlacement, SlotManager
-    placement = None
-    if live is not None:
-        names = set(live.spec.names)
-        rule = lambda name: tuple(a for a in _rule_axes(rules, name)
-                                  if a in names)
-        placement = CachePlacement(live, rule("batch"), rule("kv_seq"))
-    return SlotManager(model, shape.global_batch, shape.seq_len, device,
-                       placement)
+class ServeProgram:
+    """One rank's serving program of ``cfg`` on a mesh (module
+    docstring), or one device's (``mesh`` None or of one device): what
+    the rank holds and the two steps it runs.
+
+    * :meth:`shard_params` / :meth:`init_params`: the rank's part of the
+      params (``training.train.shard_state``'s placement, ``layout``);
+    * :meth:`init_cache`: the rank's part of a cache of ``global_batch``
+      rows and ``max_len`` positions, zeros, each leaf cut over ``model``
+      marked ``held_part`` (``sharding.held_range``);
+    * :meth:`rows` / :meth:`local_batch`: the rank's rows of the global
+      batch, which every step takes;
+    * :meth:`prefill` and :meth:`decode`: ``Model.prefill`` and
+      ``Model.decode_step`` under ``use_mesh(live, rules,
+      local_batch=True, gather=)`` with no autograd, the params gathered
+      at use (``training.train._Gathers``); each returns (the rank's
+      vocab part of its rows' logits, the cache, written in place);
+    * :meth:`gather_logits` and :meth:`gather_cache`: the whole of each,
+      on every rank (every rank calls them together).
+
+    Every rank of the group builds the program and calls its steps in
+    the same order."""
+
+    def __init__(self, cfg: ArchConfig, mesh=None, rules=None,
+                 device="cuda") -> None:
+        self.cfg, self.model = cfg, get_model(cfg)
+        self.device = torch.device(device)
+        self.live = _live(mesh, self.device)
+        self.rules = rules
+        self.layout = None
+        self._plans = None
+        if self.live is not None:
+            from ..training.train import StateLayout
+            with shd.use_mesh(self.live, rules):
+                self.layout = StateLayout(self.model, self.live)
+
+    # -- what the rank holds --------------------------------------------
+    def param_shapes(self) -> Dict[str, Any]:
+        """The rank's params as meta tensors (its parts' shapes)."""
+        from ..models.common import tree_unflatten
+        whole = self.model.init(0, "meta")
+        if self.layout is None:
+            return whole
+        flat = tree_flatten(whole)
+        return tree_unflatten([p for p, _ in flat], [
+            torch.empty(self.layout.shapes[p], dtype=t.dtype, device="meta")
+            for p, t in flat])
+
+    def shard_params(self, params):
+        """The rank's part of whole ``params`` (copies; the whole may be
+        freed), or ``params`` on one device."""
+        if self.layout is None:
+            return params
+        from ..training.train import shard_state
+        return shard_state(self.model, params, self.live)
+
+    def init_params(self, seed: int = 0):
+        """The rank's part of the params drawn from ``seed`` on the
+        program's device (drawn whole, then cut)."""
+        return self.shard_params(self.model.init(seed, self.device))
+
+    def cache_specs(self, global_batch: int, max_len: int
+                    ) -> Dict[str, tuple]:
+        """Each cache leaf's partition spec on the mesh: ``cache_axes``
+        under :func:`divisible_placement`, as the reference's
+        ``lower_cell`` places the cache."""
+        whole = self.model.init_cache(global_batch, max_len, "meta")
+        axes = self.model.cache_axes()
+        with shd.use_mesh(self.live, self.rules):
+            return {k: divisible_placement(self.live, tuple(v.shape),
+                                           axes[k])
+                    for k, v in whole.items()}
+
+    def init_cache(self, global_batch: int, max_len: int, device=None
+                   ) -> Dict[str, torch.Tensor]:
+        """The rank's part of a zero cache of ``global_batch`` rows and
+        ``max_len`` positions on ``device`` (default the program's); a
+        leaf cut over ``model`` carries ``held_part``."""
+        device = self.device if device is None else device
+        whole = self.model.init_cache(global_batch, max_len, "meta")
+        if self.live is None:
+            return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                    for k, v in whole.items()}
+        k_model = self.live.split(("model",))[0]
+        out = {}
+        for key, spec in self.cache_specs(global_batch, max_len).items():
+            leaf = whole[key]
+            cuts = shd.spec_cuts(self.live, spec)
+            t = torch.zeros(shd.part_shape(self.live, tuple(leaf.shape),
+                                           cuts),
+                            dtype=leaf.dtype, device=device)
+            for dim, axes in cuts:
+                if axes == ("model",):
+                    t.held_part = (dim - t.ndim, k_model)
+            out[key] = t
+        return out
+
+    def rows(self, global_batch: int) -> Tuple[int, int]:
+        """The rank's ``[lo, hi)`` of the global batch's rows: its part
+        over the ``batch`` axes where they divide the rows, else all of
+        them (the reference's ``_batch_sharding``)."""
+        if self.live is None:
+            return 0, global_batch
+        k, i = self.live.split(shd.BATCH_AXES)
+        if global_batch % k:
+            return 0, global_batch
+        n = global_batch // k
+        return i * n, (i + 1) * n
+
+    def local_batch(self, batch) -> Dict[str, Any]:
+        """The rank's rows of a global ``batch`` (rows first)."""
+        out = {}
+        for key, v in batch.items():
+            lo, hi = self.rows(v.shape[0])
+            out[key] = v[lo:hi]
+        return out
+
+    # -- the steps --------------------------------------------------------
+    @property
+    def plans(self):
+        """The params' gathers (``training.train.param_plans``), read
+        from the serving forward's cuts on the meta device."""
+        if self._plans is None:
+            from ..training.train import param_plans
+            with shd.use_mesh(self.live, self.rules):
+                self._plans = param_plans(self.model, self.live,
+                                          self.layout, probe=_serve_probe,
+                                          spans=True)
+        return self._plans
+
+    def _run(self, fn, params):
+        if self.live is None:
+            with torch.no_grad(), shd.use_mesh(None, self.rules):
+                return fn(params)
+        from ..training.train import TrainConfig, _Gathers
+        from ..models.common import tree_unflatten
+        self.layout.check(params)
+        plans = self.plans[0]
+        with torch.no_grad():
+            gather = _Gathers(plans, self.layout.stacked, params,
+                              TrainConfig(), self.live)
+            flat = tree_flatten(params)
+            paths = [p for p, _ in flat]
+            fed = tree_unflatten(paths, gather.feed(paths,
+                                                    [t for _, t in flat]))
+            with shd.use_mesh(self.live, self.rules, local_batch=True,
+                              gather=gather):
+                return fn(fed)
+
+    def prefill(self, params, batch, cache):
+        """The rank's prefill of its rows ``batch`` into ``cache``: (the
+        rank's vocab part of the last position's logits, the cache)."""
+        return self._run(lambda p: self.model.prefill(p, batch, cache),
+                         params)
+
+    def decode(self, params, cache, tokens):
+        """One decode step of the rank's rows ``tokens`` (B, 1): (the
+        rank's vocab part of the logits, the cache)."""
+        return self._run(lambda p: self.model.decode_step(p, cache, tokens),
+                         params)
+
+    # -- whole, on every rank ---------------------------------------------
+    def gather_logits(self, logits, global_batch: int) -> torch.Tensor:
+        """The logits of every row and every vocab entry from each
+        rank's part (the vocab ranges ``sharding.unit_range`` gives,
+        then the rows)."""
+        if self.live is None:
+            return logits
+        from ..dist.collectives import all_gather, gather_part
+        k = self.live.split(("model",))[0]
+        if k > 1 and self.cfg.vocab >= k:
+            logits = gather_part(logits, ("model",), self.live, -1,
+                                 self.cfg.vocab)
+        lo, hi = self.rows(global_batch)
+        if hi - lo < global_batch:
+            logits = all_gather(logits, shd.BATCH_AXES, self.live, 0)
+        return logits
+
+    def gather_cache(self, cache, global_batch: int, max_len: int
+                     ) -> Dict[str, torch.Tensor]:
+        """The whole cache from each rank's part."""
+        if self.live is None:
+            return cache
+        from ..dist.collectives import all_gather
+        out = {}
+        for key, spec in self.cache_specs(global_batch, max_len).items():
+            t = cache[key]
+            for dim, axes in shd.spec_cuts(self.live, spec):
+                t = all_gather(t, axes, self.live, dim)
+            out[key] = t
+        return out
 
 
-def _rule_axes(rules, name) -> Tuple[str, ...]:
-    from ..dist.propagate import merged_rules
-    return tuple(merged_rules(rules).get(name, ()))
+def _serve_probe(model, params) -> None:
+    """The serving forward whose cuts the program's gathers follow
+    (``training.train.compute_cuts``): a prefill of one row and a decode
+    step after it, on the meta device."""
+    from ..training.train import _PROBE_SEQ
+    seq = _PROBE_SEQ + (model.cfg.num_image_tokens or 0)
+    batch = input_specs(model.cfg, ShapeSpec("probe", seq, 1, "prefill"))
+    cache = model.init_cache(1, seq + 1, "meta")
+    model.prefill(params, batch, cache)
+    model.decode_step(params, cache,
+                      torch.zeros((1, 1), dtype=torch.int32, device="meta"))
 
 
-def _serve_fn(model, sm, kind: str, device):
-    """The rank's prefill or decode step over views ``rows`` of its
-    cache, written in place; returns (logits, rows)."""
-    from ..models.common import step_rows
-
-    def decode(params, tokens, rows):
-        with torch.inference_mode(), step_rows(sm.slots):
-            view = sm.gathered(rows)
-            logits = model.decode_step(params, view, tokens)[0]
-            sm.keep(view, rows)
-        return logits, rows
-
-    def prefill(params, batch, rows):
-        with torch.inference_mode():
-            if not sm.seq_axes:
-                return model.prefill(params, batch, rows)[0], rows
-            whole = model.init_cache(sm.local_slots, sm.max_len, device)
-            logits = model.prefill(params, batch, whole)[0]
-            for k, leaf in rows.items():
-                if k not in sm.seq_axes:
-                    leaf.copy_(whole[k])
-            sm.keep(whole, rows)
-        return logits, rows
-
-    return decode if kind == "decode" else prefill
+def serve_program(cfg: ArchConfig, mesh=None, rules=None,
+                  device="cuda") -> ServeProgram:
+    """The rank's serving program of ``cfg`` on ``mesh`` (a ``LiveMesh``,
+    a spec bound to the default process group, or None: one device):
+    the counterpart of the prefill and decode branches of the
+    reference's ``lower_cell`` (:class:`ServeProgram`).  Tensors live on
+    ``device``: ``"cuda"`` without a card raises rather than run on the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the serving program is on 'cuda' but torch.cuda.is_available() "
+            "is False; pass device='cpu' to serve on the CPU")
+    return ServeProgram(cfg, mesh, rules, device)
 
 
 def _mesh_context(live, rules):
@@ -334,18 +517,27 @@ def trace_program(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
                     mesh=live, donate=True)
             rows = _train_rows(shape, tc.microbatches, live) * n
             args = (state, _fake(_batch(cfg, shape, rows), device))
+            run = lambda *a: _in_context(fn, live, rules, *a)
         else:
-            params = _fake(model.init(0, "meta"), device)
-            sm = _serve_slots(model, shape, live, rules, device)
-            batch = _fake(_batch(cfg, shape, sm.local_slots), device)
-            fn = _serve_fn(model, sm, shape.kind, device)
-            args = (params, batch if shape.kind == "prefill"
-                    else batch["tokens"], sm.rows(sm.local_slots))
-
-        def run(*a):
-            with _mesh_context(live, rules):
-                return fn(*a)
+            prog = ServeProgram(cfg, live, rules, device)
+            if live is not None:
+                prog.plans      # the meta probe, before the count starts
+            params = _fake(prog.param_shapes(), device)
+            cache = prog.init_cache(shape.global_batch, shape.seq_len)
+            lo, hi = prog.rows(shape.global_batch)
+            batch = _fake(_batch(cfg, shape, hi - lo), device)
+            if shape.kind == "prefill":
+                run = lambda p, b, c: prog.prefill(p, b, c)
+                args = (params, batch, cache)
+            else:
+                run = lambda p, t, c: prog.decode(p, c, t)
+                args = (params, batch["tokens"], cache)
         return oa.analyze_trace(run, *args)[1]
+
+
+def _in_context(fn, live, rules, *args):
+    with _mesh_context(live, rules):
+        return fn(*args)
 
 
 @dataclasses.dataclass
@@ -392,11 +584,12 @@ def _arguments(cfg, shape, live, tc, rules) -> Tuple[int, int, int]:
             whole, whole_axes = init_state(model, 0, "meta"), \
                 state_axes(model)
         else:
-            sm = _serve_slots(model, shape, live, rules, "meta")
-            params = model.init(0, "meta")
-            held = {"params": params, "cache": sm.cache}
-            rows = sm.local_slots
-            whole = {"params": params, "cache": model.init_cache(
+            prog = ServeProgram(cfg, live, rules, "meta")
+            cache = prog.init_cache(shape.global_batch, shape.seq_len)
+            held = {"params": prog.param_shapes(), "cache": cache}
+            lo, hi = prog.rows(shape.global_batch)
+            rows = hi - lo
+            whole = {"params": model.init(0, "meta"), "cache": model.init_cache(
                 shape.global_batch, shape.seq_len, "meta")}
             whole_axes = {"params": model.param_axes(),
                           "cache": model.cache_axes()}
@@ -405,7 +598,7 @@ def _arguments(cfg, shape, live, tc, rules) -> Tuple[int, int, int]:
         if shape.kind == "decode":
             batch, whole_batch = ({"tokens": b["tokens"]}
                                   for b in (batch, whole_batch))
-        donated = _nbytes(held if shape.kind == "train" else sm.cache)
+        donated = _nbytes(held if shape.kind == "train" else cache)
         args = _nbytes(held) + _nbytes(batch)
         if live is None:
             return args, donated, args

@@ -109,7 +109,7 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def layer_views(stacked, n: int) -> List[Any]:
+def layer_views(stacked, n: int):
     """The ``n`` layers of an ``L``-stacked param (or cache) tree, in
     order, each a tree of views.  A leaf that autograd records is split
     by one ``torch.unbind``, whose backward stacks the layers' gradients
@@ -118,26 +118,62 @@ def layer_views(stacked, n: int) -> List[Any]:
     written in place, which unbind's views refuse under autograd.  In the
     mesh train step a leaf the rank holds in part gives its layers'
     parts, which :func:`maybe_remat` gathers inside each layer's body
-    (``distributed.sharding.current_gather``)."""
+    (``distributed.sharding.current_gather``); in the partitioned serving
+    program (no autograd) layer ``i`` is gathered when it is indexed, so
+    one layer's gathered params live at a time."""
     from ..distributed.sharding import current_gather
     gather = current_gather()
+    owned = []
 
     def split(t):
         if isinstance(t, dict):
             return {k: split(v) for k, v in t.items()}
         if gather is not None and gather.owns(t):
+            owned.append(t)
             return gather.layers(t, n)
         if torch.is_grad_enabled() and t.requires_grad:
             return torch.unbind(t, 0)
         return [t[i] for i in range(n)]
 
-    def pick(parts, i):
-        if isinstance(parts, dict):
-            return {k: pick(v, i) for k, v in parts.items()}
-        return parts[i]
-
     parts = split(stacked)
-    return [pick(parts, i) for i in range(n)]
+    if owned and not torch.is_grad_enabled():
+        return _LayersAtUse(parts, n, gather)
+    return [_pick(parts, i) for i in range(n)]
+
+
+def _pick(parts, i):
+    if isinstance(parts, dict):
+        return {k: _pick(v, i) for k, v in parts.items()}
+    return parts[i]
+
+
+class _LayersAtUse:
+    """The layers of :func:`layer_views` where no autograd records (the
+    partitioned serving program): layer ``i``'s parts gathered whole when
+    it is indexed.  A layer's tree holds its params until the next layer
+    is indexed, which empties it, so the layer loop's variable does not
+    keep one layer's gathered params alive while the next is gathered."""
+
+    def __init__(self, parts, n: int, gather) -> None:
+        self.parts, self.n, self.gather = parts, n, gather
+        self._last = None
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        _clear(self._last)
+        self._last = self.gather.at_use(_pick(self.parts, i))
+        return self._last
+
+
+def _clear(tree) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _clear(v)
+        tree.clear()
 
 
 def maybe_remat(cfg, fn):
@@ -427,12 +463,32 @@ def decode_attention_jnp(
     scale: Optional[float] = None,
     softcap: float = 0.0,
     compute_dtype: str = "float32",
+    heads=None,
+    seq=None,
 ) -> torch.Tensor:
     """Single-token attention against a KV cache: the reference's
     ``decode_attention_jnp`` (its name kept), one softmax over the whole
     cache.  The products run one batch row at a time, so the cache is
     read in place (a (B, Hkv) batch of it is not a strided matrix
-    batch) and only one row's copy in the compute dtype exists at once."""
+    batch) and only one row's copy in the compute dtype exists at once.
+
+    In the partitioned serving program ``heads`` is this rank's range of
+    the query heads (``sharding.Part``; q holds those heads, and so does
+    the output) and ``seq`` the range of positions the rank's cache part
+    holds (``sharding.held_range``; None: the whole sequence).  With
+    ``seq`` it is the reference's flash-decoding layout, which GSPMD
+    makes of the cache's ``kv_seq`` constraint: q gathered whole over
+    ``model``, the rank's part scored, the softmax's max and its f32 sum
+    reduced over ``model``, and the f32 partial ``p·v`` summed over it
+    (:func:`_flash_decode`).  Without, the rank's heads attend the whole
+    cache, or the KV heads it holds of it (``kv_heads`` over ``model``),
+    with no collective."""
+    if seq is not None:
+        return _flash_decode(q, k_cache, v_cache, lengths, heads, seq,
+                             _window(window, window_arr), scale, softcap,
+                             compute_dtype)
+    if heads is not None:
+        k_cache, v_cache = _kv_of(heads, k_cache, v_cache)
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
@@ -440,23 +496,104 @@ def decode_attention_jnp(
     w = _window(window, window_arr)
     cdt = _cdt(compute_dtype)
     qg = (q.reshape(b, hkv, g, d).to(cdt) * rounded(scale, cdt)).float()
-    # K as (Hkv, S, D) times q as (Hkv, D, G): S is the long side of the
-    # product and each key row is read whole.
-    scores = torch.stack([
-        torch.bmm(k_cache[i].to(cdt).float().permute(1, 0, 2),
-                  qg[i].transpose(1, 2)).transpose(1, 2)
-        for i in range(b)])                               # (B, Hkv, G, S)
-    if softcap:
-        scores = torch.tanh(scores / softcap) * softcap
-    pos = torch.arange(s, device=q.device)[None, :]
-    valid = pos < lengths[:, None]
-    if w > 0:
-        valid &= pos >= (lengths[:, None] - w)
+    scores = _scores(k_cache, qg, cdt, softcap)           # (B, Hkv, G, S)
+    valid = _valid(torch.arange(s, device=q.device)[None, :], lengths, w)
     scores = torch.where(valid[:, None, None, :], scores, float("-inf"))
     p = torch.softmax(scores, dim=-1).to(cdt).float()
     out = torch.stack([_pv(p[i], v_cache[i].to(cdt).float())
                        for i in range(b)])                # (B, Hkv, G, Dv)
     return out.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def _scores(k_cache, qg, cdt, softcap):
+    """The f32 scores (B, Hkv, G, S) of qg (B, Hkv, G, D) against each
+    row's keys.  K as (Hkv, S, D) times q as (Hkv, D, G): S is the long
+    side of the product and each key row is read whole."""
+    scores = torch.stack([
+        torch.bmm(k_cache[i].to(cdt).float().permute(1, 0, 2),
+                  qg[i].transpose(1, 2)).transpose(1, 2)
+        for i in range(qg.shape[0])])
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    return scores
+
+
+def _valid(pos, lengths, w):
+    """(B, S) whether the positions ``pos`` (1, S) are context: before
+    ``lengths`` and, for a sliding window ``w``, within it."""
+    valid = pos < lengths[:, None]
+    if w > 0:
+        valid &= pos >= (lengths[:, None] - w)
+    return valid
+
+
+def _kv_of(heads, k, v):
+    """The KV heads (dim 2) of ``k`` and ``v`` that the query heads
+    ``heads`` read, laid out as :func:`grouped_kv` lays them: k and v as
+    they are where they hold only this rank's KV heads already (the
+    cache's ``kv_heads`` over ``model``), else those of every KV head."""
+    from ..distributed.sharding import held_range, kv_ranges
+    if held_range(k, 2) is not None:
+        return k, v
+    hkv = k.shape[2]
+    lo, hi = kv_ranges(heads.n, hkv, heads.k)[heads.i]
+    return grouped_kv(heads, heads.n // hkv, k.narrow(2, lo, hi - lo),
+                      v.narrow(2, lo, hi - lo))
+
+
+def grouped_kv(heads, g: int, k, v):
+    """k and v (B, S, Hkv_local, D), the KV heads the query heads
+    ``heads`` (a ``sharding.Part``, ``g`` to a KV head) read, laid out
+    for them: as they are where the query heads fall into whole groups
+    of their KV heads, else one KV head per query head (the one it
+    reads)."""
+    kv_lo = heads.lo // g
+    idx = [(heads.lo + j) // g - kv_lo for j in range(heads.size)]
+    n_kv = k.shape[2]
+    per = heads.size // n_kv
+    if heads.size % n_kv == 0 and idx == [j // per
+                                          for j in range(heads.size)]:
+        return k, v
+    from ..dist.collectives import take
+    return take(k, 2, idx), take(v, 2, idx)
+
+
+def _flash_decode(q, k_cache, v_cache, lengths, heads, seq, w, scale,
+                  softcap, compute_dtype):
+    """:func:`decode_attention_jnp` over the rank's part ``seq`` of the
+    cache's positions (every KV head), as the reference's GSPMD program
+    partitions it: q (this rank's ``heads``, or every head) gathered
+    over ``model``, the part's scores masked at their absolute
+    positions, the max and the f32 sum of ``exp`` reduced over
+    ``model``, p normalised here and rounded to the compute dtype, the
+    f32 ``p·v`` partials summed over ``model``; the rank's heads of the
+    result, in q's dtype."""
+    from ..dist.collectives import all_max, all_reduce, gather_part
+    from ..distributed.sharding import current_mesh
+    mesh, ax = current_mesh(), ("model",)
+    if heads is not None:
+        q = gather_part(q, ax, mesh, 1, heads.n)
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    cdt = _cdt(compute_dtype)
+    qg = (q.reshape(b, hkv, g, d).to(cdt) * rounded(scale, cdt)).float()
+    scores = _scores(k_cache, qg, cdt, softcap)           # (B, Hkv, G, S)
+    pos = seq.lo + torch.arange(s, device=q.device)[None, :]
+    valid = _valid(pos, lengths, w)[:, None, None, :]
+    scores = torch.where(valid, scores, float("-inf"))
+    m = all_max(scores.amax(dim=-1, keepdim=True), ax, mesh)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.where(valid, torch.exp(scores - m), 0.0)
+    total = all_reduce(e.sum(dim=-1, keepdim=True), ax, mesh)
+    p = (e / total).to(cdt).float()
+    out = torch.stack([_pv(p[i], v_cache[i].to(cdt).float())
+                       for i in range(b)])                # (B, Hkv, G, Dv)
+    out = all_reduce(out, ax, mesh).reshape(b, h, v_cache.shape[-1])
+    if heads is not None:
+        out = out.narrow(1, heads.lo, heads.size)
+    return out.to(q.dtype)
 
 
 #: Keys per part of a long p.V product (see :func:`_pv`).
@@ -486,21 +623,142 @@ def ring_insert(cache: torch.Tensor, new: torch.Tensor,
     """Write ``new`` (B, ...) into ``cache`` (B, S, ...) at slot
     ``pos % S`` per batch element, in place, and return ``cache``.  When
     S covers the whole context the slot equals the absolute position;
-    when S is a sliding window the ring overwrite is the eviction.
+    when S is a sliding window the ring overwrite is the eviction.  In
+    the partitioned serving program a cache that holds only this rank's
+    part of the positions (``sharding.held_range``) is written only on
+    the rank whose part holds the slot.
 
     mode="where" rewrites the whole cache through a select (the
     reference's baseline: a cache-sized read and write); mode="scatter"
     writes only the row.  The values are equal."""
+    from ..distributed.sharding import held_range
     b, s = cache.shape[:2]
-    slot = torch.remainder(pos.long(), s)
+    part = held_range(cache, 1)
+    lo, n = (0, s) if part is None else (part.lo, part.n)
+    slot = torch.remainder(pos.long(), n) - lo
     new = new.to(cache.dtype)
     if mode == "scatter":
-        cache[torch.arange(b, device=cache.device), slot] = new
+        rows = torch.arange(b, device=cache.device)
+        if part is None:
+            cache[rows, slot] = new
+            return cache
+        inside = ((slot >= 0) & (slot < s)).reshape(
+            b, *([1] * (new.ndim - 1)))
+        at = slot.clamp(0, s - 1)
+        cache[rows, at] = torch.where(inside, new, cache[rows, at])
         return cache
     oh = torch.arange(s, device=cache.device)[None, :] == slot[:, None]
     oh = oh.reshape(b, s, *([1] * (cache.ndim - 2)))
     torch.where(oh, new[:, None], cache, out=cache)
     return cache
+
+
+def whole_len(cache) -> int:
+    """The positions of a layer's cache (B, S, ...): S, or the whole
+    sequence's where the cache holds this rank's part of it."""
+    from ..distributed.sharding import whole_dim
+    return whole_dim(cache, 1)
+
+
+def cache_seq(cache):
+    """This rank's range of a layer's cache positions (B, S, ...) where
+    it holds only that part (``kv_seq`` over ``model``), else None."""
+    from ..distributed.sharding import held_range
+    return held_range(cache, 1)
+
+
+def kv_insert(cache, new, pos, mode, heads=None):
+    """:func:`ring_insert` of one token's K or V (B, Hkv_local, D) into a
+    layer's cache.  In the partitioned serving program ``new`` holds the
+    KV heads of this rank's query heads ``heads`` (a ``sharding.Part`` of
+    query heads; None: every KV head): they are gathered over
+    ``model`` first unless the cache holds only those (``kv_heads`` over
+    ``model``)."""
+    if heads is not None:
+        from ..distributed.sharding import held_range
+        if held_range(cache, 2) is None:
+            new = gather_heads(new, heads, cache.shape[2], 1)
+    return ring_insert(cache, new, pos, mode)
+
+
+def gather_heads(t, heads, n_kv: int, dim: int):
+    """Every one of ``n_kv`` KV heads along ``dim`` from each rank's
+    (``sharding.kv_ranges`` of the query heads' split ``heads``), this
+    rank's ``t``."""
+    from ..dist.collectives import gather_units
+    from ..distributed.sharding import current_mesh, kv_ranges
+    return gather_units(t, ("model",), current_mesh(), dim,
+                        kv_ranges(heads.n, n_kv, heads.k), n_kv)
+
+
+def kv_fill(dst, t, fit, heads=None):
+    """Fill a layer's cache ``dst`` (B, S, Hkv, D) from a prompt's K or V
+    ``t`` (B, s, Hkv_local, D) with ``fit(dst, t)`` (the family's rule
+    for a prompt shorter or longer than the cache).  In the partitioned
+    serving program ``t`` holds the KV heads of this rank's query heads
+    ``heads`` (None: every KV head) and ``dst`` what the cache's
+    placement gives the rank: its part of the positions (``kv_seq``),
+    filled from every rank's heads by an all-to-all
+    (``collectives.exchange``), its KV heads (``kv_heads``), or the whole,
+    the heads gathered over ``model``."""
+    from ..distributed.sharding import held_range
+    seq = held_range(dst, 1)
+    if held_range(dst, 2) is not None or (seq is None and heads is None):
+        fit(dst, t)
+        return dst
+    whole = t.new_empty((t.shape[0], seq.n if seq else dst.shape[1],
+                         *t.shape[2:]))
+    fit(whole, t)
+    if seq is None:
+        dst.copy_(gather_heads(whole, heads, dst.shape[2], 2))
+    elif heads is None:
+        dst.copy_(whole.narrow(1, seq.lo, seq.size))
+    else:
+        from ..dist.collectives import exchange
+        from ..distributed.sharding import current_mesh, kv_ranges
+        dst.copy_(exchange(whole, ("model",), current_mesh(), 1, 2,
+                           kv_ranges(heads.n, dst.shape[2], heads.k),
+                           dst.shape[2]))
+    return dst
+
+
+def read_channels(state, part=None):
+    """A recurrent state ``state`` (its channels last) for a computation
+    over the channels ``part`` (a ``sharding.Part``; None: every
+    channel): ``state`` as it is where it holds those already, its part
+    of a whole state, or the whole gathered from each rank's equal part
+    (the placement's ``mlp`` over ``model``) where the computation needs
+    every channel."""
+    from ..distributed.sharding import held_range
+    held = held_range(state, -1)
+    if held is None:
+        return state if part is None else state.narrow(-1, part.lo,
+                                                       part.size)
+    if part is not None:
+        return state
+    from ..dist.collectives import all_gather
+    from ..distributed.sharding import current_mesh
+    return all_gather(state, ("model",), current_mesh(), -1)
+
+
+def store_channels(dst, value, part=None):
+    """Write ``value``, the channels ``part`` of a recurrent state (None:
+    every channel), into the cache view ``dst``: its equal part where
+    ``dst`` holds only that, else the whole, gathered from each rank's
+    range over ``model``."""
+    from ..distributed.sharding import held_range
+    held = held_range(dst, -1)
+    if held is not None:
+        if part is None:
+            value = value.narrow(-1, held.lo, held.size)
+        elif part != held:
+            raise ValueError(f"a state held as {held} cannot take {part}")
+    elif part is not None:
+        from ..dist.collectives import gather_part
+        from ..distributed.sharding import current_mesh
+        value = gather_part(value, ("model",), current_mesh(), -1, part.n)
+    dst.copy_(value)
+    return dst
 
 
 # ---------------------------------------------------------------------------

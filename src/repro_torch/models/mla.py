@@ -111,21 +111,29 @@ def mla_apply(p, cfg, x, positions, window):
 def mla_decode(p, cfg, x, c_cache, r_cache, lengths, window):
     """Absorbed decode: x (B,1,D); c_cache (B,S,1,kvr); r_cache
     (B,S,1,dr), both written in place; lengths (B,) tokens already
-    cached."""
+    cached.  Where compute is split over ``model`` (the partitioned
+    serving program) a rank absorbs and projects out its range of the
+    heads; the latent, computed whole on every rank, goes into the
+    rank's part of the cache, which is attended in the flash-decoding
+    form (``common.decode_attention_jnp``)."""
+    from ..distributed.sharding import model_part
     b = x.shape[0]
-    h = cfg.n_heads
+    heads = model_part(cfg.n_heads)
+    h = cfg.n_heads if heads is None else heads.size
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     dr = cfg.qk_rope_dim
     kvr = cfg.kv_lora_rank
     positions = lengths[:, None]
-    q_nope, q_rope, c_kv, k_rope = _latent(p, cfg, x, positions)
+    q_nope, q_rope, c_kv, k_rope = _latent(p, cfg, x, positions, heads)
 
     # Insert the new latent at each sequence's slot.
     C.ring_insert(c_cache, c_kv[:, 0, None, :], lengths, cfg.cache_update)
     C.ring_insert(r_cache, k_rope[:, 0], lengths, cfg.cache_update)
 
     # Absorb W_UK into q: q_abs = q_nope @ W_UK^T  -> latent space.
-    k_up = p["k_up"].float().reshape(kvr, h, dn)
+    k_up = C.column_part(p["k_up"], None if heads is None
+                         else heads.times(dn))
+    k_up = k_up.float().reshape(kvr, h, dn)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), k_up)
     q_full = torch.cat([q_abs, q_rope[:, 0].float()], dim=-1)  # (B,H,kvr+dr)
     kv_full = torch.cat([c_cache[:, :, 0], r_cache[:, :, 0]],
@@ -134,11 +142,13 @@ def mla_decode(p, cfg, x, c_cache, r_cache, lengths, window):
         q_full.to(x.dtype), kv_full[:, :, None, :],
         c_cache[:, :, 0][:, :, None, :], lengths + 1,
         window_arr=window, scale=(dn + dr) ** -0.5,
-        compute_dtype=cfg.attn_compute_dtype)                # (B,H,kvr)
+        compute_dtype=cfg.attn_compute_dtype, heads=heads,
+        seq=C.cache_seq(c_cache))                            # (B,H,kvr)
 
     # Absorb W_UV into the output projection.
-    v_up = p["v_up"].float().reshape(kvr, h, dv)
+    cols = None if heads is None else heads.times(dv)
+    v_up = C.column_part(p["v_up"], cols).float().reshape(kvr, h, dv)
     out = torch.einsum("bhr,rhd->bhd", out_lat.float(), v_up)
     out = out.reshape(b, 1, h * dv).to(x.dtype)
-    y = C.row_parallel_out(out, p["wo"], cfg.tp_psum)
+    y = C.row_parallel_out(out, p["wo"], cfg.tp_psum, cols)
     return y, (c_cache, r_cache)

@@ -156,17 +156,31 @@ def rec_apply(p, cfg, x):
 
 def rec_decode(p, cfg, x, conv_tail, h):
     """One-step recurrent update.  x (B,1,D); conv_tail (B,K-1,dr);
-    h (B,dr) f32.  Returns (out, new tail, new h)."""
-    xb = torch.matmul(x, p["wx"].to(x.dtype))
-    gate = C.gelu_tanh(torch.matmul(x, p["wy"].to(x.dtype)))
+    h (B,dr) f32.  Returns (out, new tail, new h).  Where compute is
+    split over ``model`` (the partitioned serving program) a rank runs
+    its range of the channels, as :func:`rec_apply` does: conv_tail and
+    h are then its channels (``common.read_channels``), and so are the
+    new tail and h."""
+    from ..distributed.sharding import model_part
+    part = model_part(cfg.lru_width)
+    xb, gate = C.col_parallel_in(x, (p["wx"], p["wy"]), parts=(part, part))
+    gate = C.gelu_tanh(gate)
+    conv_w, conv_b = (C.column_part(p[n], part) for n in ("conv_w", "conv_b"))
     window = torch.cat([conv_tail.to(xb.dtype), xb], dim=1)
-    xc = (torch.einsum("bkr,kr->br", window.float(), p["conv_w"].float())
-          + p["conv_b"].float())[:, None]                  # (B,1,dr)
-    i_g, log_a = _gates(p, xc)
+    xc = (torch.einsum("bkr,kr->br", window.float(), conv_w.float())
+          + conv_b.float())[:, None]                       # (B,1,dr)
+    every = xc
+    if part is not None:
+        from ..dist.collectives import gather_part
+        from ..distributed.sharding import current_mesh
+        every = gather_part(xc, ("model",), current_mesh(), -1,
+                            cfg.lru_width)
+    i_g, log_a = _gates(p, every, part)
     a, bx = _decay_input(log_a[:, 0], i_g[:, 0], xc[:, 0])
     h = a * h + bx
     y = h[:, None].to(x.dtype) * gate
-    return C.row_parallel_out(y, p["wo"]), window[:, 1:], h
+    return (C.row_parallel_out(y, p["wo"], part is not None and cfg.tp_psum,
+                               part), window[:, 1:], h)
 
 
 # ---------------------------------------------------------------------------
@@ -344,38 +358,54 @@ def _check_batch(cache, b):
                          f"the tokens have {b}")
 
 
+def _channels(cfg):
+    """This rank's range of the RG-LRU's channels where compute is split
+    over ``model``, else None."""
+    from ..distributed.sharding import model_part
+    return model_part(cfg.lru_width)
+
+
 def prefill(cfg, params, tokens, cache, patches=None):
     """Run the prompt, fill the cache (in place: the attention layers'
     last ``window`` K/V rows ring-aligned), return last-position logits
-    and the cache."""
+    and the cache.  In the partitioned serving program the recurrent
+    state holds the rank's channels where the placement cuts them
+    (``mlp`` over ``model``; ``common.store_channels``) and the
+    attention cache is filled as ``transformer.prefill`` fills it."""
     b, s = tokens.shape
     _check_batch(cache, b)
     x = _embed(cfg, params, tokens)
     positions = T._positions(s, x.device)
+    part = _channels(cfg)
+    parts = T.head_parts(cfg)
+    heads = None if parts is None else parts[0]
     for j, bp in _blocks(cfg, params):
         for r, name in enumerate(("rec0", "rec1")):
             x, (ct, h) = _rec_sub(bp[name], cfg, x)
-            cache["rec_conv"][j, r].copy_(ct)
-            cache["rec_h"][j, r].copy_(h)
+            C.store_channels(cache["rec_conv"][j, r], ct, part)
+            C.store_channels(cache["rec_h"][j, r], h, part)
         x, (k, v) = _attn_sub(bp["attn"], cfg, x, positions)
-        T._fit_into(cache["attn_k"][j], k)
-        T._fit_into(cache["attn_v"][j], v)
+        C.kv_fill(cache["attn_k"][j], k, T._fit_into, heads)
+        C.kv_fill(cache["attn_v"][j], v, T._fit_into, heads)
     for j, lp in _tail(cfg, params):
         x, (ct, h) = _rec_sub(lp, cfg, x)
-        cache["tail_conv"][j].copy_(ct)
-        cache["tail_h"][j].copy_(h)
+        C.store_channels(cache["tail_conv"][j], ct, part)
+        C.store_channels(cache["tail_h"][j], h, part)
     cache["pos"].fill_(s)
     return _head(cfg, params, x[:, -1:]), cache
 
 
 def _rec_step(p, cfg, x, conv, h):
     """One recurrent sub-block's decode step; ``conv`` and ``h`` (cache
-    views) are rewritten in place."""
+    views) are rewritten in place (their rank's channels where compute
+    is split over ``model``)."""
+    part = _channels(cfg)
     out, new_conv, new_h = rec_decode(p["mixer"], cfg,
                                       C.rms_norm(x, p["ln1"], cfg.norm_eps),
-                                      conv, h)
-    conv.copy_(new_conv)
-    h.copy_(new_h)
+                                      C.read_channels(conv, part),
+                                      C.read_channels(h, part))
+    C.store_channels(conv, new_conv, part)
+    C.store_channels(h, new_h, part)
     return _mlp_block(p, cfg, x, out)
 
 

@@ -299,7 +299,11 @@ def _check_batch(cache, b):
 
 def prefill(cfg, params, tokens, cache, patches=None):
     """Run the prompt, fill the cache (in place), return last-position
-    logits and the cache."""
+    logits and the cache.  The mixer runs whole on every ``model`` rank
+    (its ``in_proj`` packs z|x|B|C|dt in one ``mlp`` dim); where the
+    placement cuts the conv tail's channels (``mlp`` over ``model``) a
+    rank keeps its part of them (``common.store_channels``), and a
+    decode step gathers them whole first (``common.read_channels``)."""
     b, s = tokens.shape
     _check_batch(cache, b)
     x = C.embed_tokens(params["embed"], tokens, cfg.dtype)
@@ -307,7 +311,7 @@ def prefill(cfg, params, tokens, cache, patches=None):
         h, tail, final = ssm_prefill(lp["mixer"], cfg,
                                      C.rms_norm(x, lp["ln"], cfg.norm_eps))
         x = x + h
-        cache["conv"][i].copy_(tail)
+        C.store_channels(cache["conv"][i], tail)
         cache["state"][i].copy_(final)
     cache["pos"].fill_(s)
     return _head(cfg, params, x[:, -1:]), cache
@@ -321,9 +325,10 @@ def decode_step(cfg, params, cache, tokens):
     for i, lp in _layers(cfg, params):
         h, tail, state = ssm_decode(lp["mixer"], cfg,
                                     C.rms_norm(x, lp["ln"], cfg.norm_eps),
-                                    cache["conv"][i], cache["state"][i])
+                                    C.read_channels(cache["conv"][i]),
+                                    cache["state"][i])
         x = x + h
-        cache["conv"][i].copy_(tail)
+        C.store_channels(cache["conv"][i], tail)
         cache["state"][i].copy_(state)
     cache["pos"].add_(1)
     return _head(cfg, params, x), cache

@@ -98,8 +98,9 @@ def attn_axes(cfg):
 def head_parts(cfg):
     """(this rank's query heads, the KV heads they read), as
     ``sharding.Part`` ranges of heads, where compute is split over
-    ``model`` (the mesh train step); else None.  A KV head shared by two
-    ranks' query heads is computed on both."""
+    ``model`` (the mesh train step, the partitioned serving program);
+    else None.  A KV head shared by two ranks' query heads is computed
+    on both."""
     from ..distributed.sharding import Part, model_part
     q = model_part(cfg.n_heads)
     if q is None:
@@ -108,20 +109,10 @@ def head_parts(cfg):
     return q, Part(q.lo // g, -(-q.hi // g), cfg.n_kv_heads, q.k, q.i)
 
 
-def _grouped(q_part, kv_part, g, k, v):
-    """k and v (B, S, Hkv_local, D) laid out for the rank's query heads:
-    as they are where the query heads fall into whole groups of their KV
-    heads, else one KV head per query head (the one it reads)."""
-    idx = [(q_part.lo + j) // g - kv_part.lo for j in range(q_part.size)]
-    per = q_part.size // kv_part.size
-    if q_part.size % kv_part.size == 0 and \
-            idx == [j // per for j in range(q_part.size)]:
-        return k, v
-    idx = torch.tensor(idx, device=k.device)
-    return k.index_select(2, idx), v.index_select(2, idx)
-
-
-def _qkv(p, cfg, x, positions):
+def _qkv(p, cfg, x, positions, grouped=True):
+    """q, k, v (B, S, heads, hd): where compute is split over ``model``
+    the rank's query heads and the KV heads they read, laid out for them
+    (``grouped``) or as they are (for the cache)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     parts = head_parts(cfg)
@@ -142,8 +133,8 @@ def _qkv(p, cfg, x, positions):
     if cfg.rope_theta:
         q = C.apply_rope(q, positions, cfg.rope_theta)
         k = C.apply_rope(k, positions, cfg.rope_theta)
-    if parts is not None:
-        k, v = _grouped(*parts, cfg.n_heads // cfg.n_kv_heads, k, v)
+    if parts is not None and grouped:
+        k, v = C.grouped_kv(parts[0], cfg.n_heads // cfg.n_kv_heads, k, v)
     return q, k, v
 
 
@@ -164,27 +155,42 @@ def _attend(p, cfg, q, k, v, window, q_offset=0):
 
 def attn_apply(p, cfg, x, positions, window):
     """Full-sequence attention; window is a host int (0 = global).
-    Returns (out, (k, v)) — the cache slices for this layer."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    return _attend(p, cfg, q, k, v, window), (k, v)
+    Returns (out, (k, v)) — the cache slices for this layer: where
+    compute is split over ``model``, the KV heads the rank's query heads
+    read (:func:`kv_fill` places them)."""
+    q, k, v = _qkv(p, cfg, x, positions, grouped=False)
+    parts = head_parts(cfg)
+    kg, vg = (k, v) if parts is None else C.grouped_kv(
+        parts[0], cfg.n_heads // cfg.n_kv_heads, k, v)
+    return _attend(p, cfg, q, kg, vg, window), (k, v)
 
 
 def attn_decode(p, cfg, x, k_cache, v_cache, pos, window):
     """One-token decode; x (B,1,D), caches (B,S,Hkv,D) written in place,
-    pos (B,)."""
+    pos (B,).  Where compute is split over ``model`` (the partitioned
+    serving program) the rank computes its query heads and the KV heads
+    they read; the new token's K/V heads are gathered over ``model``
+    for the cache (``common.kv_insert``), the cache holding the rank's
+    part of the positions is attended in the flash-decoding form, and
+    the rank's heads go through its rows of ``wo``."""
     b = x.shape[0]
-    s_cache = k_cache.shape[1]
-    q, k, v = _qkv(p, cfg, x, pos[:, None])
-    C.ring_insert(k_cache, k[:, 0], pos, cfg.cache_update)
-    C.ring_insert(v_cache, v[:, 0], pos, cfg.cache_update)
+    s_cache = C.whole_len(k_cache)
+    parts = head_parts(cfg)
+    heads = None if parts is None else parts[0]
+    q, k, v = _qkv(p, cfg, x, pos[:, None], grouped=False)
+    C.kv_insert(k_cache, k[:, 0], pos, cfg.cache_update, heads)
+    C.kv_insert(v_cache, v[:, 0], pos, cfg.cache_update, heads)
     eff_len = torch.clamp(pos + 1, max=s_cache)
     out = C.decode_attention_jnp(
         q[:, 0], k_cache, v_cache, eff_len,
         window_arr=None if _ring(cfg) else window,
         softcap=cfg.attn_softcap, scale=cfg.attn_scale,
-        compute_dtype=cfg.attn_compute_dtype)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
-    return (C.row_parallel_out(out, p["wo"], cfg.tp_psum),
+        compute_dtype=cfg.attn_compute_dtype, heads=heads,
+        seq=C.cache_seq(k_cache))
+    out = out.reshape(b, 1, q.shape[2] * cfg.head_dim)
+    return (C.row_parallel_out(out, p["wo"], cfg.tp_psum,
+                               None if heads is None
+                               else heads.times(cfg.head_dim)),
             (k_cache, v_cache))
 
 
@@ -415,15 +421,20 @@ def _fit_into(dst, t):
 
 def prefill(cfg, params, tokens, cache, patches=None):
     """Run the prompt, fill the cache (in place), return last-position
-    logits and the cache."""
+    logits and the cache.  In the partitioned serving program a rank
+    attends over the whole prompt with its query heads and fills what
+    the cache's placement gives it with every KV head
+    (``common.kv_fill``); its logits are its vocab columns."""
     b, s = tokens.shape
     _check_batch(cache, b)
     x = _embed_in(cfg, params, tokens, patches)
     positions = _positions(s, x.device)
+    parts = None if cfg.mla else head_parts(cfg)
+    heads = None if parts is None else parts[0]
     for i, lp, w in _layers(cfg, params):
         x, (c1, c2), _ = layer_apply(lp, cfg, x, positions, w)
-        _fit_into(cache["c1"][i], c1)
-        _fit_into(cache["c2"][i], c2)
+        C.kv_fill(cache["c1"][i], c1, _fit_into, heads)
+        C.kv_fill(cache["c2"][i], c2, _fit_into, heads)
     cache["pos"].fill_(s)
     return _head(cfg, params, x[:, -1:]), cache
 

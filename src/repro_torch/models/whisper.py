@@ -281,50 +281,68 @@ def _fit(dst, t):
 def prefill(cfg, params, tokens, cache, frames=None):
     """Encode the audio, run the prompt through the decoder, and fill the
     cache (in place) with the self-attention K/V and the
-    (encoder-constant) cross-attention K/V."""
+    (encoder-constant) cross-attention K/V.  In the partitioned serving
+    program each rank computes its heads' K/V and fills what the cache's
+    placement gives it (``common.kv_fill``)."""
     b, s = tokens.shape
     if cache["k"].shape[1] != b:
         raise ValueError(f"the cache holds {cache['k'].shape[1]} rows; "
                          f"the tokens have {b}")
     enc = encode(cfg, params, frames)
     x = _embed(cfg, params, tokens, torch.arange(s, device=enc.device))
+    heads = _head_range(cfg)
     for i, lp in _stack(params, "dec", cfg.num_layers):
         # The reference's prefill gives the cross-attention no compute
         # dtype (its default, f32), where its forward passes the config's.
         x, k, v, xk, xv = _decoder_layer(lp, cfg, x, enc, "float32")
-        _fit(cache["k"][i], k)
-        _fit(cache["v"][i], v)
-        cache["xk"][i].copy_(xk)
-        cache["xv"][i].copy_(xv)
+        C.kv_fill(cache["k"][i], k, _fit, heads)
+        C.kv_fill(cache["v"][i], v, _fit, heads)
+        C.kv_fill(cache["xk"][i], xk, _fit, heads)
+        C.kv_fill(cache["xv"][i], xv, _fit, heads)
     cache["pos"].fill_(s)
     return _logits(cfg, params, x[:, -1:]), cache
+
+
+def _head_range(cfg):
+    """This rank's range of the heads (units of heads, not columns), or
+    None."""
+    from ..distributed.sharding import model_part
+    return model_part(cfg.n_heads)
+
+
+def _attend_cache(q, kc, vc, lengths, cfg, heads):
+    return C.decode_attention_jnp(q, kc, vc, lengths,
+                                  compute_dtype=cfg.attn_compute_dtype,
+                                  heads=heads, seq=C.cache_seq(kc))
 
 
 def decode_step(cfg, params, cache, tokens):
     """One decode step: tokens (B,1) -> (logits (B,1,V), the cache with
     this token's self-attention K/V written in place and ``pos``
-    advanced; the cross K/V are read, never written)."""
+    advanced; the cross K/V are read, never written).  In the
+    partitioned serving program a rank computes its heads, the caches'
+    parts it holds attended as ``transformer.attn_decode`` attends
+    them."""
     b = tokens.shape[0]
     pos = cache["pos"]
     x = _embed(cfg, params, tokens, pos[:, None])
-    self_len = torch.clamp(pos + 1, max=cache["k"].shape[2])
-    cross_len = torch.full((b,), cache["xk"].shape[2], dtype=torch.int32,
-                           device=x.device)
+    self_len = torch.clamp(pos + 1, max=C.whole_len(cache["k"][0]))
+    cross_len = torch.full((b,), C.whole_len(cache["xk"][0]),
+                           dtype=torch.int32, device=x.device)
+    heads = _head_range(cfg)
     for i, lp in _stack(params, "dec", cfg.num_layers):
         kc, vc = cache["k"][i], cache["v"][i]
         xn = _ln(lp["ln1"], cfg, x)
         q = _proj_q(lp["self"], cfg, xn)
         k, v = _proj_kv(lp["self"], cfg, xn)
-        C.ring_insert(kc, k[:, 0], pos, cfg.cache_update)
-        C.ring_insert(vc, v[:, 0], pos, cfg.cache_update)
-        o = C.decode_attention_jnp(q[:, 0], kc, vc, self_len,
-                                   compute_dtype=cfg.attn_compute_dtype)
+        C.kv_insert(kc, k[:, 0], pos, cfg.cache_update, heads)
+        C.kv_insert(vc, v[:, 0], pos, cfg.cache_update, heads)
+        o = _attend_cache(q[:, 0], kc, vc, self_len, cfg, heads)
         x, xn = _residual_ln(lp["ln2"], cfg, x, _out(lp["self"], cfg,
                                                      o[:, None]))
         q = _proj_q(lp["cross"], cfg, xn)
-        o = C.decode_attention_jnp(q[:, 0], cache["xk"][i], cache["xv"][i],
-                                   cross_len,
-                                   compute_dtype=cfg.attn_compute_dtype)
+        o = _attend_cache(q[:, 0], cache["xk"][i], cache["xv"][i],
+                          cross_len, cfg, heads)
         x, xn = _residual_ln(lp["ln3"], cfg, x, _out(lp["cross"], cfg,
                                                      o[:, None]))
         x = x + _mlp(lp["mlp"], cfg, xn)

@@ -351,12 +351,15 @@ class _WholeLeaves:
         return False
 
 
-def compute_cuts(model: Model, mesh) -> Dict[str, Tuple[int, bool]]:
+def compute_cuts(model: Model, mesh, probe=None
+                 ) -> Dict[str, Tuple[int, bool]]:
     """{param path: (the dim, counted from the end, that model code cuts
     to this rank's range over ``model``, whether that range is the
     rank's equal part)} on the live ``mesh``: the ``split_param``
     records of one forward of the loss on the meta device (nothing is
-    allocated or sent) under the mesh step's context, one row a rank."""
+    allocated or sent) under the mesh step's context, one row a rank.
+    ``probe(model, params)`` runs another forward in the loss's place
+    (the serving program's prefill and decode step)."""
     from ..configs import ShapeSpec, input_specs
     params = model.init(0, "meta")
     paths = {id(t): p for p, t in tree_flatten(params)}
@@ -365,40 +368,84 @@ def compute_cuts(model: Model, mesh) -> Dict[str, Tuple[int, bool]]:
     with torch.no_grad(), recording_splits() as cut, \
             use_mesh(mesh, current_rules(), local_batch=True,
                      gather=_WholeLeaves()):
-        model.loss(params, batch)
+        if probe is None:
+            model.loss(params, batch)
+        else:
+            probe(model, params)
     out: Dict[str, Tuple[int, bool]] = {}
-    for root, dim, even in cut:
+    for root, dim, even, _ in cut:
         if id(root) in paths:
             path = paths[id(root)]
             out[path] = (dim, even and out.get(path, (dim, True))[1])
     return out
 
 
-def param_plans(model: Model, mesh, layout: StateLayout):
+def compute_ranges(model: Model, mesh, probe
+                   ) -> Dict[str, Tuple[int, Tuple[Tuple[int, int], ...]]]:
+    """{param path: (the dim, counted from the end, that model code cuts
+    over ``model``, every ``model`` rank's ``[lo, hi)`` of it)} for the
+    leaves ``probe`` cuts to one range a rank: ``probe`` run on the meta
+    device as each ``model`` rank in turn (the mesh's coordinates
+    changed; collectives of meta tensors talk to no one)."""
+    import copy
+    params = model.init(0, "meta")
+    paths = {id(t): p for p, t in tree_flatten(params)}
+    seen: Dict[str, List[set]] = {}
+    k = mesh.split(("model",))[0]
+    for i in range(k):
+        as_i = copy.copy(mesh)
+        as_i.coords = {**mesh.coords, "model": i}
+        with torch.no_grad(), recording_splits() as cut, \
+                use_mesh(as_i, current_rules(), local_batch=True,
+                         gather=_WholeLeaves()):
+            probe(model, params)
+        for root, dim, _, rng in cut:
+            if id(root) in paths:
+                entry = seen.setdefault(paths[id(root)],
+                                        [set() for _ in range(k)])
+                entry[i].add((dim, rng))
+    out = {}
+    for path, per in seen.items():
+        if all(len(s) == 1 for s in per) and \
+                len({next(iter(s))[0] for s in per}) == 1:
+            dim = next(iter(per[0]))[0]
+            out[path] = (dim, tuple(next(iter(s))[1] for s in per))
+    return out
+
+
+def param_plans(model: Model, mesh, layout: StateLayout, probe=None,
+                spans: bool = False):
     """{param path: its ``dist.collectives.ParamPlan``}: each leaf is
     gathered over the axes it is cut on, except a ``model`` part that
-    compute consumes (:func:`compute_cuts`: the rank's equal part, where
-    its placement cuts the same dim over ``model`` alone); its gradient
-    is summed over the ``batch`` axes, and over ``model`` where compute
-    cuts its range from the whole."""
+    compute consumes (:func:`compute_cuts`, of the loss or of ``probe``:
+    the rank's equal part, where its placement cuts the same dim over
+    ``model`` alone); its gradient is summed over the ``batch`` axes,
+    and over ``model`` where compute cuts its range from the whole.
+    With ``spans`` (the serving program: no gradient) a range that is no
+    equal part of a dim placed over ``model`` is gathered from the
+    ranks' parts alone (``ParamPlan.span``, :func:`compute_ranges`)."""
     from ..dist.collectives import ParamPlan
-    cut = compute_cuts(model, mesh)
+    cut = compute_cuts(model, mesh, probe)
+    ranges = compute_ranges(model, mesh, probe) if spans else {}
     rows = mesh.split(BATCH_AXES)[0]
     k_model = mesh.split(("model",))[0]
     plans = {}
     for path, shape in layout.shapes.items():
         cuts = layout.part("params/" + path) or []
-        held, reduce = None, BATCH_AXES
+        held, reduce, span = None, BATCH_AXES, None
         if path in cut:
             dim, even = cut[path]
             keep = [c for c in cuts if c[1] == ("model",)
-                    and c[0] - len(shape) == dim] if even else []
-            if keep:
+                    and c[0] - len(shape) == dim]
+            if keep and even:
                 held, cuts = (dim, k_model), [c for c in cuts
                                               if c not in keep]
+            elif keep and ranges.get(path, (None,))[0] == dim:
+                span, cuts = ranges[path], [c for c in cuts
+                                            if c not in keep]
             else:
                 reduce = BATCH_AXES + ("model",)
-        plans[path] = ParamPlan(tuple(cuts), reduce, rows, held)
+        plans[path] = ParamPlan(tuple(cuts), reduce, rows, held, span)
     return plans, tuple(p for p in layout.shapes if p in cut)
 
 

@@ -33,10 +33,19 @@ _TRAIN = {"qwen2.5-14b": 0.94608, "deepseek-7b": 0.94737,
 KEPT = {
     1: {**{(a, "train"): r for a, r in _TRAIN.items()},
         ("mamba2-780m", "decode"): 0.94586},
+    # 4 chips: the port's count is 4 x rank 0's of the partitioned
+    # program; the serving cells repeat what ROADMAP C keeps whole on
+    # ``model`` (MLA's down projections and the router, mamba2's mixer,
+    # recurrentgemma's one KV head)
     4: {**{(a, "train"): r for a, r in _TRAIN.items()},
         ("deepseek-v3-671b", "train"): 0.93256,
         ("mixtral-8x22b", "train"): 0.97610,
-        ("mamba2-780m", "decode"): 0.94586},
+        ("deepseek-v3-671b", "prefill"): 1.06993,
+        ("deepseek-v3-671b", "decode"): 1.05691,
+        ("mamba2-780m", "prefill"): 1.98113,
+        ("mamba2-780m", "decode"): 1.68790,
+        ("recurrentgemma-9b", "prefill"): 1.01292,
+        ("recurrentgemma-9b", "decode"): 1.01132},
 }
 
 _SCRIPT = textwrap.dedent("""

@@ -1,9 +1,10 @@
 """The dry-run's weighing for serving cells, and on a mesh.
 
-Prefill and decode of the ten SMOKE configs on one device, and the train
-step of qwen2.5-14b (plain and with ``tp_psum``) and mixtral-8x22b at
-rank 0 of a fake ``data=2,model=2`` group: the counts weighed from the
-traced depths equal the program traced whole, collectives included."""
+Prefill and decode of the ten SMOKE configs on one device and at rank 0
+of a fake ``data=2,model=2`` group (the partitioned serving program),
+and the train step of qwen2.5-14b (plain and with ``tp_psum``) and
+mixtral-8x22b there: the counts weighed from the traced depths equal
+the program traced whole, collectives included."""
 
 import dataclasses
 
@@ -18,6 +19,18 @@ from repro_torch.launch import cells
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_serve_weighed_equals_whole(arch, kind):
     W.assert_weighed_equals_whole(W.counted_config(arch), kind)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_mesh_serve_weighed_equals_whole(arch, kind):
+    with cells.dry_group("data=2,model=2", device="cpu") as live:
+        lowered, whole = W.assert_weighed_equals_whole(
+            W.counted_config(arch), kind, live)
+    # the split compute talks over model
+    assert whole.cost.collective_bytes["all-reduce"] > 0
+    assert lowered.rank == 0
+    assert lowered.argument_bytes == lowered.placed_argument_bytes
 
 
 @pytest.mark.parametrize("arch,tp", [("qwen2.5-14b", False),

@@ -8,6 +8,10 @@ under 180 s; the record has the reference's keys that carry over, finite
 terms, and the rank's argument bytes: its state, as ``StateLayout`` says
 the rank holds it (its part of every leaf, the reference's placement:
 equal to ``argument_size_if_placed``), plus its rows of the batch.
+qwen2.5-14b x decode_32k there counts the partitioned serving program
+(``cells.serve_program``): its argument bytes (the rank's part of the
+params and of the cache, and its rows) equal the placed bytes and the
+reference's, its FLOPs a rank within 1.25 x the reference's.
 ``--shape long_500k`` is skipped with the reference's reason, and
 ``--device cuda`` on a machine without a card exits with an error
 naming ``--device cpu`` before anything is traced."""
@@ -127,6 +131,32 @@ def test_mixtral_rank_holds_its_part_of_each_expert(records):
     rec = records["mixtral-8x22b"]
     assert rec["memory_analysis"]["argument_size_in_bytes"] == \
         rec["argument_size_if_placed"]
+
+
+#: The reference's count of qwen2.5-14b x decode_32k on the 16x16 mesh
+#: (``python -m repro.launch.dryrun --arch qwen2.5-14b --shape
+#: decode_32k``): FLOPs and argument bytes a device.
+REF_DECODE_32K = {"flops_per_device": 30_096_752_640,
+                  "argument_size_in_bytes": 3_454_066_752}
+SERVE_FLOPS_OVER_REF = 1.25
+
+
+def test_decode_32k_record(tmp_path):
+    p = _cli(tmp_path, "--arch", "qwen2.5-14b", "--shape", "decode_32k",
+             "--device", "cpu")
+    _, err = p.communicate(timeout=CLI_LIMIT_S)
+    assert p.returncode == 0, err[-3000:]
+    rec = json.loads((tmp_path / "qwen2.5-14b__decode_32k__single.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    mem = rec["memory_analysis"]
+    assert mem["argument_size_in_bytes"] == rec["argument_size_if_placed"] \
+        == REF_DECODE_32K["argument_size_in_bytes"]
+    assert 0 < rec["flops_per_device"] <= \
+        SERVE_FLOPS_OVER_REF * REF_DECODE_32K["flops_per_device"]
+    # the rank's part of the cache is donated, and the split compute talks
+    assert 0 < mem["alias_size_in_bytes"] < mem["argument_size_in_bytes"]
+    assert rec["collective_bytes_per_device"]["all-reduce"] > 0
 
 
 def test_long_500k_is_skipped(tmp_path):
