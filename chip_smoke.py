@@ -3257,6 +3257,12 @@ SERVE_TIMED_RUNS = 10
 #: switches off: its state does not grow with max_len).
 SERVE_MAMBA = (4, 300, 8)
 SERVE_MAMBA_OPTS = dict(slots=4, max_len=512, prefill_chunk=256)
+#: (d) whisper-base whole at f32, served through its length buckets'
+#: padded-prefill programs on the card and on the CPU (the same weights,
+#: made on the CPU from a seed): the options (Whisper's text context) and
+#: the requests (count, prompt lengths, new tokens; each its own frames).
+SERVE_WHISPER = dict(slots=4, max_len=448)
+SERVE_WHISPER_REQUESTS = (4, (4, 200), 8)
 SERVE_TIMEOUT_S = 420
 
 
@@ -3279,6 +3285,18 @@ def _replays_cover_steps(sched):
     steps = sched.decode_steps()
     return (all(s.graph is not None for s in steps),
             sum(s.calls for s in steps) == sched.metrics.decode_steps)
+
+
+def _engine_problems(label, engines):
+    """The card's rule for ``summary()["engines"]``: every prefill
+    program (the chunk program, each length bucket's) is a CUDA graph;
+    only the whole-prompt prefill runs eagerly."""
+    bad = [n for n in ("chunk", "prefill")
+           if n in engines and not engines[n]["captured"]]
+    if engines.get("whole_prefill", {}).get("captured"):
+        bad.append("whole_prefill")
+    return [f"{label}: engines {bad} against the rule ({engines})"] \
+        if bad else []
 
 
 def _serve_smoke_requests(np, cfg):
@@ -3348,6 +3366,7 @@ def phase_serve_smoke(torch, np):
                          sched._pool.bytes if sched._pool else 0)
             sched.shutdown()
         toks, rows, summ, (captured, covered), pool = runs[DEVICE]
+        problems += _engine_problems(f"serve {arch}", summ["engines"])
         same = toks == runs["cpu"][0]
         err = limit = 0.0
         for key, want in runs["cpu"][1].items():
@@ -3368,6 +3387,7 @@ def phase_serve_smoke(torch, np):
               "chunked_prefill": summ.get("chunked_prefill"),
               "prefix_cache": summ.get("prefix_cache"),
               "length_buckets": "prefill" in summ["runtime"],
+              "engines": summ["engines"],
               "graph_pool_bytes": pool,
               "seconds": time.perf_counter() - t0})
         if not same or set(rows) != set(runs["cpu"][1]):
@@ -3604,6 +3624,8 @@ def phase_serve_qwen(torch, np):
     warm = sched.wait_warm(300.0)
     captured, covered = _replays_cover_steps(sched)
     dec = summ["runtime"]["decode"]
+    prog = sched._chunk_engine.peek(Bucket(1, SERVE_QWEN["prefill_chunk"]))
+    chunks_replayed = prog.captured and prog.calls == summ["prefill_chunks"]
     row = {"phase": "serve", "case": "qwen2.5-14b", "op": "serve",
            "precision": "bf16", "params": exe.cost_summary()["params"],
            "requests": len(reqs), "prompt_tokens": int(sum(
@@ -3623,7 +3645,12 @@ def phase_serve_qwen(torch, np):
                "compile_ms")},
            "chunk_stalls": summ["runtime"]["chunk"]["compile_stalls"],
            "prefix_cache": summ["prefix_cache"],
+           "engines": summ["engines"],
            "every_step_a_replay": captured and covered,
+           "every_chunk_a_replay": chunks_replayed,
+           "chunk_capture_s": prog.capture_s,
+           "chunk_capture_reserved_gb": prog.pool_bytes / 1e9,
+           "graph_pool_gb": sched._pool.bytes / 1e9 if sched._pool else 0.0,
            "all_buckets_warm": warm,
            # Growth of memory_reserved over each capture; a capture in
            # the background also counts what the serving thread took
@@ -3644,6 +3671,11 @@ def phase_serve_qwen(torch, np):
     if summ["completed"] != len(reqs) or not summ["prefix_cache"]["hits"]:
         problems.append(f"serve qwen: {summ['completed']} completed, prefix "
                         f"cache {summ['prefix_cache']}")
+    problems += _engine_problems("serve qwen", summ["engines"])
+    if not chunks_replayed:
+        problems.append(f"serve qwen: {prog.calls} chunk program calls for "
+                        f"{summ['prefill_chunks']} chunks, captured "
+                        f"{prog.captured}")
 
     probe, cold = _step_probe(torch, sched)
     emit({"phase": "serve", "case": "qwen2.5-14b", "op": "step_probe",
@@ -3673,23 +3705,7 @@ def phase_serve_qwen(torch, np):
               "top_ops": [{"name": k[:100], "launches": n, "ms": ms}
                           for k, (n, ms) in top]})
 
-    # One prefill chunk as the scheduler runs it (eager): its host and
-    # device time and launches.
-    chunk = SERVE_QWEN["prefill_chunk"]
-    with torch.inference_mode():
-        one = exe.model.init_cache(1, SERVE_QWEN["max_len"], DEVICE)
-        toks = torch.as_tensor(np.random.default_rng(2).integers(
-            0, cfg.vocab, (1, chunk)).astype(np.int32), device=DEVICE)
-        run_chunk = lambda: exe.model.prefill_chunk(sched.params, toks, one,
-                                                    0, chunk)
-        ms = host_median_ms(run_chunk, runs=SERVE_TIMED_RUNS, warmup=2)
-        prof = device_profile(run_chunk, iters=3)
-    dev_ms = sum(ms_ for _, ms_ in prof.values())
-    emit({"phase": "serve", "case": "qwen2.5-14b", "op": "prefill_chunk",
-          "tokens": chunk, "ms": ms, "device_ms": dev_ms,
-          "launches": sum(n for n, _ in prof.values()),
-          "busy_share": dev_ms / ms, "chunks_served": summ["prefill_chunks"]})
-    del one, toks, run_chunk
+    problems += _chunk_rows(torch, np, exe, sched, prog, summ)
 
     # The full-slots replay against eager decode_step on a clone of the
     # cache, sliced the same way (the same strides).
@@ -3742,7 +3758,7 @@ def phase_serve_qwen(torch, np):
     # The same requests at a fixed shape: one full-slots step.
     params = sched.params
     sched.shutdown()
-    del sched, sm, step
+    del sched, sm, step, prog
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3773,6 +3789,211 @@ def phase_serve_qwen(torch, np):
     gc.collect()
     torch.cuda.empty_cache()
     return problems
+
+
+def _chunk_rows(torch, np, exe, sched, prog, summ):
+    """One 256-token qwen2.5-14b chunk at start 0, run eagerly with host
+    ints (the scheduler's path before the chunk program) and through the
+    scheduler's captured chunk program (staging a request's cache), in
+    turns: host ms, device ms, launches, busy share, the bound; then the
+    program against the eager chunk on a clone of the request's cache,
+    at two starts (the second attends the first's rows), bit for bit."""
+    from repro_torch.models.common import tree_leaves
+    chunk, max_len = SERVE_QWEN["prefill_chunk"], SERVE_QWEN["max_len"]
+    cfg, params, problems = exe.cfg, sched.params, []
+    host = np.random.default_rng(2).integers(0, cfg.vocab, (1, chunk)) \
+        .astype(np.int32)
+    with torch.inference_mode():
+        one = exe.model.init_cache(1, max_len, DEVICE)
+        toks = torch.as_tensor(host, device=DEVICE)
+        runs = {"eager": lambda: exe.model.prefill_chunk(params, toks, one,
+                                                         0, chunk),
+                "captured": lambda: prog(host, one, 0, chunk)}
+        turns = [host_median_ms(runs[k], runs=SERVE_TIMED_RUNS, warmup=2)
+                 for k in ("captured", "eager", "eager", "captured")]
+        profs = {k: device_profile(f, iters=3) for k, f in runs.items()}
+    mm, att = _prefill_flops(cfg, params, 1, chunk)
+    wbytes = _tensor_bytes(tree_leaves(params))
+    t_bytes = (wbytes + _cache_bytes(one, chunk, 1)) / HBM_BYTES_PER_S * 1e3
+    t_ops = (mm / BF16_FLOPS_PER_S + att / F32_FLOPS_PER_S) * 1e3
+    staged_in = _tensor_bytes(one.values())
+    staged_out = sum(t.numel() * t.element_size() * (
+        chunk / t.shape[d] if d is not None else 1) for t, d in (
+            (one[k], prog.seq_dims.get(k)) for k in one))
+    for mode, ms in (("eager", turns[1:3]), ("captured", (turns[0],
+                                                          turns[3]))):
+        prof = profs[mode]
+        dev_ms = sum(v[1] for v in prof.values())
+        row = {"phase": "serve", "case": "qwen2.5-14b",
+               "op": "prefill_chunk" if mode == "eager"
+               else "prefill_chunk_captured", "tokens": chunk, "start": 0,
+               "ms": min(ms), "ms_turns": list(ms), "device_ms": dev_ms,
+               "launches": sum(v[0] for v in prof.values()),
+               "busy_share": dev_ms / min(ms),
+               "captured": mode == "captured" and prog.captured,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "chunks_served": summ["prefill_chunks"]}
+        if mode == "captured":
+            row["staging_device_ms"] = sum(
+                v[1] for k, v in prof.items() if k.startswith("Memcpy DtoD"))
+            row["staging_bytes"] = {"in": staged_in, "out": staged_out}
+            row["capture_s"] = prog.capture_s
+        emit(row)
+    equal = []
+    with torch.inference_mode():
+        req = exe.model.init_cache(1, max_len, DEVICE)
+        for start in (0, chunk):
+            clone = {k: v.clone() for k, v in req.items()}
+            want = exe.model.prefill_chunk(params, toks, clone, start,
+                                           chunk)[0].clone()
+            got, _ = prog(host, req, start, chunk)
+            torch.cuda.current_stream().synchronize()
+            equal.append({"start": start,
+                          "logits_equal": torch.equal(got, want),
+                          "cache_equal": all(torch.equal(req[k], clone[k])
+                                             for k in req)})
+        del req, clone, want, got
+    emit({"phase": "serve", "case": "qwen2.5-14b",
+          "op": "prefill_chunk_replay_vs_eager", "checks": equal})
+    if not all(e["logits_equal"] and e["cache_equal"] for e in equal):
+        problems.append(f"serve qwen: the chunk program's replay against "
+                        f"the eager chunk on a clone: {equal}")
+    del one, toks, runs
+    return problems
+
+
+def phase_serve_whisper(torch, np):
+    """(d) whisper-base whole at f32 through the length buckets'
+    padded-prefill programs (every bucket captured first), on the card
+    and on the CPU over the same weights: the tokens equal, each logits
+    row within ENGINE_DECODE_TOL x max(1, max|logits|), every prefill a
+    call of a captured program; then one bucket's replay against its
+    eager call on the same inputs, bit for bit, in turns: host ms, device
+    ms, launches, busy share."""
+    import dataclasses
+    import gc
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.runtime import BucketPolicy
+    from repro_torch.serve import Request, SchedulerOptions
+    problems = []
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype="float32")
+    params = get_model(cfg).init(0, "cpu")
+    n, (lo, hi), new = SERVE_WHISPER_REQUESTS
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=u, max_new_tokens=new,
+                    prompt=rng.integers(0, cfg.vocab, int(rng.integers(
+                        lo, hi + 1))).astype(np.int32),
+                    inputs={"frames": rng.standard_normal(
+                        (cfg.n_frames, cfg.d_model)).astype(np.float32)})
+            for u in range(n)]
+    runs, timing = {}, {}
+    for dev in (DEVICE, "cpu"):
+        t1 = time.perf_counter()
+        exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+            target="engine", device=dev), params=params)
+        rec = _Recorder()
+        sched = repro_torch.serve(exe, SchedulerOptions(
+            buckets=BucketPolicy.default(
+                max_batch=SERVE_WHISPER["slots"],
+                max_len=SERVE_WHISPER["max_len"]),
+            **SERVE_WHISPER), sampler=rec, engine_worker="manual")
+        sched.wait_warm()
+        warm_s = time.perf_counter() - t1
+        for r in reqs:
+            sched.submit(r)
+        t1 = time.perf_counter()
+        sched.run()
+        serve_s = time.perf_counter() - t1
+        summ = sched.summary()
+        eng = sched._prefill_engine
+        progs = [eng.peek(b) for b in eng.warm_buckets()] if eng else []
+        runs[dev] = (dict(sched.generated), rec.rows, summ, {
+            "warm_s": warm_s, "serve_s": serve_s,
+            "prefill_calls": sum(p.calls for p in progs),
+            "programs_captured": [p.captured for p in progs]})
+        if dev == DEVICE and progs:
+            timing = _prefill_program_rows(torch, np, cfg, sched, progs,
+                                           reqs[0])
+            runs[dev][3]["pool_gb"] = (sched._pool.bytes / 1e9
+                                       if sched._pool else 0.0)
+            runs[dev][3]["capture_s"] = {p.bucket: p.capture_s
+                                         for p in progs}
+            runs[dev][3]["peak_gb"] = _peak_gb(torch)
+        sched.shutdown()
+        del sched, exe, progs, eng
+        gc.collect()
+    toks, rows, summ, info = runs[DEVICE]
+    err = limit = 0.0
+    for key, want in runs["cpu"][1].items():
+        e, scale = _rel_err(rows[key], want)
+        err, limit = max(err, e), max(limit, ENGINE_DECODE_TOL * scale)
+        if e > ENGINE_DECODE_TOL * scale:
+            problems.append(f"serve whisper uid {key[0]} token {key[1]}: "
+                            f"{e} > {ENGINE_DECODE_TOL * scale}")
+    same = toks == runs["cpu"][0]
+    emit({"phase": "serve", "case": "whisper-base", "op": "served_vs_cpu",
+          "requests": n, "prompt_tokens": [len(r.prompt) for r in reqs],
+          "new_tokens": new, "tokens_equal": same, "max_abs_err": err,
+          "limit": limit, "engines": summ["engines"],
+          "engines_cpu": runs["cpu"][2]["engines"],
+          "prefill_buckets": summ["runtime"]["prefill"]["warm_buckets"],
+          "prefill_bucket_hits": summ["runtime"]["prefill"]["bucket_hits"],
+          "prefill_stalls": summ["runtime"]["prefill"]["compile_stalls"],
+          "tokens_per_s": summ["tokens_per_s"],
+          "ttft_p50_ms": summ["ttft_p50"] * 1e3,
+          "ttft_p99_ms": summ["ttft_p99"] * 1e3, **info,
+          "cpu": runs["cpu"][3], "seconds": time.perf_counter() - t0})
+    problems += _engine_problems("serve whisper", summ["engines"])
+    if not same or set(rows) != set(runs["cpu"][1]) \
+            or "prefill" not in summ["engines"] \
+            or info["prefill_calls"] != n or not timing.get("equal"):
+        problems.append(f"serve whisper: tokens equal {same}, engines "
+                        f"{summ['engines']}, {info['prefill_calls']} program "
+                        f"calls for {n} requests, replay equal "
+                        f"{timing.get('equal')}")
+    return problems
+
+
+def _prefill_program_rows(torch, np, cfg, sched, progs, req):
+    """The first request's bucket's program: a call (copy in, replay)
+    and its eager call over the same static inputs, in turns; the two
+    logits and caches bit for bit."""
+    from repro_torch.runtime import Bucket
+    plen = len(req.prompt)
+    bucket = sched._prefill_engine.policy.bucket_for(1, plen)
+    prog = sched._prefill_engine.peek(Bucket(1, bucket.length))
+    padded = np.zeros((1, bucket.length), np.int32)
+    padded[0, :plen] = req.prompt
+    batch = sched._prefill_batch(padded, req.inputs, "cpu")
+    with torch.inference_mode():
+        got, cache = prog(batch, plen)
+        got_cache = {k: v.clone() for k, v in cache.items()}
+        want = prog.eager().clone()
+        torch.cuda.current_stream().synchronize()
+        equal = torch.equal(got, want) and all(
+            torch.equal(got_cache[k], cache[k]) for k in cache)
+        runs = {"captured": lambda: prog(batch, plen), "eager": prog.eager}
+        turns = [host_median_ms(runs[k], runs=SERVE_TIMED_RUNS, warmup=2)
+                 for k in ("captured", "eager", "eager", "captured")]
+        profs = {k: device_profile(f, iters=3) for k, f in runs.items()}
+    out = {"equal": equal}
+    for mode, ms in (("captured", (turns[0], turns[3])),
+                     ("eager", turns[1:3])):
+        dev_ms = sum(v[1] for v in profs[mode].values())
+        emit({"phase": "serve", "case": "whisper-base",
+              "op": "prefill_program", "mode": mode,
+              "bucket": bucket.length, "length": plen, "ms": min(ms),
+              "ms_turns": list(ms), "device_ms": dev_ms,
+              "launches": sum(v[0] for v in profs[mode].values()),
+              "busy_share": dev_ms / min(ms),
+              "captured": mode == "captured" and prog.captured,
+              "replay_equal_eager": equal,
+              "pool_bytes": prog.pool_bytes if mode == "captured" else 0})
+    return out
 
 
 def phase_serve_mamba(torch, np):
@@ -3865,6 +4086,7 @@ def serve_main() -> int:
     emit({"phase": "serve", "case": "smoke_done",
           "seconds": time.perf_counter() - t0})
     problems += phase_serve_qwen(torch, np)
+    problems += phase_serve_whisper(torch, np)
     problems += phase_serve_mamba(torch, np)
     if problems:
         raise SystemExit("serve phase failed: " + "; ".join(problems))
@@ -4360,6 +4582,7 @@ def _mesh_serve(torch, exe, opts, reqs):
                step_ms) > 1 else None,
            "full_step_local_rows": full.local,
            "captured_steps": sum(s.captured for s in steps),
+           "engines": summ["engines"],
            "pool_gb": sched._pool.bytes / 1e9 if sched._pool else None,
            "peak_gb": _peak_gb(torch)}
     if "runtime" in summ:
@@ -4751,6 +4974,9 @@ def mesh_main() -> int:
                                 f"gloo reports itself captured")
             if case in ("m1", "m2", "m3") and row["faults"]:
                 problems.append(f"mesh {case}: faults {row['faults']}")
+            if "engines" in row:
+                problems += _engine_problems(
+                    f"mesh {case} rank {row['rank']}", row["engines"])
             if case in ("m4", "m5") and not row["max_abs_err"] <= \
                     row["limit"]:
                 problems.append(f"mesh {case} rank {row['rank']}: err "

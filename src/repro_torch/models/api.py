@@ -182,12 +182,27 @@ class Model:
             return False
         return True
 
-    def prefill_chunk(self, params, tokens, cache, start, length):
+    def prefill_chunk(self, params, tokens, cache, start, length,
+                      visible=None):
         """Prefill one fixed-size chunk of a prompt at absolute offset
-        ``start`` (see ``transformer.prefill_chunk``)."""
+        ``start`` (see ``transformer.prefill_chunk``): ``start`` and
+        ``length`` host ints or device scalars, passed through."""
         return self.mod.prefill_chunk(
             self.cfg, params, _as_tensor(tokens, params["embed"].device),
-            cache, start, length)
+            cache, start, length, visible)
+
+    def check_chunk(self, cache, chunk: int, start: int,
+                    length: int) -> None:
+        """Raise ``ValueError`` unless a chunk of ``chunk`` rows at host
+        ``start`` with ``length`` real tokens fits ``cache`` (see
+        ``transformer.check_chunk``)."""
+        self.mod.check_chunk(cache, chunk, start, length)
+
+    def visible_chunks(self, cache, chunk: int, start: int):
+        """The kv chunks a chunk at host ``start`` can see under
+        ``causal_skip`` (None without it): the chunk program keys one
+        graph on it (see ``transformer.visible_chunks``)."""
+        return self.mod.visible_chunks(self.cfg, cache, chunk, start)
 
 
 def get_model(cfg: ArchConfig) -> Model:

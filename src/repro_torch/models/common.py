@@ -358,13 +358,14 @@ def chunked_attention(
     causal: bool = True,
     window: int = 0,           # 0 = global; >0 = sliding window width
     window_arr=None,           # per-layer window; wins over `window`
-    q_offset: int = 0,         # absolute position of q[0] (prefill chunks)
+    q_offset=0,                # absolute position of q[0] (prefill chunks)
     kv_chunk: int = 1024,
     q_chunk: int = 512,
     scale: Optional[float] = None,
     softcap: float = 0.0,
     compute_dtype: str = "float32",
     causal_skip: bool = False,
+    visible_chunks: Optional[int] = None,
 ) -> torch.Tensor:
     """The reference's ``chunked_attention``: for each block of
     ``q_chunk`` queries, an online softmax over chunks of ``kv_chunk``
@@ -377,7 +378,19 @@ def chunked_attention(
     ``causal_skip`` skips on the host the kv chunks that no query of the
     block can see, where the reference branches them away with
     ``lax.cond``: a skipped chunk would have left (m, l, acc) exactly as
-    they were."""
+    they were.
+
+    ``q_offset`` may be a 0-d integer tensor on the device (the captured
+    chunk program's ``start``, the reference's traced scalar): the query
+    positions are then made on the device, and nothing depends on its
+    value on the host.  Skipping does, so ``causal_skip`` with such an
+    offset takes ``visible_chunks``, the count of leading kv chunks the
+    call's last query can see, which the caller works out on the host:
+    every chunk after them is skipped, every one of them visited, for
+    all query blocks.  A visited chunk that no query sees leaves (m, l,
+    acc) exactly as they were too (its p is 0), so the result is the
+    unskipped pass's bit for bit.  Given with a host offset, the count
+    replaces the per-block rule."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -389,31 +402,39 @@ def chunked_attention(
     cdt = _cdt(compute_dtype)
     # Operands are rounded to the compute dtype, then multiplied in f32:
     # the reference's preferred_element_type=f32 products.
+    skip = causal_skip and causal
+    if skip and visible_chunks is None and isinstance(q_offset,
+                                                      torch.Tensor):
+        raise ValueError("causal_skip with a device q_offset needs "
+                         "visible_chunks, worked out on the host")
     qg = (q.reshape(b, sq, hkv, g, d).to(cdt) * rounded(scale, cdt)).float()
     out = torch.empty((b, sq, hkv, g, dv), device=q.device)
     for q0 in range(0, sq, q_chunk):
         q1 = min(q0 + q_chunk, sq)
         out[:, q0:q1] = _online_softmax(
             qg[:, q0:q1], k, v, q_offset + q0, kv_chunk, causal, w,
-            softcap, cdt, causal_skip)
+            softcap, cdt, skip, visible_chunks)
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
 def _online_softmax(qg, k, v, q_lo, kv_chunk, causal, w, softcap, cdt,
-                    causal_skip):
+                    skip, visible_chunks):
     """One block of queries (B, C, Hkv, G, D) at absolute positions
-    ``q_lo...`` over every kv chunk: the normalized (B, C, Hkv, G, Dv)."""
+    ``q_lo...`` (a host int or a device scalar) over every kv chunk it
+    may see: the normalized (B, C, Hkv, G, Dv)."""
     b, c, hkv, g, _ = qg.shape
     sk, dv, dev = k.shape[1], v.shape[-1], qg.device
     q_pos = q_lo + torch.arange(c, device=dev)
-    q_hi = q_lo + c - 1
     m = torch.full((b, c, hkv, g), float("-inf"), device=dev)
     l = torch.zeros((b, c, hkv, g), device=dev)
     acc = torch.zeros((b, c, hkv, g, dv), device=dev)
     for start in range(0, sk, kv_chunk):
         stop = min(start + kv_chunk, sk)
-        if causal_skip and causal:
-            visible = start <= q_hi
+        if skip and visible_chunks is not None:
+            if start >= visible_chunks * kv_chunk:
+                break
+        elif skip:
+            visible = start <= q_lo + c - 1
             if w > 0:
                 visible &= not (start + kv_chunk - 1 < q_lo - w + 1)
             if not visible:

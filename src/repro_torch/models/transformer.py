@@ -138,14 +138,14 @@ def _qkv(p, cfg, x, positions, grouped=True):
     return q, k, v
 
 
-def _attend(p, cfg, q, k, v, window, q_offset=0):
+def _attend(p, cfg, q, k, v, window, q_offset=0, visible=None):
     b, s, h = q.shape[:3]
     out = C.chunked_attention(
         q, k, v, causal=True, window_arr=window, q_offset=q_offset,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
         softcap=cfg.attn_softcap, scale=cfg.attn_scale,
         compute_dtype=cfg.attn_compute_dtype,
-        causal_skip=cfg.causal_skip)
+        causal_skip=cfg.causal_skip, visible_chunks=visible)
     out = out.reshape(b, s, h * cfg.head_dim)
     parts = head_parts(cfg)
     return C.row_parallel_out(out, p["wo"], cfg.tp_psum,
@@ -334,6 +334,8 @@ def _head(cfg, params, x):
 
 
 def _positions(s, device, start=0):
+    """(1, s) int32 positions from ``start``, a host int or a device
+    scalar (the chunk program's)."""
     return (start + torch.arange(s, dtype=torch.int32, device=device))[None, :]
 
 
@@ -439,27 +441,51 @@ def prefill(cfg, params, tokens, cache, patches=None):
     return _head(cfg, params, x[:, -1:]), cache
 
 
-def attn_chunk(p, cfg, x, k_cache, v_cache, positions, window, start):
+def attn_chunk(p, cfg, x, k_cache, v_cache, positions, window, start,
+               visible=None):
     """Prefill one chunk against an existing cache: write the chunk's
-    K/V into rows ``[start, start+C)`` (in place) and attend the chunk's
-    queries over the cache prefix plus the chunk itself (``q_offset``
-    keeps the causal/window masks absolute)."""
-    c = x.shape[1]
+    K/V into rows ``start + arange(C)`` (in place, by a device index)
+    and attend the chunk's queries over the cache prefix plus the chunk
+    itself (``q_offset`` keeps the causal/window masks absolute)."""
     q, k, v = _qkv(p, cfg, x, positions)
-    k_cache[:, start:start + c] = k.to(k_cache.dtype)
-    v_cache[:, start:start + c] = v.to(v_cache.dtype)
-    return _attend(p, cfg, q, k_cache, v_cache, window, q_offset=start), \
-        (k_cache, v_cache)
+    rows = positions[0].long()
+    k_cache.index_copy_(1, rows, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, rows, v.to(v_cache.dtype))
+    return _attend(p, cfg, q, k_cache, v_cache, window, q_offset=start,
+                   visible=visible), (k_cache, v_cache)
 
 
-def layer_chunk(p, cfg, x, c1, c2, positions, window, start):
+def layer_chunk(p, cfg, x, c1, c2, positions, window, start, visible=None):
     """One decoder layer over a prefill chunk."""
     h, _ = attn_chunk(p["attn"], cfg, C.rms_norm(x, p["ln1"], cfg.norm_eps),
-                      c1, c2, positions, window, start)
+                      c1, c2, positions, window, start, visible)
     return _ffn_block(p, cfg, x, h)[0]
 
 
-def prefill_chunk(cfg, params, tokens, cache, start, length):
+def check_chunk(cache, c: int, start: int, length: int) -> None:
+    """Raise ``ValueError`` unless a chunk of ``c`` rows at host
+    ``start`` with ``length`` real tokens fits the cache: the reference's
+    ``dynamic_update_slice`` clamps such a chunk, the port refuses it.
+    :func:`prefill_chunk` runs it on host ints; a caller that passes
+    device scalars (the chunk program) runs it on the host values
+    first."""
+    rows = cache["c1"].shape[2]
+    if not 0 <= start <= rows - c or not 0 < length <= c:
+        raise ValueError(f"chunk [{start}, {start + c}) with length "
+                         f"{length} does not fit a cache of {rows} rows")
+
+
+def visible_chunks(cfg, cache, c: int, start: int):
+    """Under ``causal_skip``: how many leading kv chunks the last query
+    of a chunk of ``c`` rows at host ``start`` can see
+    (``chunked_attention``'s ``visible_chunks``); None otherwise."""
+    if not cfg.causal_skip:
+        return None
+    kv = min(cfg.kv_chunk, cache["c1"].shape[2])
+    return (start + c - 1) // kv + 1
+
+
+def prefill_chunk(cfg, params, tokens, cache, start, length, visible=None):
     """Incremental prefill: process ``length`` (<= C) prompt tokens at
     absolute positions ``[start, start+length)`` against an existing
     cache.  ``tokens`` is a fixed-size (B, C) chunk (pad beyond
@@ -468,28 +494,39 @@ def prefill_chunk(cfg, params, tokens, cache, start, length):
     full-sequence ``prefill``: the chunk's queries see the same keys in
     the same chunks, the earlier chunks' K/V at their absolute rows.
 
+    ``start`` and ``length`` are host ints or 0-d int tensors on the
+    device, as the reference's are traced: with tensors nothing depends
+    on their values on the host, so one captured program serves every
+    chunk of every prompt (``serve/step.py::ChunkProgram``).  Under
+    ``causal_skip`` a device ``start`` needs ``visible``
+    (:func:`visible_chunks` of the host value).
+
     Requires a full-context cache (``cache_len == max_len``): with a ring
     the chunk's absolute rows would alias.  MLA caches hold latents, not
     K/V, and are not supported (as in the reference).  Where the
-    reference clamps a chunk that runs past the cache's end, this
-    raises."""
+    reference clamps a chunk that runs past the cache's end, host ints
+    raise (:func:`check_chunk`)."""
     if cfg.mla:
         raise NotImplementedError(
             "chunked prefill is not supported for MLA caches")
     b, c = tokens.shape
-    start, length = int(start), int(length)
     _check_batch(cache, b)
-    if not 0 <= start <= cache["c1"].shape[2] - c or not 0 < length <= c:
-        raise ValueError(f"chunk [{start}, {start + c}) with length "
-                         f"{length} does not fit a cache of "
-                         f"{cache['c1'].shape[2]} rows")
+    if not isinstance(start, torch.Tensor) and \
+            not isinstance(length, torch.Tensor):
+        check_chunk(cache, c, int(start), int(length))
+        if visible is None:
+            visible = visible_chunks(cfg, cache, c, int(start))
+    dev = cache["pos"].device
+    start, length = (torch.as_tensor(v, dtype=torch.int32, device=dev)
+                     for v in (start, length))
     x = _embed_in(cfg, params, tokens)
     positions = _positions(c, x.device, start)
     for i, lp, w in _layers(cfg, params):
         x = layer_chunk(lp, cfg, x, cache["c1"][i], cache["c2"][i],
-                        positions, w, start)
-    cache["pos"].fill_(start + length)
-    return _head(cfg, params, x[:, length - 1:length]), cache
+                        positions, w, start, visible)
+    cache["pos"].copy_(start + length)
+    last = x.index_select(1, (length - 1).reshape(1).long())
+    return _head(cfg, params, last), cache
 
 
 def decode_step(cfg, params, cache, tokens):

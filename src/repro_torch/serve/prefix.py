@@ -18,7 +18,11 @@ so both directions copy —
   next chunk overwrites);
 * ``take`` hands the consumer a fresh clone it may fill freely.
 
-The shared snapshot itself is therefore never written.
+The shared snapshot itself is therefore never written.  Both copy
+from and into a *request's* own cache, never a static tensor of a
+serving program: the chunk program (``serve/step.py::ChunkProgram``)
+stages each request's cache through its own and writes the chunk's rows
+back, so what is snapshotted and what a take fills is the request's.
 """
 
 from __future__ import annotations

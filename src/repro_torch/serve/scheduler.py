@@ -18,8 +18,16 @@ decode step:
     3. sample + evict — per-slot sampling, EOS / length retirement frees
        slots for the next iteration's admissions.
 
-Prefill (whole, padded to a length bucket, or one chunk) runs eagerly on
-both devices: its attention's chunk skipping depends on host integers.
+Prefill runs through the counterparts of the reference's compiled
+prefill programs (``serve/step.py``): one chunk program whose ``start``
+and ``length`` are device scalars, built and captured at construction,
+or one padded-prefill program per length bucket, captured largest first
+in the background like the decode buckets.  On a CUDA device each is a
+CUDA graph in the scheduler's one graph pool, on the CPU the same
+functions run eagerly.  Only the whole-prompt prefill of a scheduler
+with neither runs eagerly on the card, as the reference retraces it per
+prompt length; ``summary()["engines"]`` says which programs are
+captured.
 
 Requests whose prompts share a common head (the "system prompt"
 scenario) prefill that head once: with ``prefix_cache`` enabled the
@@ -79,7 +87,7 @@ from .metrics import RequestMetrics, SchedulerMetrics
 from .options import SchedulerOptions
 from .prefix import PrefixCache, common_prefix_len
 from .slots import CachePlacement, SlotManager, SlotState
-from .step import DecodeStep
+from .step import ChunkProgram, DecodeStep, PrefillProgram
 
 
 @dataclasses.dataclass
@@ -417,11 +425,22 @@ class Scheduler:
         # prompt runs through the (single-bucket) chunk program instead
         if not len_ok or self._chunk_engine is not None:
             return
+        # one single-row cache and one set of extra inputs that every
+        # bucket's program fills: a call's cache is spliced into its slot
+        # before the next call
+        with torch.inference_mode():
+            cache = self._new_cache()
+            extras = {name: torch.zeros(shape, dtype=C.torch_dtype(dt),
+                                        device=self.device)
+                      for name, (shape, dt) in
+                      extra_input_specs(self.cfg).items()}
         self._prefill_engine = EngineCache(
             BucketPolicy(batch_buckets=(1,),
                          len_buckets=policy.len_buckets),
-            lambda bucket: self._prefill_fixup, worker=worker,
-            clock=self.clock)
+            lambda bucket: PrefillProgram(
+                self.model, self.params, bucket.length, cache, extras,
+                self.device, self._pool),
+            worker=worker, clock=self.clock)
         # largest length bucket first: it covers every admissible
         # prompt, so fallback coverage arrives as early as possible
         self._prefill_engine.warm_up(
@@ -443,27 +462,17 @@ class Scheduler:
                 and "pos" in self._cache_spec(opts.max_len)
                 and self._cache_grows_with_max_len()):
             return
+        # captured now (a failed capture raises): every chunk replays it
         self._chunk_engine = EngineCache(
             BucketPolicy(batch_buckets=(1,),
                          len_buckets=(opts.prefill_chunk,)),
-            lambda bucket: self.model.prefill_chunk,
+            lambda bucket: ChunkProgram(self.model, self.params,
+                                        bucket.length, opts.max_len,
+                                        self.device, self._pool),
             worker=worker, clock=self.clock)
         self._chunk_engine.warm_up(block=True)
         if opts.prefix_cache > 0:
             self._prefix_cache = PrefixCache(opts.prefix_cache)
-
-    def _prefill_fixup(self, p, batch, cache, length: int):
-        """Prefill padded to the bucket, then recover the exact-length
-        result: the pad positions' K/V entries are causally downstream
-        of the real tokens, so after rewinding ``pos`` to the last real
-        token and re-decoding it, the logits and every cache position
-        the model can still attend to are those of an exact-length
-        prefill's decode path (the reference's program, step by
-        step)."""
-        _, cache = self.model.prefill(p, batch, cache)
-        cache["pos"].fill_(length - 1)
-        last = batch["tokens"][:, length - 1:length]
-        return self.model.decode_step(p, cache, last)
 
     def wait_warm(self, timeout: float = 120.0) -> bool:
         """Block until every scheduled background build has landed
@@ -603,20 +612,21 @@ class Scheduler:
 
     # -- admission -----------------------------------------------------
     def _prefill_batch(self, prompt: np.ndarray,
-                       extras: Optional[Dict[str, Any]] = None
-                       ) -> Dict[str, torch.Tensor]:
-        """The named multi-input prefill batch on the scheduler's device:
-        tokens plus the model signature's extra inputs —
+                       extras: Optional[Dict[str, Any]] = None,
+                       device=None) -> Dict[str, torch.Tensor]:
+        """The named multi-input prefill batch on ``device`` (the
+        scheduler's by default; the host for a prefill program, which
+        copies it in): tokens plus the model signature's extra inputs —
         request-supplied where given (batch dim added if omitted),
         zero-filled otherwise."""
+        device = self.device if device is None else device
         batch = {"tokens": torch.as_tensor(np.asarray(prompt, np.int32),
-                                           device=self.device)}
+                                           device=device)}
         extras = extras or {}
         for name, (shape, dtype) in extra_input_specs(self.cfg).items():
             dt = C.torch_dtype(dtype)
             if name in extras:
-                a = torch.as_tensor(extras[name], dtype=dt,
-                                    device=self.device)
+                a = torch.as_tensor(extras[name], dtype=dt, device=device)
                 if a.ndim == len(shape) - 1:
                     a = a[None]
                 if tuple(a.shape) != shape:
@@ -626,8 +636,7 @@ class Scheduler:
                         f"{tuple(a.shape)}")
                 batch[name] = a
             else:
-                batch[name] = torch.zeros(shape, dtype=dt,
-                                          device=self.device)
+                batch[name] = torch.zeros(shape, dtype=dt, device=device)
         return batch
 
     def _new_cache(self) -> Dict[str, Any]:
@@ -649,19 +658,19 @@ class Scheduler:
                 self.metrics.started_at = m.admitted_at
 
             prompt = np.asarray(req.prompt, np.int32)[None, :]
-            one = self._new_cache()
             if self._prefill_engine is not None:
+                # the bucket's program: its cache is the programs' shared
+                # one, spliced into the slot by _activate before the next
                 plen = prompt.shape[1]
                 entry, bucket, _ = self._prefill_engine.get(1, plen)
                 padded = np.zeros((1, bucket.length), np.int32)
                 padded[:, :plen] = prompt
                 logits, one = entry(
-                    self.params, self._prefill_batch(padded, req.inputs),
-                    one, plen)
+                    self._prefill_batch(padded, req.inputs, "cpu"), plen)
             else:
                 logits, one = self._prefill(
                     self.params, self._prefill_batch(prompt, req.inputs),
-                    one)
+                    self._new_cache())
             self._activate(slot, req, logits[:, -1], one)
 
     def _admit_chunked(self) -> None:
@@ -728,9 +737,10 @@ class Scheduler:
             chunk = np.zeros((1, chunk_len), np.int32)
             chunk[0, :n] = task.prompt[task.offset:task.offset + n]
             entry, _, _ = self._chunk_engine.get(1, n)
-            task.logits, task.cache = entry(
-                self.params, torch.as_tensor(chunk, device=self.device),
-                task.cache, task.offset, n)
+            # the program stages the task's own cache through its static
+            # one; the logits are a copy, kept until the task activates
+            task.logits, task.cache = entry(chunk, task.cache, task.offset,
+                                            n)
             task.offset += n
             self.metrics.prefill_chunks += 1
             if (task.snapshot_key is not None
@@ -930,6 +940,27 @@ class Scheduler:
         if self.options.mesh is not None:
             out["faults"] = [dict(f) for f in self._faults]
             out["sharding"] = self._sharding_summary()
+        out["engines"] = self._engines_summary()
+        return out
+
+    def _engines_summary(self) -> dict:
+        """The port's own key: each serving program this scheduler runs,
+        whether every one built so far is a CUDA graph (``captured``),
+        and how many there are.  ``whole_prefill`` (no chunk or length
+        buckets) is the model's eager ``prefill``, as the reference
+        retraces it per prompt length; a decode step that gathers the
+        cache over a mesh is eager too."""
+        steps = [s for s in self.decode_steps() if s.local]
+        out = {"decode": {"captured": bool(steps) and all(
+            s.captured for s in steps), "programs": len(steps)}}
+        for name, eng in (("chunk", self._chunk_engine),
+                          ("prefill", self._prefill_engine)):
+            if eng is not None:
+                progs = [eng.peek(b) for b in eng.warm_buckets()]
+                out[name] = {"captured": bool(progs) and all(
+                    p.captured for p in progs), "programs": len(progs)}
+        if self._chunk_engine is None and self._prefill_engine is None:
+            out["whole_prefill"] = {"captured": False, "programs": 0}
         return out
 
     def decode_steps(self) -> List[DecodeStep]:

@@ -1,4 +1,5 @@
-"""The decode step of one batch bucket, over the persistent batched cache.
+"""The serving programs: the decode step of one batch bucket, over the
+persistent batched cache, and the two prefill programs.
 
 The counterpart of the reference's jitted decode program that takes the
 whole batched cache donated (``repro.serve.scheduler``'s
@@ -28,18 +29,72 @@ view gathers the sequence whole every step and keeps this rank's part
 of the new K/V after it (:meth:`SlotManager.gathered`/``keep``); that
 talks over the process group, so the step runs eagerly (``captured``
 False).
+
+The prefill programs are the counterparts of the reference's compiled
+prefill programs (``repro.serve.scheduler``'s ``build_chunk`` and
+``build_prefill``), each captured into the scheduler's one
+:class:`~repro_torch.core.program.GraphPool` on a CUDA device and run
+eagerly, the same functions on the same static tensors, on the CPU:
+
+* :class:`ChunkProgram` — ``prefill_chunk`` of one ``(1, C)`` chunk with
+  ``start`` and ``length`` as device scalars, so one graph serves every
+  chunk of every prompt.  A graph's addresses are fixed and every
+  request prefills into a cache of its own, so the program stages: it
+  copies the request's cache whole into its static cache, replays, and
+  copies the chunk's ``C`` rows of each K/V leaf and ``pos`` back: a
+  whole cache in and ``C / max_len`` of it out, a chunk.  The request's
+  cache ends as the eager chunk would leave it, and the chunk's logits
+  are the eager chunk's on the same values.
+* :class:`PrefillProgram` — one per length bucket: the padded prefill
+  and its fix-up (:func:`prefill_fixup`) over a static ``(1, L)`` token
+  buffer, the model's extra inputs and ``length`` as a device scalar,
+  into a single-row cache that the scheduler's programs share and that
+  the scheduler splices into a slot right after each call.
+
+Their outputs live in the pool, where the next replay of any program
+may overwrite them, so a call returns a copy of its logits.  None of
+them talks to another rank (the scheduler prefills whole on every
+rank), so they are captured on a mesh too.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..core.program import GraphPool, capture
 from ..models.common import step_rows
 from .slots import SlotManager
+
+
+def _replay(pool: GraphPool, graph: "torch.cuda.CUDAGraph", device,
+            copy_in: Optional[Callable[[], None]] = None,
+            copy_out: Optional[Callable[[], Any]] = None) -> Any:
+    """One replay of ``graph`` in ``pool``'s order (``core/program.py``):
+    under the pool's lock the stream waits for the event of the pool's
+    previous replay, ``copy_in()`` fills the static inputs, the graph
+    replays, ``copy_out()`` copies what the caller keeps, and the event
+    is recorded; ``copy_out``'s result."""
+    stream = torch.cuda.current_stream(device)
+    with pool.lock:
+        if pool.done is None:
+            pool.done = torch.cuda.Event()
+        else:
+            stream.wait_event(pool.done)
+        if copy_in is not None:
+            copy_in()
+        graph.replay()
+        out = copy_out() if copy_out is not None else None
+        pool.done.record(stream)
+    return out
+
+
+def _need_pool(pool: Optional[GraphPool], what: str) -> None:
+    if pool is None:
+        raise ValueError(f"{what} on a CUDA device captures into a "
+                         f"GraphPool")
 
 
 class DecodeStep:
@@ -75,9 +130,7 @@ class DecodeStep:
         self.calls = 0
         if self.device.type != "cuda" or slots.seq_axes or not self.local:
             return
-        if pool is None:
-            raise ValueError("a decode step on a CUDA device captures into "
-                             "a GraphPool")
+        _need_pool(pool, "a decode step")
 
         def warmup():
             scratch = slots.scratch()
@@ -115,13 +168,219 @@ class DecodeStep:
         self.calls += 1
         if self.graph is None:
             return self.eager()
-        pool = self.pool
-        stream = torch.cuda.current_stream(self.device)
-        with pool.lock:
-            if pool.done is None:
-                pool.done = torch.cuda.Event()
-            else:
-                stream.wait_event(pool.done)
-            self.graph.replay()
-            pool.done.record(stream)
+        _replay(self.pool, self.graph, self.device)
         return self.logits
+
+
+def prefill_fixup(model, params, batch: Dict[str, torch.Tensor], cache,
+                  length):
+    """Prefill padded to the bucket, then recover the exact-length
+    result: the pad positions' K/V entries are causally downstream of
+    the real tokens, so after rewinding ``pos`` to the last real token
+    and re-decoding it, the logits and every cache position the model
+    can still attend to are those of an exact-length prefill's decode
+    path (the reference's program, step by step).  ``length`` is a host
+    int or a device scalar: ``pos`` is written and the last real token
+    picked on the device."""
+    _, cache = model.prefill(params, batch, cache)
+    length = torch.as_tensor(length, dtype=torch.int32,
+                             device=cache["pos"].device)
+    cache["pos"].copy_(length - 1)
+    last = batch["tokens"].index_select(1, (length - 1).reshape(1).long())
+    return model.decode_step(params, cache, last)
+
+
+class ChunkProgram:
+    """``model.prefill_chunk`` over static tensors: a ``(1, chunk)`` int32
+    token buffer, 0-d ``start`` and ``length`` and a single-row staging
+    cache of ``max_len`` rows; captured on a CUDA device at construction
+    (one graph, or under ``causal_skip`` one per count of kv chunks a
+    chunk can see), run eagerly on the CPU.  A call stages the request's
+    cache through the static one (see the module's note)."""
+
+    def __init__(self, model, params, chunk: int, max_len: int, device,
+                 pool: Optional[GraphPool] = None) -> None:
+        self.model = model
+        self.params = params
+        self.chunk = chunk
+        self.device = torch.device(device)
+        with torch.inference_mode():
+            self.tokens = torch.zeros((1, chunk), dtype=torch.int32,
+                                      device=self.device)
+            self.start = torch.zeros((), dtype=torch.int32,
+                                     device=self.device)
+            self.length = torch.full((), chunk, dtype=torch.int32,
+                                     device=self.device)
+            self.cache = model.init_cache(1, max_len, self.device)
+        #: Each K/V leaf's sequence dim (the rows a chunk writes).
+        self.seq_dims = {name: axes.index("kv_seq")
+                         for name, axes in model.cache_axes().items()
+                         if "kv_seq" in axes}
+        self.pool = pool
+        #: Graph and static logits by visible-chunk count (None without
+        #: ``causal_skip``).
+        self.graphs: Dict[Optional[int], "torch.cuda.CUDAGraph"] = {}
+        self.logits: Dict[Optional[int], torch.Tensor] = {}
+        #: Seconds of the warm-ups and captures; bytes they added to the
+        #: pool (CUDA only); chunks run through :meth:`__call__`.
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.calls = 0
+        if self.device.type != "cuda":
+            return
+        _need_pool(pool, "a chunk program")
+        t0 = time.perf_counter()
+        for count in self.counts():
+            self.graphs[count], self.logits[count], added = capture(
+                lambda count=count: self.eager(count), self.device, pool)
+            self.pool_bytes += added
+        self.capture_s = time.perf_counter() - t0
+
+    def counts(self):
+        """The visible-chunk counts of every chunk boundary a prompt can
+        start a chunk at (``[None]`` without ``causal_skip``)."""
+        name, dim = next(iter(self.seq_dims.items()))
+        rows = self.cache[name].shape[dim]
+        got = {self.model.visible_chunks(self.cache, self.chunk, s)
+               for s in range(0, rows - self.chunk + 1, self.chunk)}
+        return sorted(got, key=lambda n: -1 if n is None else n)
+
+    @property
+    def captured(self) -> bool:
+        """True when each call is a replay of a CUDA graph."""
+        return bool(self.graphs)
+
+    def eager(self, visible: Optional[int] = None) -> torch.Tensor:
+        """The chunk run op by op over the static tensors (what a graph
+        recorded): its (1, 1, vocab) logits."""
+        with torch.inference_mode():
+            return self.model.prefill_chunk(
+                self.params, self.tokens, self.cache, self.start,
+                self.length, visible)[0]
+
+    def __call__(self, tokens, cache, start: int, length: int):
+        """One chunk of a request's prompt: ``tokens`` its (1, chunk)
+        int32 tokens (padded past ``length``), ``cache`` its single-row
+        cache (the chunk's rows and ``pos`` written in place), ``start``
+        and ``length`` host ints.  ``(logits, cache)``: the logits a copy,
+        (1, 1, vocab)."""
+        c = self.chunk
+        self.model.check_chunk(cache, c, start, length)
+        count = self.model.visible_chunks(cache, c, start)
+        graph = self.graphs.get(count)
+        if self.captured and graph is None:
+            raise ValueError(f"no graph captured for a chunk at {start} "
+                             f"(it sees {count} kv chunks)")
+        self.calls += 1
+
+        def copy_in():
+            self.tokens.copy_(torch.as_tensor(tokens, dtype=torch.int32)
+                              .reshape(1, c))
+            self.start.fill_(start)
+            self.length.fill_(length)
+            for name, leaf in cache.items():
+                self.cache[name].copy_(leaf)
+
+        def copy_out(logits):
+            for name, leaf in cache.items():
+                dim = self.seq_dims.get(name)
+                if dim is None:
+                    leaf.copy_(self.cache[name])
+                else:
+                    leaf.narrow(dim, start, c).copy_(
+                        self.cache[name].narrow(dim, start, c))
+            return logits.clone()
+
+        with torch.inference_mode():
+            if graph is None:
+                copy_in()
+                return copy_out(self.eager(count)), cache
+            return _replay(self.pool, graph, self.device, copy_in,
+                           lambda: copy_out(self.logits[count])), cache
+
+
+class PrefillProgram:
+    """:func:`prefill_fixup` of one length bucket over static tensors: a
+    ``(1, length)`` int32 token buffer, a 0-d ``length``, and the
+    model's extra inputs and the single-row cache that the scheduler's
+    programs share; captured on a CUDA device (its warm-up on a scratch
+    cache, so a background capture writes nothing another program
+    reads), run eagerly on the CPU."""
+
+    def __init__(self, model, params, length: int, cache: Dict[str, Any],
+                 extras: Dict[str, torch.Tensor], device,
+                 pool: Optional[GraphPool] = None) -> None:
+        self.model = model
+        self.params = params
+        self.bucket = length
+        self.device = torch.device(device)
+        self.cache = cache
+        self.extras = extras
+        with torch.inference_mode():
+            self.tokens = torch.zeros((1, length), dtype=torch.int32,
+                                      device=self.device)
+            self.length = torch.ones((), dtype=torch.int32,
+                                     device=self.device)
+        self.pool = pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        #: As :class:`ChunkProgram`'s.
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.calls = 0
+        if self.device.type != "cuda":
+            return
+        _need_pool(pool, "a prefill program")
+
+        def warmup():
+            scratch = {k: torch.zeros_like(v) for k, v in cache.items()}
+            prefill_fixup(model, params, self.batch(), scratch, self.length)
+
+        t0 = time.perf_counter()
+        self.graph, self.logits, self.pool_bytes = capture(
+            self.eager, self.device, pool, warmup=warmup)
+        self.capture_s = time.perf_counter() - t0
+
+    @property
+    def captured(self) -> bool:
+        """True when each call is a replay of a CUDA graph."""
+        return self.graph is not None
+
+    def batch(self) -> Dict[str, torch.Tensor]:
+        """The static batch: tokens and the extra inputs."""
+        return {"tokens": self.tokens, **self.extras}
+
+    def eager(self) -> torch.Tensor:
+        """The padded prefill run op by op over the static tensors (what
+        the graph recorded): its (1, 1, vocab) logits."""
+        with torch.inference_mode():
+            return prefill_fixup(self.model, self.params, self.batch(),
+                                 self.cache, self.length)[0]
+
+    def __call__(self, batch: Dict[str, Any], length: int):
+        """Prefill one request: ``batch`` its tokens padded to the
+        bucket, (1, bucket), and every extra input, ``length`` its
+        prompt's length.  ``(logits, cache)``: the logits a copy,
+        (1, 1, vocab); the cache the shared static one, valid until the
+        next prefill program's call."""
+        if tuple(batch["tokens"].shape) != tuple(self.tokens.shape) \
+                or set(batch) != {"tokens", *self.extras} \
+                or not 0 < length <= self.bucket:
+            raise ValueError(
+                f"the program of length bucket {self.bucket} takes tokens "
+                f"(1, {self.bucket}) and {sorted(self.extras)}, a length "
+                f"in 1..{self.bucket}; got {tuple(batch['tokens'].shape)}, "
+                f"{sorted(set(batch) - {'tokens'})} and {length}")
+        self.calls += 1
+
+        def copy_in():
+            for name, t in self.batch().items():
+                t.copy_(batch[name])
+            self.length.fill_(length)
+
+        with torch.inference_mode():
+            if self.graph is None:
+                copy_in()
+                return self.eager().clone(), self.cache
+            return _replay(self.pool, self.graph, self.device, copy_in,
+                           lambda: self.logits.clone()), self.cache

@@ -8,7 +8,9 @@ with ``dtype="float32"``, the same ``TickClock`` and a sampler that
 records the logits it is handed; :func:`run_both` asserts the same
 tokens, finish reasons and order, sampler calls, logits within
 ``LOGITS_TOL`` x max(1, max|logits|), ``summary()`` and per-request
-metrics key for key.
+metrics key for key.  The port's summary has one key the reference's
+lacks, ``engines`` (which serving programs are CUDA graphs): it is held
+apart, to the programs the scheduler built, none captured on the CPU.
 """
 
 import dataclasses
@@ -169,9 +171,26 @@ def assert_same(ref, ref_rec, got, got_rec):
     assert [(c.uid, c.tokens, c.finish_reason) for c in got.done] == \
         [(c.uid, [int(t) for t in c.tokens], c.finish_reason)
          for c in ref.done]
-    assert got.summary() == ref.summary()
+    summ = got.summary()
+    assert summ.pop("engines") == engines_on_cpu(got)
+    assert summ == ref.summary()
     assert {u: m.to_dict() for u, m in got.request_metrics.items()} == \
         {u: m.to_dict() for u, m in ref.request_metrics.items()}
+
+
+def engines_on_cpu(sched):
+    """``summary()["engines"]`` of a port scheduler on the CPU: every
+    program it runs, none captured."""
+    want = {"decode": {"captured": False,
+                       "programs": len(sched.decode_steps())}}
+    for name, eng in (("chunk", sched._chunk_engine),
+                      ("prefill", sched._prefill_engine)):
+        if eng is not None:
+            want[name] = {"captured": False,
+                          "programs": len(eng.warm_buckets())}
+    if sched._chunk_engine is None and sched._prefill_engine is None:
+        want["whole_prefill"] = {"captured": False, "programs": 0}
+    return want
 
 
 def prompts(n, lo, hi, seed, vocab=256, head=None):

@@ -9,7 +9,8 @@ returns either a scripted token or the argmax.  The configs are the
 
 * the same tokens, finish reasons, finish order and sampler calls;
 * every logits row within 1e-5 x max(1, max|logits|) of the reference's;
-* ``summary()`` equal key for key, ``runtime`` included.
+* ``summary()`` equal key for key, ``runtime`` included (the port's own
+  ``engines`` key held apart: every program eager on the CPU).
 
 The cases are the admission policies (fcfs, shortest, deadline), the
 queue limit, EOS at admission and mid-run, the ``max_new_tokens`` clamp,
@@ -43,8 +44,8 @@ import torch
 
 import repro
 import repro_torch
-from _serve_parity import (Recorder, Spec, TickClock, drive, pair,
-                           prompts, run_both, sides)
+from _serve_parity import (Recorder, Spec, TickClock, drive,
+                           engines_on_cpu, pair, prompts, run_both, sides)
 from repro.serve import QueueFullError as RefQueueFullError
 from repro_torch.configs import get_config
 from repro_torch.runtime import BucketPolicy
@@ -161,6 +162,7 @@ def test_pop_completions_purge():
         sched.run()
         assert sched.metrics.completed == 3
         seen.append(sched.summary())
+    assert seen[1].pop("engines") == engines_on_cpu(sched)
     assert seen[0] == seen[1]
 
 

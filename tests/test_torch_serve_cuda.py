@@ -10,8 +10,13 @@ captured mid-serve leaves every live row and ``pos`` as they were; the
 cache's addresses and ``memory_allocated`` stay put across steady-state
 steps; and a scheduler whose smaller buckets are captured in the
 background while it serves gives the tokens of one whose buckets were
-all captured first, of one at a fixed shape, and of the CPU.  This
-file imports no JAX, so it runs on a machine without it::
+all captured first, of one at a fixed shape, and of the CPU.  The
+prefill programs: the chunk program's replay against ``prefill_chunk``
+run eagerly on a clone of the request's cache, bit-equal at two starts;
+three interleaved prompts with a shared head served through it give the
+CPU's tokens; a length bucket's ``PrefillProgram`` replay equals its
+eager call on the same inputs.  This file imports no JAX, so it runs on
+a machine without it::
 
     python -m pytest -m cuda tests/test_torch_serve_cuda.py
 """
@@ -157,3 +162,78 @@ def test_background_capture_while_serving(card):
     assert fixed._decode.graph is not None
     assert tokens["background"] == tokens["warm"] == tokens["cpu"] == \
         fixed.generated
+
+
+def _chunked(device, arch="qwen2.5-14b"):
+    return repro_torch.serve(_exe(arch, device), SchedulerOptions(
+        slots=3, max_len=64, fold=False, prefill_chunk=8, prefix_cache=2))
+
+
+def test_chunk_program_replay_bit_equal_to_eager(card):
+    sched = _chunked(card)
+    prog = sched._chunk_engine.peek(Bucket(1, 8))
+    assert prog.captured and sched.summary()["engines"]["chunk"] == {
+        "captured": True, "programs": 1}
+    model, params = prog.model, prog.params
+    rng = np.random.default_rng(4)
+    with torch.inference_mode():
+        cache = model.init_cache(1, 64, card)
+        for start, n in ((0, 8), (8, 5)):
+            tokens = np.zeros((1, 8), np.int32)
+            tokens[0, :n] = rng.integers(0, 256, n)
+            clone = _snapshot(cache)
+            want = model.prefill_chunk(params, torch.as_tensor(
+                tokens, device=card), clone, start, n)[0].clone()
+            got, back = prog(tokens, cache, start, n)
+            assert back is cache and torch.equal(got, want), start
+            for k in cache:
+                assert torch.equal(cache[k], clone[k]), (start, k)
+    assert prog.calls == 2
+    sched.shutdown()
+
+
+def test_interleaved_prompts_with_a_shared_head_give_the_cpu_tokens(card):
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, 256, 16).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, 256, n).astype(
+        np.int32)]) for n in (5, 11, 20)]
+    tokens = {}
+    for device in ("cpu", card):
+        sched = _chunked(device)
+        for uid, p in enumerate(prompts):
+            sched.submit(Request(uid=uid, prompt=p, max_new_tokens=10))
+        sched.run()
+        summ = sched.summary()
+        tokens[device] = dict(sched.generated)
+        assert summ["prefix_cache"]["hits"] == 2
+        assert summ["engines"]["chunk"]["captured"] == (device == card)
+        sched.shutdown()
+    assert tokens[card] == tokens["cpu"]
+
+
+def test_prefill_program_replay_equals_its_eager_call(card):
+    sched = repro_torch.serve(_exe("whisper-base", card), SchedulerOptions(
+        slots=2, max_len=64, fold=False,
+        buckets=BucketPolicy(batch_buckets=(1, 2), len_buckets=(16, 64))),
+        engine_worker="manual")
+    sched.wait_warm()
+    eng = sched._prefill_engine
+    assert sched.summary()["engines"]["prefill"] == {"captured": True,
+                                                     "programs": 2}
+    prog = eng.peek(Bucket(1, 16))
+    cfg = prog.model.cfg
+    rng = np.random.default_rng(6)
+    tokens = np.zeros((1, 16), np.int32)
+    tokens[0, :9] = rng.integers(0, cfg.vocab, 9)
+    batch = {"tokens": torch.as_tensor(tokens), "frames": torch.as_tensor(
+        rng.standard_normal((1, cfg.n_frames, cfg.d_model)).astype(
+            np.float32))}
+    with torch.inference_mode():
+        got, cache = prog(batch, 9)
+        got_cache = _snapshot(cache)
+        want = prog.eager().clone()
+    assert torch.equal(got, want)
+    for k in cache:
+        assert torch.equal(got_cache[k], cache[k]), k
+    assert int(cache["pos"][0]) == 9
+    sched.shutdown()
