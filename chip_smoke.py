@@ -26,9 +26,16 @@ JAX package.  Every phase prints one JSON line (also written to
                  decode_32k's depth, batch 4) ms, tokens/s, busy share,
                  bound and top device ops, over f32 masters ("exact") and
                  bf16 weights; (c) mixtral-8x22b at its widths, 2 layers,
-                 decode against forward past its 4096-token ring.  No
-                 kernel of ``csrc/`` is on this path: the reference's LLM
-                 attention is jnp, computed here with torch ops.
+                 decode against forward past its 4096-token ring.  Every
+                 ``exe(...)`` call is a replay of the signature's captured
+                 forward; the ``engine_forward`` row: qwen2.5-14b at bf16,
+                 a 2 x 256 program then a 4 x 512 one (the pool laid out
+                 again, its growth within the larger program's pool x
+                 1.1), the 4 x 512 replay bit-equal to ``model.forward``
+                 run eagerly, host and device ms beside the eager
+                 forward's, launches, busy share, bound.  No kernel of
+                 ``csrc/`` is on this path: the reference's LLM attention
+                 is jnp, computed here with torch ops.
    ``serve``     the serve scheduler (``repro_torch.serve``), in a child
                  process (``python3 chip_smoke.py --serve``): (a) the ten
                  SMOKE configs at f32 served on the card and on the CPU
@@ -52,7 +59,11 @@ JAX package.  Every phase prints one JSON line (also written to
                  rows first part; (c)
                  mamba2-780m whole at f32, 300-token prompts across a
                  padded SSD chunk: served logits within 1e-3 x max(1,
-                 max|logits|) of the forward's, tokens its argmax.
+                 max|logits|) of the forward's, tokens its argmax; (e)
+                 the ten SMOKE configs with neither chunks nor length
+                 buckets: tokens equal to the CPU's, one captured
+                 whole-prompt program a prompt length, a replay
+                 bit-equal to ``model.prefill`` on a zeroed cache.
    ``shard``     sharded compilation (``repro_torch.dist``), in a child
                  process (``python3 chip_smoke.py --shard``): (a)
                  ``mesh="data=1,model=1"`` on the ``cuda`` target, the six
@@ -83,7 +94,8 @@ JAX package.  Every phase prints one JSON line (also written to
                  exchange's bytes and ms a step, peak GB a rank; (m2) the
                  same weights on ``model=2``, 4 requests of 64-256 tokens,
                  16 new: tokens equal, ``captured: false``, the gathered
-                 bytes and ms and the step's ms; (m3) whisper-base whole at
+                 bytes and ms and the step's ms, its whole-prompt
+                 programs captured, peak GB within the rank's share; (m3) whisper-base whole at
                  f32 on ``data=2,model=2`` (four ranks), 8 requests with
                  their own 1500 frames, 32 new: tokens equal; (m4)
                  mixtral-8x22b at its widths (2 layers, f32), its
@@ -104,21 +116,28 @@ JAX package.  Every phase prints one JSON line (also written to
    ``train``     the trainer (``repro_torch.training``, ``.checkpoint``,
                  ``.data``, ``.launch.train``), in a child process
                  (``python3 chip_smoke.py --train``): (t1) the ten SMOKE
-                 configs' loss, gradients and one train step on the card
-                 against the CPU from the same params and batch (f32: loss
+                 configs' loss, gradients and one captured train step on
+                 the card against the CPU from the same params and batch
+                 (f32: loss
                  within 1e-5 x max(1, |loss|), every gradient leaf within
                  1e-4 x max(1, max|g|), grad_norm within 1e-5 relative;
-                 bf16 loss within 0.05 x max(1, |loss|)); (t3a, beside
+                 bf16 loss within 0.05 x max(1, |loss|)); (t4, a child
+                 ``--train-bits`` under deterministic algorithms) 3
+                 captured steps bit-equal to 3 eager ones, each SMOKE
+                 config and minicpm-2b at its widths cut to 4 layers;
+                 (t3a, beside
                  (t3b)) the launcher at SMOKE size in processes under
                  deterministic algorithms, 6 steps then resumed to 10, against 10
                  uninterrupted: logged losses equal, step-9 checkpoints
                  equal byte for byte; (t2) minicpm-2b at its published
                  widths (40 layers, 2.72 B params, f32 masters, bf16
                  activations, remat full, WSD), one 4 x 512 batch for 6
-                 steps, the state updated in place: losses finite and
-                 falling, step ms, tokens/s, model TFLOP/s, optimizer ms,
-                 launches, busy share and top device ops of one step,
-                 peak GB, and a ``cast_params`` step within 0.02 of the
+                 steps, the state updated in place, the first eager and
+                 the rest replays: losses finite and falling, step ms,
+                 tokens/s, model TFLOP/s, optimizer ms (the eager first
+                 step's), launches, busy share and top device ops of one
+                 replay, peak and pool GB, and a ``cast_params`` step
+                 within 0.02 of the
                  f32-compute loss; (t3b) that state saved asynchronously
                  (the loop's blocked ms, the write's seconds) and restored
                  bit-equal.  No kernel of ``csrc/`` is on this path.
@@ -139,7 +158,7 @@ JAX package.  Every phase prints one JSON line (also written to
                  every gradient leaf and one step's grad_norm and params
                  against one device, state and peak GB a rank, the
                  gathers' and the reduce's bytes and ms; (tm2) minicpm-2b
-                 at its widths, 6 of 40 layers, on ``data=2``: 2 steps of
+                 at its widths, 4 of 40 layers, on ``data=2``: 2 steps of
                  4 x 512 tokens, step 1's loss and grad_norm against one
                  device, step ms, tokens/s, step 1's gathers' and
                  reduce's bytes and ms, peak GB a rank.  No kernel of
@@ -165,9 +184,11 @@ JAX package.  Every phase prints one JSON line (also written to
                  chip_smoke.py --dryrun`` runs the whole phase alone),
                  (d2) minicpm-2b, 2 layers, one 1 x 512 train step on
                  one device (3.4 GB, freed after): FLOPs, HBM bytes and
-                 collective bytes counted on real cuda tensors equal the
-                 dry-run's on fake cuda ones (FLOPs on fake cpu ones
-                 too), the step's median ms beside the record's bound.
+                 collective bytes of the step's eager body (what its
+                 graph records; a replay issues no op) counted on real
+                 cuda tensors equal the dry-run's on fake cuda ones
+                 (FLOPs on fake cpu ones too), the captured step's
+                 median ms beside the record's bound.
                  No kernel of ``csrc/`` is on this path.
 3. ``check``     each kernel against its plain torch version on the card,
                  at the main path's shapes and the edges of each kernel's
@@ -2772,6 +2793,9 @@ ENGINE_WHOLE = {
 #: The timing rows of each: prefill (batch, tokens), decode batches over
 #: a prompt of LLM_DECODE_PROMPT tokens in a cache of LLM_MAX_LEN rows.
 LLM_PREFILL = (4, 512)
+#: The engine_forward row's first shape: captured before LLM_PREFILL's,
+#: which then lays the executable's pool out again.
+ENGINE_FORWARD_FIRST = (2, 256)
 LLM_DECODE = (1, 8)
 LLM_MAX_LEN = 2048
 LLM_DECODE_PROMPT = 128
@@ -2852,6 +2876,11 @@ def phase_engine_smoke(torch, np):
             want = exes["cpu"](**batch)["logits"]
             got = exes[DEVICE](**batch)["logits"]
             assert got.device.type == torch.device(DEVICE).type
+            captured = exes[DEVICE].programs["captured"]
+            row[f"{dtype}_forward_captured"] = captured
+            if not captured:
+                problems.append(f"engine {arch} {dtype}: the card's forward "
+                                f"is not a captured program")
             err, scale = _rel_err(got, want)
             tol = ENGINE_F32_TOL if dtype == "float32" else QUANT_BUDGET
             row[f"{dtype}_forward_err"] = err
@@ -3069,6 +3098,8 @@ def phase_engine_whole(torch, arch):
                                       batch, steps, s + steps, DEVICE)
         full = exe32(**dict(batch, tokens=torch.cat(
             [batch["tokens"], toks], 1)))["logits"]
+    if not exe32.programs["captured"]:
+        problems.append(f"{arch}: the f32 forward is not a captured program")
     want = full[:, s - 1:s + steps]
     err, scale = _rel_err(logits, want)
     same = torch.equal(toks, want[:, :steps].argmax(-1).to(torch.int32))
@@ -3114,9 +3145,89 @@ def phase_engine_whole(torch, arch):
           "param_bytes": exe.cost_summary()["param_bytes"],
           "quant": exe.quant_report, "peak_gb": _peak_gb(torch)})
     _llm_rows(torch, exe, "bf16", deep=deep)
+    if arch == "qwen2.5-14b":
+        problems += _engine_forward(torch, exe)
     del exe
     gc.collect()
     torch.cuda.empty_cache()
+    return problems
+
+
+def _engine_forward(torch, exe):
+    """The forward through ``exe(...)``, one captured program per input
+    signature: ENGINE_FORWARD_FIRST's shape, then LLM_PREFILL's (which
+    lays the pool out again, largest first), the growth of
+    ``memory_reserved`` over both captures against the larger program's
+    pool; then the LLM_PREFILL replay against ``model.forward`` run
+    eagerly on the same params and batch, its host and device ms,
+    launches, busy share and bound, beside the eager forward's ms."""
+    from repro_torch.models.common import tree_leaves
+    cfg, model, params = exe.cfg, exe.model, exe.params
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                        device=DEVICE, dtype=torch.int32)}
+               for shape in (ENGINE_FORWARD_FIRST, LLM_PREFILL)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    for batch in batches:
+        exe(**batch)             # captured, its logits dropped at once
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    growth = torch.cuda.memory_reserved() - reserved0
+    progs = sorted(exe._programs.values(), key=lambda p: p.order)
+    inputs = sum(t.numel() * t.element_size() for p in progs
+                 for t in p.inputs.values())
+    limit = (progs[-1].pool_bytes + inputs) * (1 + POOL_SLACK)
+    batch = batches[-1]
+    with torch.inference_mode():
+        got = exe(**batch)["logits"]
+        want = model.forward(params, batch)[0]
+    equal = torch.equal(got, want)
+    del got, want
+    call = lambda: exe(**batch)
+    eager = lambda: model.forward(params, batch)
+    with torch.inference_mode():
+        turns = [host_median_ms(f, runs=3, warmup=1)
+                 for f in (eager, call, call, eager)]
+        prof = device_profile(call, iters=1)
+        eager_prof = device_profile(eager, iters=1)
+    dev_ms = sum(v[1] for v in prof.values())
+    ms = statistics.median(turns[1:3])
+    b, s = LLM_PREFILL
+    n = lambda t: sum(math.prod(l.shape) for l in tree_leaves(t))
+    mm, att = _prefill_flops(cfg, params, b, s)
+    head = 2 * b * s * cfg.vocab * cfg.d_model      # every position, f32
+    wbytes = exe.cost_summary()["param_bytes"]
+    t_bytes = (wbytes + b * s * cfg.vocab * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (mm / BF16_FLOPS_PER_S + (att + head) / F32_FLOPS_PER_S) * 1e3
+    summary = exe.programs
+    row = {"phase": "engine", "case": "engine_forward", "arch": cfg.name,
+           "precision": exe.options.precision, "batch": b, "tokens": s,
+           "first_shape": list(ENGINE_FORWARD_FIRST),
+           "programs": summary["programs"], "captured": summary["captured"],
+           "replay_bit_equal": equal, "ms": ms, "turns_ms": {
+               "eager": [turns[0], turns[3]], "replay": turns[1:3]},
+           "eager_ms": statistics.median([turns[0], turns[3]]),
+           "device_ms": dev_ms, "busy_share": dev_ms / ms,
+           "launches": sum(v[0] for v in prof.values()),
+           "eager_device_ms": sum(v[1] for v in eager_prof.values()),
+           "eager_launches": sum(v[0] for v in eager_prof.values()),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "pool_bytes": summary["pool_bytes"],
+           "program_pool_bytes": [p.pool_bytes for p in progs],
+           "reserved_growth": growth, "growth_limit": limit,
+           "params": n(params), "peak_gb": _peak_gb(torch)}
+    emit(row)
+    problems = []
+    if not (equal and summary["captured"] and summary["programs"] == 2
+            and growth <= limit and row["launches"] > 0):
+        problems.append(
+            f"engine_forward: replay bit-equal {equal}, captured "
+            f"{summary['captured']}, {summary['programs']} programs, "
+            f"reserved growth {growth} (limit {limit}), "
+            f"{row['launches']} launches a replay")
     return problems
 
 
@@ -3145,6 +3256,8 @@ def phase_engine_mixtral(torch):
                                       {"tokens": prompt}, steps, s + steps,
                                       DEVICE)
         full = exe(tokens=torch.cat([prompt, toks], 1))["logits"]
+    if not exe.programs["captured"]:
+        problems.append("mixtral: the forward is not a captured program")
     want = full[:, s - 1:s + steps]
     err, scale = _rel_err(logits, want)
     same = torch.equal(toks, want[:, :steps].argmax(-1).to(torch.int32))
@@ -3190,17 +3303,23 @@ def engine_main() -> int:
     return 0
 
 
-def phase_child(flag: str, timeout_s: float, name: str):
-    """Run a phase in a child process (``python3 chip_smoke.py <flag>``),
-    killed after ``timeout_s``, and pass its lines on."""
+def start_child(flag: str, timeout_s: float, env=None):
+    """Start a phase in a child process (``python3 chip_smoke.py
+    <flag>``, in ``env`` where given), killed ``timeout_s`` after it
+    starts; :func:`finish_child` passes its lines on."""
     import threading
-    t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
                              flag], cwd=ROOT, stdout=subprocess.PIPE,
-                            text=True)
+                            text=True, env=env)
     watchdog = threading.Timer(timeout_s, proc.kill)
     watchdog.start()
-    problems = []
+    return proc, watchdog, time.perf_counter(), timeout_s
+
+
+def finish_child(child, name: str):
+    """Pass a started child's lines on as they come, wait for it, and
+    report it: its problems."""
+    proc, watchdog, t0, timeout_s = child
     try:
         for line in proc.stdout:
             line = line.rstrip("\n")
@@ -3214,6 +3333,7 @@ def phase_child(flag: str, timeout_s: float, name: str):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+    problems = []
     seconds = time.perf_counter() - t0
     if seconds >= timeout_s:
         problems.append(f"{name} phase killed after {seconds:.0f} s")
@@ -3221,6 +3341,12 @@ def phase_child(flag: str, timeout_s: float, name: str):
         problems.append(f"{name} phase exited {rc}")
     emit({"phase": name, "case": "done", "seconds": seconds, "rc": rc})
     return problems
+
+
+def phase_child(flag: str, timeout_s: float, name: str):
+    """Run a phase in a child process (``python3 chip_smoke.py <flag>``),
+    killed after ``timeout_s``, and pass its lines on."""
+    return finish_child(start_child(flag, timeout_s), name)
 
 
 def phase_engine():
@@ -3263,6 +3389,11 @@ SERVE_MAMBA_OPTS = dict(slots=4, max_len=512, prefill_chunk=256)
 #: the requests (count, prompt lengths, new tokens; each its own frames).
 SERVE_WHISPER = dict(slots=4, max_len=448)
 SERVE_WHISPER_REQUESTS = (4, (4, 200), 8)
+#: (e) each SMOKE config served with neither chunks nor length buckets,
+#: at (a)'s slots and max_len: the prompts' lengths (two equal; none
+#: shorter than internvl2's image tokens, which an exact-length prefill
+#: takes first) and new tokens, all submitted at once.
+SERVE_WHOLE = ((12, 9, 12, 15), 5)
 SERVE_TIMEOUT_S = 420
 
 
@@ -3289,12 +3420,12 @@ def _replays_cover_steps(sched):
 
 def _engine_problems(label, engines):
     """The card's rule for ``summary()["engines"]``: every prefill
-    program (the chunk program, each length bucket's) is a CUDA graph;
-    only the whole-prompt prefill runs eagerly."""
-    bad = [n for n in ("chunk", "prefill")
+    program a scheduler runs (the chunk program, each length bucket's,
+    each prompt length's whole-prompt program) is a CUDA graph, on a
+    mesh too: the scheduler prefills whole on every rank and its prefill
+    talks to no other rank."""
+    bad = [n for n in ("chunk", "prefill", "whole_prefill")
            if n in engines and not engines[n]["captured"]]
-    if engines.get("whole_prefill", {}).get("captured"):
-        bad.append("whole_prefill")
     return [f"{label}: engines {bad} against the rule ({engines})"] \
         if bad else []
 
@@ -3395,6 +3526,99 @@ def phase_serve_smoke(torch, np):
                             f"CPU's {runs['cpu'][0]}")
         if not (captured and covered):
             problems.append(f"serve {arch}: a decode step was not a replay")
+    return problems
+
+
+def _whole_requests(np, cfg):
+    """SERVE_WHOLE's requests from seed 0, each with its family's extra
+    input."""
+    from repro_torch.serve import Request
+    lengths, new = SERVE_WHOLE
+    rng = np.random.default_rng(0)
+    reqs = []
+    for uid, n in enumerate(lengths):
+        inputs = None
+        if cfg.family == "audio":
+            inputs = {"frames": rng.standard_normal(
+                (cfg.n_frames, cfg.d_model)).astype(np.float32)}
+        if cfg.family == "vlm":
+            inputs = {"patches": rng.standard_normal(
+                (cfg.num_image_tokens, cfg.vit_dim)).astype(np.float32)}
+        reqs.append(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab, n).astype(np.int32), max_new_tokens=new,
+            inputs=inputs))
+    return reqs
+
+
+def phase_serve_whole(torch, np):
+    """(e) Each SMOKE config at f32 served on the card and on the CPU with
+    neither chunks nor length buckets: one whole-prompt program a prompt
+    length, captured on the card at its first admission (several slots
+    admitted in one step).  Tokens equal, every logits row within
+    SERVE_SMOKE_TOL x max(1, max|logits|), ``whole_prefill`` captured
+    with one program a distinct prompt length, and the longest
+    program's replay bit-equal to ``model.prefill`` run eagerly on a
+    zeroed clone of its cache."""
+    import dataclasses
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import SchedulerOptions
+    problems = []
+    for arch in ENGINE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        params = get_model(cfg).init(0, "cpu")
+        reqs = _whole_requests(np, cfg)
+        lengths = {len(r.prompt) for r in reqs}
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            exe = repro_torch.compile(cfg, repro_torch.CompileOptions(
+                target="engine", device=dev), params=params)
+            rec = _Recorder()
+            sched = repro_torch.serve(exe, SchedulerOptions(
+                slots=SERVE_SMOKE["slots"], max_len=SERVE_SMOKE["max_len"]),
+                sampler=rec)
+            for r in reqs:
+                sched.submit(r)
+            sched.run()
+            runs[dev] = (dict(sched.generated), rec.rows, sched.summary())
+        toks, rows, summ = runs[DEVICE]
+        whole = summ["engines"].get("whole_prefill")
+        prog = sched.whole_prefill_programs()[-1]
+        req = next(r for r in reqs if len(r.prompt) == prog.length)
+        with torch.inference_mode():
+            batch = sched._prefill_batch(req.prompt[None], req.inputs, "cpu")
+            got, cache = prog(batch)
+            got_cache = {k: v.clone() for k, v in cache.items()}
+            fresh = {k: torch.zeros_like(v) for k, v in cache.items()}
+            want, fresh = prog.model.prefill(prog.params, {
+                k: v.to(DEVICE) for k, v in batch.items()}, fresh)
+        equal = torch.equal(got, want[:, -1:]) and all(
+            torch.equal(got_cache[k], fresh[k]) for k in fresh)
+        err = limit = 0.0
+        for key, want_row in runs["cpu"][1].items():
+            e, scale = _rel_err(rows[key], want_row)
+            err, limit = max(err, e), max(limit, SERVE_SMOKE_TOL * scale)
+        same = toks == runs["cpu"][0] and set(rows) == set(runs["cpu"][1])
+        emit({"phase": "serve", "case": "whole_prefill", "arch": arch,
+              "tokens_equal": same, "max_abs_err": err, "limit": limit,
+              "prompt_lengths": sorted(lengths), "whole_prefill": whole,
+              "replay_bit_equal": equal, "replayed_length": prog.length,
+              "pool_bytes": sched._whole_pool.bytes
+              if sched._whole_pool else 0,
+              "program_pool_bytes": [
+                  p.pool_bytes for p in sched.whole_prefill_programs()],
+              "seconds": time.perf_counter() - t0})
+        if not (same and err <= limit and equal and whole == {
+                "captured": True, "programs": len(lengths)}):
+            problems.append(
+                f"serve whole_prefill {arch}: tokens equal {same}, logits "
+                f"err {err} (limit {limit}), replay bit-equal {equal}, "
+                f"whole_prefill {whole} for {len(lengths)} lengths")
+        sched.shutdown()
+        del sched, exe, prog, cache, got_cache, fresh
     return problems
 
 
@@ -4083,6 +4307,7 @@ def serve_main() -> int:
         raise SystemExit("TF32 is on; the f32 comparisons need it off")
     t0 = time.perf_counter()
     problems = phase_serve_smoke(torch, np)
+    problems += phase_serve_whole(torch, np)
     emit({"phase": "serve", "case": "smoke_done",
           "seconds": time.perf_counter() - t0})
     problems += phase_serve_qwen(torch, np)
@@ -4548,6 +4773,7 @@ def _mesh_options(case, mesh):
 def _mesh_serve(torch, exe, opts, reqs):
     """Serve ``reqs`` (on ``opts.mesh``, or one device): the tokens and a
     row of what the run measured."""
+    import gc
     import repro_torch
     torch.cuda.reset_peak_memory_stats()
     sched = repro_torch.serve(exe, opts)
@@ -4585,6 +4811,15 @@ def _mesh_serve(torch, exe, opts, reqs):
            "engines": summ["engines"],
            "pool_gb": sched._pool.bytes / 1e9 if sched._pool else None,
            "peak_gb": _peak_gb(torch)}
+    if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+        row["memory_share_gb"] = MESH_MEMORY_SHARE[world] * \
+            torch.cuda.get_device_properties(0).total_memory / 1e9
+    if sched.whole_prefill_programs():
+        row["whole_prefill_pool_gb"] = sched._whole_pool.bytes / 1e9 \
+            if sched._whole_pool else 0.0
+        row["whole_prefill_lengths"] = [
+            p.length for p in sched.whole_prefill_programs()]
     if "runtime" in summ:
         row["decode_stalls"] = summ["runtime"]["decode"]["compile_stalls"]
     if "prefix_cache" in summ:
@@ -4605,6 +4840,11 @@ def _mesh_serve(torch, exe, opts, reqs):
                                           warmup=2)
     tokens = {c.uid: list(c.tokens) for c in sched.done}
     sched.shutdown()
+    # the scheduler's pools go now, not when the cyclic collector finds
+    # it (the next case on this rank needs the memory)
+    del sched, steps, full
+    gc.collect()
+    torch.cuda.empty_cache()
     return tokens, row
 
 
@@ -4972,6 +5212,13 @@ def mesh_main() -> int:
             if case in ("m2", "m3") and row["captured"]:
                 problems.append(f"mesh {case}: a step that gathers over "
                                 f"gloo reports itself captured")
+            if case in ("m2", "m3") and not (
+                    row.get("whole_prefill_lengths")
+                    and row["peak_gb"] <= row["memory_share_gb"]):
+                problems.append(
+                    f"mesh {case} rank {row['rank']}: whole-prompt programs "
+                    f"{row.get('whole_prefill_lengths')}, peak "
+                    f"{row['peak_gb']} GB (share {row['memory_share_gb']})")
             if case in ("m1", "m2", "m3") and row["faults"]:
                 problems.append(f"mesh {case}: faults {row['faults']}")
             if "engines" in row:
@@ -5034,47 +5281,47 @@ TRAIN_RESUME = ("--arch", "minicpm-2b", "--smoke", "--batch", "2",
                 "--steps", "10")
 TRAIN_PAUSE_AT = 5
 TRAIN_RUN_TIMEOUT_S = 60
-TRAIN_TIMEOUT_S = 180
+TRAIN_TIMEOUT_S = 260
+#: (t4): captured steps against eager ones, bit for bit: how many, and
+#: minicpm-2b's depth there (its published widths, 40 layers cut to 4).
+TRAIN_BITS_STEPS = 3
+TRAIN_BITS_LAYERS = 4
+TRAIN_BITS_TIMEOUT_S = 120
 TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
-#: The launcher under deterministic algorithms; its update at ``argv[1]``
-#: steps done (-1: none) is held after the first leaf is written
-#: (``torch.sqrt_`` runs once a leaf) until SIGTERM has arrived, with
+#: The launcher under deterministic algorithms; its train step at
+#: index ``argv[1]`` (-1: none) is held, once its replay is launched and
+#: the step is in flight on the card, until SIGTERM has arrived, with
 #: ``PAUSED`` printed first.
 RESUME_SCRIPT = """
 import os, select, signal, sys
 sys.path.insert(0, {src!r})
 import torch
 torch.use_deterministic_algorithms(True)
-import repro_torch.training.optim as optim
+import repro_torch.training as training
 from repro_torch.launch.train import main
 
 pause_at = int(sys.argv[1])
 woken, wake = os.pipe()
 os.set_blocking(wake, False)
 signal.set_wakeup_fd(wake)
-real_update, real_sqrt = optim.adamw_update, torch.sqrt_
+real_make = training.make_jitted_train_step
 
 
-def update(cfg, params, grads, opt, inplace=False):
-    if int(opt["step"]) != pause_at:
-        return real_update(cfg, params, grads, opt, inplace)
+def make(*args, **kwargs):
+    step = real_make(*args, **kwargs)
     calls = []
 
-    def sqrt_(t):
+    def paused(state, batch):
+        out = step(state, batch)
         calls.append(1)
-        if len(calls) == 2:
+        if len(calls) - 1 == pause_at:
             print("PAUSED", flush=True)
             select.select([woken], [], [], {timeout})
-        return real_sqrt(t)
-
-    torch.sqrt_ = sqrt_
-    try:
-        return real_update(cfg, params, grads, opt, inplace)
-    finally:
-        torch.sqrt_ = real_sqrt
+        return out
+    return paused
 
 
-optim.adamw_update = update
+training.make_jitted_train_step = make
 sys.exit(main(sys.argv[2:]))
 """
 
@@ -5121,11 +5368,18 @@ def phase_train_smoke(torch, np):
                         for k, v in batch.items()}
                 paths, loss, grads = _loss_and_grads(torch, model, p, feed)
                 state = {"params": p, "opt": adamw_init(p)}
-                # not donated: on the CPU p is the params themselves
-                _, met = make_jitted_train_step(model, tc, donate=False)(
-                    state, feed)
+                # not donated: on the CPU p is the params themselves; on
+                # the card the first call is a replay
+                step = make_jitted_train_step(model, tc, donate=False)
+                _, met = step(state, feed)
                 out[dev] = (float(loss), grads, float(met["loss"]),
                             float(met["grad_norm"]))
+                if dev == DEVICE:
+                    row[f"{dtype}_step_captured"] = step.captured
+                    if not step.captured:
+                        problems.append(f"train {arch} {dtype}: the card's "
+                                        f"step is not captured")
+                del step
             (lw, gw, sw, nw), (lg, gg, sg, ng) = out["cpu"], out[DEVICE]
             if dtype == "float32":
                 lim = TRAIN_LOSS_TOL * max(1.0, abs(lw))
@@ -5299,6 +5553,7 @@ def phase_train_full(torch, np):
     from repro_torch.models.common import tree_leaves
     from repro_torch.training import (OptConfig, TrainConfig, init_state,
                                       make_jitted_train_step)
+    from repro_torch.training.train import make_train_step
     problems = []
     cfg = get_config("minicpm-2b")
     model = get_model(cfg)
@@ -5318,11 +5573,15 @@ def phase_train_full(torch, np):
         DataConfig(vocab=cfg.vocab, global_batch=b, seq_len=s,
                    seed=0)).batch(0).items()}
 
-    # The optimizer's device time in each step, between CUDA events.
+    # The optimizer's device time, between CUDA events, in the eager
+    # first step: a replay runs no Python, and an event recorded while
+    # the step is captured is not timed.
     events = []
     real = optim_mod.adamw_update
 
     def timed(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return real(*a, **kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -5347,17 +5606,21 @@ def phase_train_full(torch, np):
         optim_mod.adamw_update = real
     peak = _peak_gb(torch)
     step_ms = statistics.median(host_ms[1:])
-    opt_ms = statistics.median(a.elapsed_time(z) for a, z in events[1:])
+    opt_ms = events[0][0].elapsed_time(events[0][1])
     tokens = b * s
     model_flops = 6.0 * n_params * tokens
     tflops = model_flops / (step_ms / 1e3) / 1e12
     prof = device_profile(lambda: step(state, batch), iters=1)
     dev_ms = sum(v[1] for v in prof.values())
     top = sorted(prof.items(), key=lambda kv_: -kv_[1][1])[:10]
+    captured, eager_ms = step.captured, step.warm_ms
+    pool_gb = step.pool.bytes / 1e9 if step.pool else 0.0
+    step.release()        # its pool, before the eager cast step's
     with torch.no_grad():
         f32_loss = float(model.loss(state["params"], batch))
-    cast = make_jitted_train_step(
-        model, TrainConfig(opt=opt, cast_params=True), donate=True)
+    # one step, run eagerly: capturing it would cost a second pool
+    cast = make_train_step(model, TrainConfig(opt=opt, cast_params=True),
+                           donate=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     state, met = cast(state, batch)
@@ -5373,11 +5636,16 @@ def phase_train_full(torch, np):
            "schedule": cfg.lr_schedule, "batch": b, "tokens": s,
            "init_s": init_s, "peak_lr": TRAIN_LR, "warmup_steps": steps,
            "lrs": lrs, "losses": losses, "grad_norms": norms,
-           "host_ms": host_ms, "step_ms": step_ms,
+           "host_ms": host_ms, "step_ms": step_ms, "captured": captured,
+           "eager_first_step_ms": eager_ms,
+           "first_call_ms": host_ms[0], "pool_gb": pool_gb,
+           "events_eager_only": len(events) == 1,
            "tokens_per_s": tokens / step_ms * 1e3,
            "model_tflops": tflops,
            "bf16_peak_share": tflops * 1e12 / BF16_FLOPS_PER_S,
-           "optimizer_ms": opt_ms, "device_ms": dev_ms,
+           "optimizer_ms": opt_ms,
+           "optimizer_ms_from": "the eager first step, CUDA events",
+           "device_ms": dev_ms,
            "busy_share": dev_ms / step_ms,
            "launches": sum(v[0] for v in prof.values()),
            "peak_gb": peak,
@@ -5391,6 +5659,9 @@ def phase_train_full(torch, np):
     if not finite or not losses[-1] < losses[0]:
         problems.append(f"train minicpm-2b: losses {losses}, grad norms "
                         f"{norms}: not finite or not falling")
+    if not (captured and len(events) == 1):
+        problems.append(f"train minicpm-2b: captured {captured}, "
+                        f"{len(events)} eager optimizer updates (want 1)")
     if not abs(cast_loss - f32_loss) < TRAIN_CAST_TOL:
         problems.append(f"train minicpm-2b cast_params: loss {cast_loss} "
                         f"against {f32_loss}")
@@ -5436,7 +5707,8 @@ def phase_train_full(torch, np):
         problems.append("train checkpoint: the restored state differs")
     del state, tree
 
-    # The same start and warm-up at the launcher's LR.
+    # The same start and warm-up at the launcher's LR (its first step
+    # eager, then replays).
     state = init_state(model, 0, DEVICE)
     step = make_jitted_train_step(model, TrainConfig(
         opt=dataclasses.replace(opt, lr=TRAIN_LAUNCHER_LR)), donate=True)
@@ -5470,9 +5742,14 @@ def train_main() -> int:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     os.makedirs(TRAIN_DIR)
     t0 = time.perf_counter()
+    # (t4) beside (t1): both hold SMOKE configs and (t4) a 4-layer
+    # minicpm-2b (~18 GB), done before (t2) takes ~50 GB
+    bits = start_child("--train-bits", TRAIN_BITS_TIMEOUT_S, env=dict(
+        os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
     problems = phase_train_smoke(torch, np)
     emit({"phase": "train", "case": "smoke_done",
           "seconds": time.perf_counter() - t0})
+    problems += finish_child(bits, "train_bits")
     problems += phase_train_full(torch, np)      # (t3a) runs inside it
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     if problems:
@@ -5483,6 +5760,93 @@ def train_main() -> int:
 def phase_train():
     """The train phase in its child process."""
     return phase_child("--train", TRAIN_TIMEOUT_S, "train")
+
+
+def _bits_case(torch, np, model, tc, batches):
+    """TRAIN_BITS_STEPS captured steps (``make_jitted_train_step``,
+    donated) against as many eager ones (``make_train_step``) from clones
+    of one state: (metrics and every state leaf bit-equal, captured,
+    pool GB, peak GB)."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import init_state, make_jitted_train_step
+    from repro_torch.training.train import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, 0, DEVICE)
+    eager_state = tree_map(torch.clone, state)
+    step = make_jitted_train_step(model, tc, donate=True)
+    eager = make_train_step(model, tc, donate=True)
+    equal = True
+    for batch in batches:
+        _, met = step(state, batch)
+        _, want = eager(eager_state, batch)
+        equal &= all(torch.equal(met[k], want[k]) for k in want)
+    equal &= all(torch.equal(a, b) for a, b in
+                 zip(tree_leaves(state), tree_leaves(eager_state)))
+    out = (equal, step.captured, step.pool.bytes / 1e9 if step.pool else 0.0,
+           _peak_gb(torch))
+    step.release()
+    del state, eager_state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_bits_main() -> int:
+    """(t4) Captured train steps against eager ones, bit for bit, under
+    ``torch.use_deterministic_algorithms(True)``, in a process of its
+    own started with ``CUBLAS_WORKSPACE_CONFIG`` set (the rest of the
+    train phase times cuBLAS at its default workspace): each SMOKE
+    config at f32 in two microbatches, then minicpm-2b at its published
+    widths cut to TRAIN_BITS_LAYERS layers, TRAIN_FULL's batch."""
+    import dataclasses
+    import torch
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig, TrainConfig
+    torch.use_deterministic_algorithms(True)
+    problems = []
+    opt = OptConfig(lr=1e-3, eps=1e-6, total_steps=10, warmup_steps=0)
+    b, s = TRAIN_SMOKE
+    cases = []
+    for arch in ENGINE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        batches = []
+        for i in range(TRAIN_BITS_STEPS):
+            batch = _smoke_batch(np, cfg, 2 * b, s)
+            batch["labels"] = np.random.default_rng(i).integers(
+                0, cfg.vocab, (2 * b, s)).astype(np.int32)
+            batches.append(batch)
+        cases.append((arch, "smoke", cfg,
+                      TrainConfig(opt=opt, microbatches=2), batches))
+    cfg = dataclasses.replace(get_config("minicpm-2b"),
+                              num_layers=TRAIN_BITS_LAYERS)
+    data = SyntheticTokens(DataConfig(vocab=cfg.vocab,
+                                      global_batch=TRAIN_FULL[0],
+                                      seq_len=TRAIN_FULL[1], seed=0))
+    cases.append(("minicpm-2b", f"published widths, {cfg.num_layers} of "
+                  f"40 layers", cfg, TrainConfig(opt=opt),
+                  [data.batch(i) for i in range(TRAIN_BITS_STEPS)]))
+    for arch, size, cfg, tc, batches in cases:
+        t0 = time.perf_counter()
+        equal, captured, pool_gb, peak = _bits_case(
+            torch, np, get_model(cfg), tc, batches)
+        emit({"phase": "train", "case": "captured_vs_eager", "arch": arch,
+              "size": size, "layers": cfg.num_layers,
+              "d_model": cfg.d_model, "dtype": cfg.dtype,
+              "microbatches": tc.microbatches,
+              "batch": list(batches[0]["tokens"].shape),
+              "steps": TRAIN_BITS_STEPS, "bit_equal": equal,
+              "captured": captured, "pool_gb": pool_gb, "peak_gb": peak,
+              "seconds": time.perf_counter() - t0})
+        if not (equal and captured):
+            problems.append(f"train {arch} ({cfg.num_layers} layers): "
+                            f"captured {captured}, bit-equal to eager "
+                            f"{equal}")
+    if problems:
+        raise SystemExit("train_bits failed: " + "; ".join(problems))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -5508,13 +5872,14 @@ TM_STEPS = 3
 #: (tm2): minicpm-2b at its published widths on data=2, depth cut from
 #: 40 layers to TM2[3] (each of the two ranks holds its part of the state
 #: on the one card, the reference's placement; 6 rather than 12 layers
-#: since the dry-run phase, to keep the script's time: the gathers' and
-#: the reduce's GB/s are what it measures):
+#: since the dry-run phase, 4 since the captured programs' rows, to keep
+#: the script's time: the gathers' and the reduce's GB/s are what it
+#: measures):
 #: global batch x tokens x steps x layers, WSD warm-up over the steps to
 #: TRAIN_LR; step 1's loss and grad_norm against the one-device step on
 #: the same batch and params (2 steps since the partitioned state: its
 #: gathers doubled the step's time).
-TM2 = (4, 512, 2, 6)
+TM2 = (4, 512, 2, 4)
 TM2_LOSS_TOL = 1e-4
 TM2_NORM_TOL = 1e-2
 #: (tm3): mixtral-8x22b at its widths on model=2, expert-parallel, f32,
@@ -6423,9 +6788,10 @@ def _dry_d2(torch, np):
                                              dtype=np.int32), device=DEVICE)
              for k in ("tokens", "labels")}
     step = make_jitted_train_step(model, tc, donate=True)
-    step(state, batch)
+    step(state, batch)                  # eager, then captured
     torch.cuda.synchronize()
-    _, real = analyze_trace(step, state, batch)
+    # the body the graph records, run op by op (a replay issues no op)
+    _, real = analyze_trace(step.eager, state, batch)
     torch.cuda.synchronize()
     ms = []
     for _ in range(DRY_D2_RUNS):
@@ -6673,6 +7039,8 @@ if __name__ == "__main__":
         sys.exit(mesh_main())
     if sys.argv[1:] == ["--train"]:
         sys.exit(train_main())
+    if sys.argv[1:] == ["--train-bits"]:
+        sys.exit(train_bits_main())
     if sys.argv[1:] == ["--train-mesh"]:
         sys.exit(train_mesh_main())
     if sys.argv[1:] == ["--dryrun"]:

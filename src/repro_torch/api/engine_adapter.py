@@ -11,9 +11,15 @@ stack and the paper's CNN compiler are driven the same way:
 
 Params are made on ``options.device`` from ``init_seed``, or carried in
 with ``params=`` (e.g. :func:`repro_torch.weights.params_from_reference`)
-and moved there.  Execution is eager; ``exe.serve(...)`` hands the
+and moved there.  Where the reference jits ``model.forward`` once per
+input signature, the port runs one :class:`ForwardProgram` per
+signature: on a CUDA device the forward captured as one CUDA graph over
+static input tensors, all of an executable's programs in one
+:class:`~repro_torch.core.program.GraphPool` (a larger signature lays it
+out again, :meth:`~repro_torch.core.program.GraphPool.place`); on the
+CPU the same forward run eagerly.  ``exe.serve(...)`` hands the
 executable to the serve scheduler (:mod:`repro_torch.serve`), which
-captures its decode step as one CUDA graph per batch bucket.
+captures its own serving programs.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from ..configs.base import ArchConfig, extra_input_specs
 from ..core.graph import Signature
 from ..core.lowering import resolve_device
+from ..core.program import GraphPool, capture, replay
 from ..models import common as C
 from ..models.api import Model, get_model
 from .executable import Executable, pack
@@ -58,13 +65,82 @@ def _cast_f32_leaves(tree: Dict[str, Any], dtype: torch.dtype) -> None:
             tree[k] = v.to(dtype)
 
 
+class ForwardProgram:
+    """``model.forward(params, batch)[0]`` of one input signature over
+    static input tensors: captured on a CUDA device into ``pool`` as one
+    CUDA graph that reads ``params`` where they lie (a call copies its
+    inputs in, replays, and returns a copy of the static logits, which
+    the pool's next replay may overwrite), run eagerly on the CPU.
+    ``order`` is the inputs' element count (the pool's size key)."""
+
+    def __init__(self, model: Model, params, batch: Dict[str, torch.Tensor],
+                 pool: Optional[GraphPool] = None) -> None:
+        self.model = model
+        self.params = params
+        self.pool = pool
+        self.device = next(iter(batch.values())).device
+        self.order = sum(t.numel() for t in batch.values())
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        #: Bytes the latest capture added to the pool (CUDA only).
+        self.pool_bytes = 0
+        self.inputs: Dict[str, torch.Tensor] = {}
+        if self.device.type != "cuda":
+            return
+        with torch.inference_mode():
+            self.inputs = {k: v.clone() for k, v in batch.items()}
+        self.recapture()
+
+    @property
+    def captured(self) -> bool:
+        """True when each call is a replay of a CUDA graph."""
+        return self.graph is not None
+
+    def eager(self, batch: Optional[Dict[str, torch.Tensor]] = None):
+        """The forward run op by op, over ``batch`` or the static inputs
+        (what the graph recorded): its logits."""
+        with torch.inference_mode():
+            return self.model.forward(
+                self.params, self.inputs if batch is None else batch)[0]
+
+    def recapture(self) -> None:
+        """Capture the forward into the pool on the static inputs it
+        already has (again, after :meth:`release`)."""
+        self.graph, self.logits, self.pool_bytes = capture(
+            self.eager, self.device, self.pool)
+
+    def release(self) -> None:
+        """Drop the graph and its static logits."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.logits = None
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return self.eager(batch)
+        if self.graph is None:            # its recapture failed
+            self.recapture()
+
+        def copy_in():
+            for name, t in self.inputs.items():
+                t.copy_(batch[name])
+
+        with torch.inference_mode():
+            return replay(self.pool, self.graph, self.device, copy_in,
+                          self.logits.clone)
+
+
 class ModelExecutable(Executable):
     """Executable over a registered model architecture (the ``"engine"``
     target): ``model.forward`` over params held on the executable's
-    device, with the first call of each unseen input signature timed
-    into ``compile_time``.  ``options.mesh`` and ``sharding_rules`` ride
-    along: a call runs unsharded (as the reference's does), and
-    :meth:`serve` takes the mesh as its serving placement."""
+    device, one :class:`ForwardProgram` per input signature, the first
+    call of each unseen signature timed into ``compile_time`` (on a CUDA
+    device its warm-up, capture and replay).  The programs read
+    :attr:`params` where they lie, so replacing them drops the programs
+    (the reference passes the params to its jitted forward as an
+    argument).  ``options.mesh`` and ``sharding_rules`` ride along: a
+    call runs unsharded (as the reference's does), and :meth:`serve`
+    takes the mesh as its serving placement."""
 
     def __init__(self, model_or_cfg, options: CompileOptions, *,
                  params=None, init_seed: int = 0) -> None:
@@ -102,6 +178,8 @@ class ModelExecutable(Executable):
                 "mode": "bf16",
                 "decisions": {"bf16": n_bf16,
                               "f32": len(leaves) - n_bf16}}
+        self._programs: Dict[tuple, ForwardProgram] = {}
+        self._pool: Optional[GraphPool] = None
         self.params = params
         self.compile_time: Optional[float] = None
         self._seen_shapes = set()
@@ -113,19 +191,59 @@ class ModelExecutable(Executable):
             outputs=(("logits", None),),
         )
 
+    @property
+    def params(self):
+        """The param tree every program reads; setting it drops them."""
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        for prog in self._programs.values():
+            prog.release()
+        self._programs = {}
+        self._pool = None     # a fresh pool id for the next captures
+        self._params = value
+
+    @property
+    def programs(self) -> Dict[str, Any]:
+        """The forward programs (one per input signature called since
+        the params were set): their count, whether each is a CUDA graph
+        (``captured``), and the bytes their pool holds."""
+        progs = list(self._programs.values())
+        return {"programs": len(progs),
+                "captured": bool(progs) and all(p.captured for p in progs),
+                "pool_bytes": self._pool.bytes if self._pool else 0}
+
+    def _program(self, sig: tuple, batch) -> ForwardProgram:
+        """``sig``'s program, built (and on the card captured) now if
+        it has none."""
+        prog = self._programs.get(sig)
+        if prog is None:
+            if self.device.type != "cuda":
+                prog = ForwardProgram(self.model, self.params, batch)
+            else:
+                if self._pool is None:
+                    self._pool = GraphPool(self.device)
+                prog = self._pool.place(
+                    lambda: ForwardProgram(self.model, self.params, batch,
+                                           self._pool),
+                    sum(t.numel() for t in batch.values()),
+                    list(self._programs.values()))
+            self._programs[sig] = prog
+        return prog
+
     # ------------------------------------------------------------------
     def __call__(self, *pos, **batch) -> Dict[str, Any]:
         batch = self.signature.bind(pos, batch)
         batch = {k: _to_device(v, self.device) for k, v in batch.items()}
         sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))
                            for k, v in batch.items()))
-        with torch.inference_mode():
-            if sig in self._seen_shapes:
-                return {"logits": self.model.forward(self.params, batch)[0]}
-            t0 = time.perf_counter()
-            logits = self.model.forward(self.params, batch)[0]
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        if sig in self._seen_shapes:
+            return {"logits": self._program(sig, batch)(batch)}
+        t0 = time.perf_counter()
+        logits = self._program(sig, batch)(batch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self._seen_shapes.add(sig)
         self.compile_time = ((self.compile_time or 0.0)
                              + time.perf_counter() - t0)

@@ -29,7 +29,10 @@ freed only where they are large enough: a batch larger than every
 captured one would take new segments for each of its intermediates,
 and batch sizes arriving in ascending order would each add a pool.  So
 such a batch lays the pool out again, largest first
-(:meth:`GraphPool.admit`): once the last replay has ended on the card,
+(:meth:`GraphPool.admit`; :meth:`GraphPool.place` for programs of any
+kind, ordered by a key their caller gives: the ``engine`` forward's
+input elements, a whole-prompt prefill's length, a train step's batch
+elements): once the last replay has ended on the card,
 every program releases its graph, the pool takes a fresh id (the old
 one's memory returns at the next capture's ``empty_cache``), the new
 program is captured, then the others again in descending batch order,
@@ -65,14 +68,16 @@ a CUDA device.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
 from .lowering import LoweredGraph
 
+P = TypeVar("P")
 #: Graph input name -> (per-example shape, torch dtype).
 InputSpecs = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
 #: One capture at a time in the process (see the module's note).
@@ -100,12 +105,24 @@ class GraphPool:
     def admit(self, eager: LoweredGraph, inputs: InputSpecs,
               held: Sequence["CapturedProgram"]) -> "CapturedProgram":
         """Capture ``eager`` into the pool beside ``held``, the programs
-        captured into it before; a batch larger than all of theirs lays
-        the pool out again, largest first (see the module's note).  If a
+        captured into it before, ordered by batch (:meth:`place`)."""
+        return self.place(
+            lambda: CapturedProgram(eager, inputs, self.device, self),
+            eager.ctx.batch_size, held)
+
+    def place(self, make: Callable[[], "P"], order: int,
+              held: Sequence["P"]) -> "P":
+        """The program ``make()`` captures into the pool beside ``held``,
+        the programs captured into it before.  ``order`` is the caller's
+        size key, what each program's ``order`` holds (a batch, a
+        program's input elements, a prompt length): a key above all of
+        theirs lays the pool out again, largest first (see the module's
+        note), so keys arriving in ascending order share one pool.  Each
+        program has ``order``, ``release()`` and ``recapture()``.  If a
         capture fails it raises, and a held program left without a graph
         captures again at its next call."""
-        if not held or eager.ctx.batch_size < max(p.batch for p in held):
-            return CapturedProgram(eager, inputs, self.device, self)
+        if not held or order <= max(p.order for p in held):
+            return make()
         with self.lock:
             if self.done is not None:
                 self.done.synchronize()
@@ -113,8 +130,8 @@ class GraphPool:
                 p.release()
             self.handle = torch.cuda.graph_pool_handle()
             self.bytes = 0
-            prog = CapturedProgram(eager, inputs, self.device, self)
-            for p in sorted(held, key=lambda p: -p.batch):
+            prog = make()
+            for p in sorted(held, key=lambda p: -p.order):
                 p.recapture()
         return prog
 
@@ -139,7 +156,7 @@ class CapturedProgram:
             raise ValueError(f"CapturedProgram needs a CUDA device, got "
                              f"{device}; run the LoweredGraph on the CPU")
         self.eager = eager
-        self.batch = eager.ctx.batch_size
+        self.batch = self.order = eager.ctx.batch_size
         self.device = device
         self.pool = pool if pool is not None else GraphPool(device)
         # Created outside inference mode: callers write into them.
@@ -234,7 +251,8 @@ def _retire(pool: GraphPool) -> None:
 
 
 def capture(fn: Callable[[], object], device: torch.device,
-            pool: GraphPool, warmup: Optional[Callable[[], object]] = None
+            pool: GraphPool, warmup: Optional[Callable[[], object]] = None,
+            inference: bool = True
             ) -> Tuple[torch.cuda.CUDAGraph, object, int]:
     """Warm ``fn()`` up on a side stream, then capture one call of it into
     ``pool``: ``(graph, what the captured call returned, bytes the
@@ -243,8 +261,11 @@ def capture(fn: Callable[[], object], device: torch.device,
     warm-up, for a ``fn`` that writes state a real call must not touch
     (the serve scheduler's decode step, which writes the live KV cache:
     its warm-up runs the same step on scratch tensors of the same
-    shapes, and only the recording names the live cache)."""
-    with _CAPTURE_LOCK, torch.cuda.device(device), torch.inference_mode():
+    shapes, and only the recording names the live cache).  Both run
+    under ``torch.inference_mode()`` unless ``inference`` is False (the
+    train step, whose backward autograd must record)."""
+    with _CAPTURE_LOCK, torch.cuda.device(device), \
+            torch.inference_mode(inference):
         # One warm-up stream per device (captures hold the lock): a new
         # stream would make cuBLAS/cuDNN set up workspaces for it, which
         # the allocator keeps.
@@ -263,7 +284,13 @@ def capture(fn: Callable[[], object], device: torch.device,
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         # The outer stream context restores this thread's stream if the
-        # capture fails (torch.cuda.graph's exit then skips it).
+        # capture fails (torch.cuda.graph's exit then skips it).  A graph
+        # or tensor that the cyclic collector frees in the middle of the
+        # recording (a graph's destructor, a pool's release) invalidates
+        # it, so no collection runs while it records (torch.cuda.graph
+        # collects once before it starts).
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(torch.cuda.current_stream(device)), \
                     torch.cuda.graph(graph, pool=pool.handle,
@@ -272,6 +299,31 @@ def capture(fn: Callable[[], object], device: torch.device,
         except BaseException:
             _retire(pool)
             raise
+        finally:
+            if collecting:
+                gc.enable()
         added = torch.cuda.memory_reserved(device) - reserved
         pool.bytes += added
     return graph, out, added
+
+
+def replay(pool: GraphPool, graph: "torch.cuda.CUDAGraph", device,
+           copy_in: Optional[Callable[[], None]] = None,
+           copy_out: Optional[Callable[[], Any]] = None) -> Any:
+    """One replay of ``graph`` in ``pool``'s order (see the module's
+    note): under the pool's lock the stream waits for the event of the
+    pool's previous replay, ``copy_in()`` fills the static inputs, the
+    graph replays, ``copy_out()`` copies what the caller keeps, and the
+    event is recorded; ``copy_out``'s result."""
+    stream = torch.cuda.current_stream(device)
+    with pool.lock:
+        if pool.done is None:
+            pool.done = torch.cuda.Event()
+        else:
+            stream.wait_event(pool.done)
+        if copy_in is not None:
+            copy_in()
+        graph.replay()
+        out = copy_out() if copy_out is not None else None
+        pool.done.record(stream)
+    return out

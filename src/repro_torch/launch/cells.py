@@ -515,6 +515,9 @@ def trace_program(cfg: ArchConfig, shape: ShapeSpec, mesh=None,
                 fn = make_jitted_train_step(
                     model, dataclasses.replace(tc, microbatches=n),
                     mesh=live, donate=True)
+                # one device's step is CUDA graphs on the card: count the
+                # body they record, run op by op (a replay issues no op)
+                fn = getattr(fn, "eager", fn)
             rows = _train_rows(shape, tc.microbatches, live) * n
             args = (state, _fake(_batch(cfg, shape, rows), device))
             run = lambda *a: _in_context(fn, live, rules, *a)

@@ -24,10 +24,10 @@ and ``length`` are device scalars, built and captured at construction,
 or one padded-prefill program per length bucket, captured largest first
 in the background like the decode buckets.  On a CUDA device each is a
 CUDA graph in the scheduler's one graph pool, on the CPU the same
-functions run eagerly.  Only the whole-prompt prefill of a scheduler
-with neither runs eagerly on the card, as the reference retraces it per
-prompt length; ``summary()["engines"]`` says which programs are
-captured.
+functions run eagerly.  A scheduler with neither prefills through one
+whole-prompt program per prompt length, captured at the length's first
+admission, as the reference retraces its prefill per prompt length;
+``summary()["engines"]`` says which programs are captured.
 
 Requests whose prompts share a common head (the "system prompt"
 scenario) prefill that head once: with ``prefix_cache`` enabled the
@@ -87,7 +87,8 @@ from .metrics import RequestMetrics, SchedulerMetrics
 from .options import SchedulerOptions
 from .prefix import PrefixCache, common_prefix_len
 from .slots import CachePlacement, SlotManager, SlotState
-from .step import ChunkProgram, DecodeStep, PrefillProgram
+from .step import (ChunkProgram, DecodeStep, PrefillProgram,
+                   WholePrefillProgram)
 
 
 @dataclasses.dataclass
@@ -279,7 +280,6 @@ class Scheduler:
         # the full-slots step, which is captured first.
         self._pool = GraphPool(self.device) \
             if self.device.type == "cuda" else None
-        self._prefill = model.prefill
         # every decode step built, one per distinct count of local rows
         self._steps: List[DecodeStep] = []
         self._steps_lock = threading.Lock()
@@ -296,6 +296,11 @@ class Scheduler:
             self._init_chunking(engine_worker)
         if options.buckets is not None:
             self._init_bucketing(engine_worker)
+        # With neither chunks nor length buckets: one whole-prompt
+        # program per prompt length, built at its first admission.
+        self._whole: Optional[Dict[int, WholePrefillProgram]] = None
+        if self._chunk_engine is None and self._prefill_engine is None:
+            self._init_whole_prefill()
         # Fixed shape: the one full-slots step, captured now (load time,
         # not latency).
         self._decode = (self._build_step(options.slots)
@@ -473,6 +478,45 @@ class Scheduler:
         self._chunk_engine.warm_up(block=True)
         if opts.prefix_cache > 0:
             self._prefix_cache = PrefixCache(opts.prefix_cache)
+
+    def _init_whole_prefill(self) -> None:
+        """The whole-prompt programs' shared single-row cache and extra
+        inputs (a call's cache is spliced into its slot before the next
+        call) and, on a CUDA device, their pool: a pool of their own,
+        because prompt lengths arrive in any order and a longer one lays
+        it out again (``GraphPool.place``), which must not touch the
+        decode steps.  On a mesh they are captured as on one device: the
+        scheduler prefills whole on every rank, talking to no other
+        rank."""
+        self._whole = {}
+        with torch.inference_mode():
+            self._whole_cache = self._new_cache()
+            self._whole_extras = {
+                name: torch.zeros(shape, dtype=C.torch_dtype(dt),
+                                  device=self.device)
+                for name, (shape, dt) in extra_input_specs(self.cfg).items()}
+        self._whole_pool = GraphPool(self.device) \
+            if self.device.type == "cuda" else None
+
+    def _whole_program(self, length: int) -> WholePrefillProgram:
+        """The whole-prompt program of ``length`` tokens, built (and on
+        the card captured) at its first call, as the reference traces
+        its prefill once per prompt length."""
+        prog = self._whole.get(length)
+        if prog is None:
+            make = lambda: WholePrefillProgram(
+                self.model, self.params, length, self._whole_cache,
+                self._whole_extras, self.device, self._whole_pool)
+            prog = make() if self._whole_pool is None else \
+                self._whole_pool.place(make, length,
+                                       list(self._whole.values()))
+            self._whole[length] = prog
+        return prog
+
+    def whole_prefill_programs(self) -> List[WholePrefillProgram]:
+        """The whole-prompt programs built so far, shortest first (none
+        where chunks or length buckets prefill)."""
+        return [self._whole[n] for n in sorted(self._whole or {})]
 
     def wait_warm(self, timeout: float = 120.0) -> bool:
         """Block until every scheduled background build has landed
@@ -668,9 +712,11 @@ class Scheduler:
                 logits, one = entry(
                     self._prefill_batch(padded, req.inputs, "cpu"), plen)
             else:
-                logits, one = self._prefill(
-                    self.params, self._prefill_batch(prompt, req.inputs),
-                    self._new_cache())
+                # the length's program: its cache is the whole-prompt
+                # programs' shared one, spliced into the slot by
+                # _activate before the next
+                logits, one = self._whole_program(prompt.shape[1])(
+                    self._prefill_batch(prompt, req.inputs, "cpu"))
             self._activate(slot, req, logits[:, -1], one)
 
     def _admit_chunked(self) -> None:
@@ -947,9 +993,9 @@ class Scheduler:
         """The port's own key: each serving program this scheduler runs,
         whether every one built so far is a CUDA graph (``captured``),
         and how many there are.  ``whole_prefill`` (no chunk or length
-        buckets) is the model's eager ``prefill``, as the reference
-        retraces it per prompt length; a decode step that gathers the
-        cache over a mesh is eager too."""
+        buckets) has one program per prompt length seen, as the
+        reference retraces its prefill per length; a decode step that
+        gathers the cache over a mesh is eager."""
         steps = [s for s in self.decode_steps() if s.local]
         out = {"decode": {"captured": bool(steps) and all(
             s.captured for s in steps), "programs": len(steps)}}
@@ -959,8 +1005,10 @@ class Scheduler:
                 progs = [eng.peek(b) for b in eng.warm_buckets()]
                 out[name] = {"captured": bool(progs) and all(
                     p.captured for p in progs), "programs": len(progs)}
-        if self._chunk_engine is None and self._prefill_engine is None:
-            out["whole_prefill"] = {"captured": False, "programs": 0}
+        if self._whole is not None:
+            progs = self.whole_prefill_programs()
+            out["whole_prefill"] = {"captured": bool(progs) and all(
+                p.captured for p in progs), "programs": len(progs)}
         return out
 
     def decode_steps(self) -> List[DecodeStep]:

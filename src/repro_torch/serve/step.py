@@ -50,6 +50,16 @@ eagerly, the same functions on the same static tensors, on the CPU:
   buffer, the model's extra inputs and ``length`` as a device scalar,
   into a single-row cache that the scheduler's programs share and that
   the scheduler splices into a slot right after each call.
+* :class:`WholePrefillProgram` — one per exact prompt length, for a
+  scheduler with neither chunks nor length buckets: plain
+  ``model.prefill`` over a static ``(1, L)`` token buffer and the
+  model's extra inputs, into a single-row cache that the scheduler's
+  whole-prompt programs share (zeroed before each call, as a fresh
+  cache is), the counterpart of the reference's prefill that it jits
+  and retraces per prompt length.  Lengths arrive in any order, so
+  these programs capture into a pool of their own, which
+  :meth:`~repro_torch.core.program.GraphPool.place` lays out again
+  when a longer prompt arrives.
 
 Their outputs live in the pool, where the next replay of any program
 may overwrite them, so a call returns a copy of its logits.  None of
@@ -60,35 +70,13 @@ rank), so they are captured on a mesh too.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.program import GraphPool, capture
+from ..core.program import GraphPool, capture, replay
 from ..models.common import step_rows
 from .slots import SlotManager
-
-
-def _replay(pool: GraphPool, graph: "torch.cuda.CUDAGraph", device,
-            copy_in: Optional[Callable[[], None]] = None,
-            copy_out: Optional[Callable[[], Any]] = None) -> Any:
-    """One replay of ``graph`` in ``pool``'s order (``core/program.py``):
-    under the pool's lock the stream waits for the event of the pool's
-    previous replay, ``copy_in()`` fills the static inputs, the graph
-    replays, ``copy_out()`` copies what the caller keeps, and the event
-    is recorded; ``copy_out``'s result."""
-    stream = torch.cuda.current_stream(device)
-    with pool.lock:
-        if pool.done is None:
-            pool.done = torch.cuda.Event()
-        else:
-            stream.wait_event(pool.done)
-        if copy_in is not None:
-            copy_in()
-        graph.replay()
-        out = copy_out() if copy_out is not None else None
-        pool.done.record(stream)
-    return out
 
 
 def _need_pool(pool: Optional[GraphPool], what: str) -> None:
@@ -168,7 +156,7 @@ class DecodeStep:
         self.calls += 1
         if self.graph is None:
             return self.eager()
-        _replay(self.pool, self.graph, self.device)
+        replay(self.pool, self.graph, self.device)
         return self.logits
 
 
@@ -295,7 +283,7 @@ class ChunkProgram:
             if graph is None:
                 copy_in()
                 return copy_out(self.eager(count)), cache
-            return _replay(self.pool, graph, self.device, copy_in,
+            return replay(self.pool, graph, self.device, copy_in,
                            lambda: copy_out(self.logits[count])), cache
 
 
@@ -382,5 +370,102 @@ class PrefillProgram:
             if self.graph is None:
                 copy_in()
                 return self.eager().clone(), self.cache
-            return _replay(self.pool, self.graph, self.device, copy_in,
+            return replay(self.pool, self.graph, self.device, copy_in,
                            lambda: self.logits.clone()), self.cache
+
+
+class WholePrefillProgram:
+    """``model.prefill`` of one exact prompt length over static tensors:
+    a ``(1, length)`` int32 token buffer and the model's extra inputs
+    and single-row cache that the scheduler's whole-prompt programs
+    share; captured on a CUDA device (its warm-up on a scratch cache),
+    run eagerly on the CPU.  ``order`` is the length (the pool's size
+    key, :meth:`~repro_torch.core.program.GraphPool.place`)."""
+
+    def __init__(self, model, params, length: int, cache: Dict[str, Any],
+                 extras: Dict[str, torch.Tensor], device,
+                 pool: Optional[GraphPool] = None) -> None:
+        self.model = model
+        self.params = params
+        self.length = self.order = length
+        self.device = torch.device(device)
+        self.cache = cache
+        self.extras = extras
+        with torch.inference_mode():
+            self.tokens = torch.zeros((1, length), dtype=torch.int32,
+                                      device=self.device)
+        self.pool = pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        #: As :class:`ChunkProgram`'s (the latest capture's bytes).
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.calls = 0
+        if self.device.type == "cuda":
+            _need_pool(pool, "a whole-prompt prefill program")
+            self.recapture()
+
+    @property
+    def captured(self) -> bool:
+        """True when each call is a replay of a CUDA graph."""
+        return self.graph is not None
+
+    def batch(self) -> Dict[str, torch.Tensor]:
+        """The static batch: tokens and the extra inputs."""
+        return {"tokens": self.tokens, **self.extras}
+
+    def eager(self) -> torch.Tensor:
+        """The prefill run op by op over the static tensors (what the
+        graph recorded): its logits."""
+        with torch.inference_mode():
+            return self.model.prefill(self.params, self.batch(),
+                                      self.cache)[0]
+
+    def recapture(self) -> None:
+        """Capture the prefill into the pool on the static tensors it
+        already has (again, after :meth:`release`); the warm-up writes a
+        scratch cache, so it leaves the shared one as it found it."""
+        def warmup():
+            scratch = {k: torch.zeros_like(v) for k, v in self.cache.items()}
+            self.model.prefill(self.params, self.batch(), scratch)
+
+        t0 = time.perf_counter()
+        self.graph, self.logits, self.pool_bytes = capture(
+            self.eager, self.device, self.pool, warmup=warmup)
+        self.capture_s += time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Drop the graph and its static logits (the pool is laid out
+        again)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.logits = None
+
+    def __call__(self, batch: Dict[str, Any]):
+        """Prefill one request: ``batch`` its tokens, (1, length), and
+        every extra input.  ``(logits, cache)``: the last position's
+        logits a copy, (1, 1, vocab); the cache the shared static one,
+        valid until the next whole-prompt program's call."""
+        if tuple(batch["tokens"].shape) != tuple(self.tokens.shape) \
+                or set(batch) != {"tokens", *self.extras}:
+            raise ValueError(
+                f"the whole-prompt program of length {self.length} takes "
+                f"tokens (1, {self.length}) and {sorted(self.extras)}; got "
+                f"{tuple(batch['tokens'].shape)} and "
+                f"{sorted(set(batch) - {'tokens'})}")
+        self.calls += 1
+
+        def copy_in():
+            for leaf in self.cache.values():
+                leaf.zero_()
+            for name, t in self.batch().items():
+                t.copy_(batch[name])
+
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                copy_in()
+                return self.eager()[:, -1:].clone(), self.cache
+            if self.graph is None:        # its recapture failed
+                self.recapture()
+            return replay(self.pool, self.graph, self.device, copy_in,
+                          lambda: self.logits[:, -1:].clone()), self.cache

@@ -2,11 +2,14 @@
 compression with error feedback, AdamW — the port of
 ``repro.training.train``, on one device or over a mesh of ranks.
 
-The step runs eagerly: the loss, ``torch.autograd.grad`` over the param
-leaves, then AdamW.  The reference's ``lax.scan`` over microbatches is
-a Python loop here, each microbatch's graph freed after its backward;
-its donated state is an update in place (``donate=True``: every state
-tensor keeps its storage).  Params are stacked ``(L, ...)`` leaves, so
+The step is the loss, ``torch.autograd.grad`` over the param leaves,
+then AdamW: :func:`make_train_step` runs it eagerly, and on one device
+:func:`make_jitted_train_step` captures it as CUDA graphs on the card
+(:class:`CapturedTrainStep`), the reference's one jitted program.  The
+reference's ``lax.scan`` over microbatches is a Python loop here, each
+microbatch's graph freed after its backward; its donated state is an
+update in place (``donate=True``: every state tensor keeps its
+storage).  Params are stacked ``(L, ...)`` leaves, so
 an optimizer step is one update per leaf, about 15 leaves of work.
 
 Gradient compression: cross-microbatch gradients are carried in bf16
@@ -73,14 +76,16 @@ placement of the train state:
   over the mesh, the same bits on every rank.
 
 Collectives go through gloo (staged through the host for CUDA tensors),
-so ranks may share a card; NCCL and a step captured as CUDA graphs are
-later work.
+so ranks may share a card, and the mesh step runs eagerly; NCCL and a
+mesh step captured as CUDA graphs are later work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,8 +94,9 @@ import torch
 from ..distributed.sharding import (BATCH_AXES, current_rules, part_of,
                                     part_shape, placements, recording_splits,
                                     spec_cuts, use_mesh)
+from ..core.program import GraphPool, capture, replay
 from ..models.api import Model
-from ..models.common import tree_flatten, tree_unflatten
+from ..models.common import tree_flatten, tree_leaves, tree_unflatten
 from . import optim
 
 
@@ -212,6 +218,202 @@ def make_train_step(model: Model, tc: TrainConfig,
         return (state if donate else {"params": params, "opt": opt}), metrics
 
     return step
+
+
+#: The device type whose states :class:`CapturedTrainStep` captures on
+#: (the CPU tests emulate a capture on the host by setting it to "cpu").
+CAPTURE_DEVICE = "cuda"
+
+
+class _TrainGraph:
+    """One batch signature's captured step: ``body`` over static batch
+    tensors, recorded into ``pool`` (see :class:`CapturedTrainStep`);
+    ``out`` is what the recording returned, ``order`` the batch's
+    element count (the pool's size key)."""
+
+    def __init__(self, body: Callable, batch: Dict[str, torch.Tensor],
+                 pool: GraphPool, warmup: Optional[Callable]) -> None:
+        with torch.no_grad():
+            self.batch = {k: v.clone() for k, v in batch.items()}
+        self.body = body
+        self.pool = pool
+        self.order = sum(t.numel() for t in self.batch.values())
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Any = None
+        #: Bytes the latest capture added to the pool.
+        self.pool_bytes = 0
+        self.recapture(warmup)
+
+    def recapture(self, warmup: Optional[Callable] = None) -> None:
+        """Record the step; ``warmup`` (default: nothing, the step has
+        run before) runs first on the side stream."""
+        self.graph, self.out, self.pool_bytes = capture(
+            lambda: self.body(self.batch), self.pool.device, self.pool,
+            warmup=warmup or (lambda: None), inference=False)
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.out = None
+
+    def __call__(self, batch: Dict[str, torch.Tensor],
+                 copy_in: Callable[[], None] = lambda: None) -> Any:
+        """Copy ``batch`` (and what ``copy_in`` copies) in, replay, and
+        return copies of the recording's outputs."""
+        if self.graph is None:            # its recapture failed
+            self.recapture()
+
+        def fill():
+            copy_in()
+            for name, t in self.batch.items():
+                t.copy_(batch[name])
+
+        return replay(self.pool, self.graph, self.pool.device, fill,
+                      lambda: _clone_tree(self.out))
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+class CapturedTrainStep:
+    """The one-device train step captured as CUDA graphs, the counterpart
+    of the reference's jitted step (``make_jitted_train_step``): one
+    graph per batch signature, each over static batch tensors, recording
+    the loss, ``torch.autograd.grad``, the microbatch loop and AdamW
+    (:attr:`eager`, the step run op by op), its metrics 0-d static
+    tensors returned as copies; every graph in one
+    :class:`~repro_torch.core.program.GraphPool`, a larger batch laying
+    it out again (``GraphPool.place``).  A state on the CPU runs
+    :attr:`eager` itself.
+
+    ``donate=True``: the graphs read and write the state's own tensors,
+    the reference's donated buffers.  A batch signature's first call on
+    a state's tensors runs :attr:`eager` on them as the capture's
+    warm-up, on the side stream: that warm-up is the call's real step
+    (no scratch copy of the state need fit beside it), and the capture
+    records the next step without running it.  Later calls on the same
+    tensors copy the batch in and replay.  A call on other tensors (a
+    restored state, a new one) drops the graphs and captures again the
+    same way, so no call reads stale addresses.  The step holds only
+    weak references to the state: a state the caller drops is freed.
+
+    ``donate=False``: the graphs read a static copy of the state, made
+    at the first call, and write the new state into the pool; every call
+    copies the given state and batch in, replays, and returns copies, so
+    the given state is never written.  Its warm-up runs on the static
+    copy and writes nothing, so the first call is a replay too."""
+
+    def __init__(self, model: Model, tc: TrainConfig,
+                 donate: bool = True) -> None:
+        self.donate = donate
+        #: The step run op by op: what each graph records.
+        self.eager = make_train_step(model, tc, donate=donate)
+        self.graphs: Dict[tuple, _TrainGraph] = {}
+        self.pool: Optional[GraphPool] = None
+        #: Host ms of the latest eager first step (donated: the capture's
+        #: warm-up, synchronised).
+        self.warm_ms: Optional[float] = None
+        self._paths: Optional[List[str]] = None
+        self._refs: List[Any] = []      # donated: the state's leaves
+        self._static = None             # not donated: the state's copy
+
+    @property
+    def captured(self) -> bool:
+        """True when a graph is captured for some batch."""
+        return any(g.graph is not None for g in self.graphs.values())
+
+    def release(self) -> None:
+        """Drop every graph, the pool and the state copy; the next call
+        captures again."""
+        for g in self.graphs.values():
+            g.release()
+        self.graphs, self.pool, self._static = {}, None, None
+        self._refs = []
+
+    def __call__(self, state, batch):
+        device = state["opt"]["step"].device
+        if device.type != CAPTURE_DEVICE:
+            return self.eager(state, batch)
+        batch = _on_device(batch, device)
+        flat = tree_flatten(state)
+        leaves = [t for _, t in flat]
+        if self.donate and not (
+                len(self._refs) == len(leaves)
+                and all(r() is t for r, t in zip(self._refs, leaves))):
+            self.release()
+            self._paths = [p for p, _ in flat]
+            self._refs = [weakref.ref(t) for t in leaves]
+        if self.pool is None:
+            self.pool = GraphPool(device)
+        key = tuple(sorted((k, tuple(v.shape), v.dtype)
+                           for k, v in batch.items()))
+        graph = self.graphs.get(key)
+        if self.donate:
+            if graph is None:
+                return self._first(key, state, batch)
+            return state, graph(batch)
+        if self._static is None:
+            with torch.no_grad():
+                self._static = _clone_tree(state)
+        static = tree_leaves(self._static)
+        if [(t.shape, t.dtype) for t in leaves] != \
+                [(t.shape, t.dtype) for t in static]:
+            raise ValueError("the state's leaves differ in shape or dtype "
+                             "from those this train step was captured for")
+        if graph is None:
+            eager, static_tree = self.eager, self._static
+            graph = self._place(key, lambda b: eager(static_tree, b), batch,
+                                None)
+
+        def copy_in():
+            for s, t in zip(static, leaves):
+                s.copy_(t)
+        return graph(batch, copy_in)
+
+    def _place(self, key, body, batch, warmup) -> _TrainGraph:
+        graph = self.pool.place(
+            lambda: _TrainGraph(body, batch, self.pool, warmup),
+            sum(t.numel() for t in batch.values()),
+            list(self.graphs.values()))
+        self.graphs[key] = graph
+        return graph
+
+    def _first(self, key, state, batch):
+        """A donated batch signature's first call: the real step as the
+        capture's warm-up, then the capture of the next."""
+        out = []
+
+        def warmup():
+            t0 = time.perf_counter()
+            out.append(self.eager(state, batch))
+            torch.cuda.current_stream(self.pool.device).synchronize()
+            self.warm_ms = (time.perf_counter() - t0) * 1e3
+
+        self._place(key, _DonatedBody(self.eager, self._paths, self._refs),
+                    batch, warmup)
+        return out[0]
+
+
+class _DonatedBody:
+    """A donated graph's body: the step over the state its weak
+    references name (no reference to the :class:`CapturedTrainStep`, so
+    a step the caller drops is freed at once, never by the cyclic
+    collector in the middle of another capture)."""
+
+    def __init__(self, eager: Callable, paths: List[str], refs: List[Any]):
+        self.eager, self.paths, self.refs = eager, paths, refs
+
+    def __call__(self, batch):
+        leaves = [r() for r in self.refs]
+        if any(t is None for t in leaves):
+            raise RuntimeError("the state this train step was captured "
+                               "over has been freed")
+        return self.eager(tree_unflatten(self.paths, leaves), batch)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -601,16 +803,18 @@ def make_mesh_train_step(model: Model, tc: TrainConfig, mesh,
 
 def make_jitted_train_step(model: Model, tc: TrainConfig, mesh=None,
                            donate: bool = True, device="cuda") -> Callable:
-    """The train step for ``mesh``: None or a 1-device mesh is one
-    device; a larger mesh (a ``LiveMesh``, ``MeshSpec`` or its spelling)
-    is :func:`make_mesh_train_step` over the default process group,
-    which must have exactly the mesh's ranks (``MeshUnavailableError``
-    when it has fewer).  The name is the reference's; the step runs
-    eagerly (capturing it as CUDA graphs is later work).  ``donate``
-    updates the state in place, the reference's donated buffers.
-    ``device`` is the mesh step's (:func:`make_mesh_train_step`); one
-    device's step runs where its state is."""
+    """The train step for ``mesh``, the reference's jitted step: None or
+    a 1-device mesh is one device, a :class:`CapturedTrainStep` (CUDA
+    graphs on the card, :func:`make_train_step`'s step on the CPU); a
+    larger mesh (a ``LiveMesh``, ``MeshSpec`` or its spelling) is
+    :func:`make_mesh_train_step` over the default process group, which
+    must have exactly the mesh's ranks (``MeshUnavailableError`` when it
+    has fewer), and runs eagerly: its collectives go through gloo on the
+    host, and capture across ranks needs NCCL with one card per rank.
+    ``donate`` updates the state in place, the reference's donated
+    buffers.  ``device`` is the mesh step's; one device's step runs
+    where its state is."""
     if mesh is None or _spec(mesh).size == 1:
-        return make_train_step(model, tc, donate=donate)
+        return CapturedTrainStep(model, tc, donate=donate)
     return make_mesh_train_step(model, tc, mesh, donate=donate,
                                 device=device)

@@ -189,7 +189,9 @@ def engines_on_cpu(sched):
             want[name] = {"captured": False,
                           "programs": len(eng.warm_buckets())}
     if sched._chunk_engine is None and sched._prefill_engine is None:
-        want["whole_prefill"] = {"captured": False, "programs": 0}
+        want["whole_prefill"] = {
+            "captured": False,
+            "programs": len(sched.whole_prefill_programs())}
     return want
 
 

@@ -9,7 +9,10 @@ configured bf16 forward within the reference's 0.05 budget.  The twins
 of (d)-(f) at SMOKE size: mamba2, recurrentgemma and whisper decode
 against their own forward on the card at f32, over a prompt that is not
 a multiple of mamba2's chunk and runs past recurrentgemma's window.
-This file imports no JAX, so it runs on a machine without it::
+Each ``exe(...)`` call is a replay of the signature's captured forward:
+bit-equal to ``model.forward`` run eagerly on the same params and batch,
+one program a signature, and replaced params honoured.  This file
+imports no JAX, so it runs on a machine without it::
 
     python -m pytest -m cuda tests/test_torch_models_cuda.py
 """
@@ -139,3 +142,27 @@ def test_card_decode_matches_forward_f32(card, arch):
     limit = F32_TOL * max(1.0, float(want.abs().max()))
     assert err <= limit, (arch, err, limit)
     assert torch.equal(toks, want[:, :STEPS].argmax(-1).to(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_replay_bit_equal_to_eager(card, arch):
+    _, gpu = _pair(arch, "float32", card)
+    calls = [_batch(gpu.cfg), _batch(gpu.cfg, s=S + 3), _batch(gpu.cfg)]
+    for batch in calls:
+        feed = {k: torch.as_tensor(v, device=card) for k, v in batch.items()}
+        got = gpu(**batch)["logits"]
+        with torch.inference_mode():
+            want = gpu.model.forward(gpu.params, feed)[0]
+        assert torch.equal(got, want), arch
+    summary = gpu.programs
+    assert summary["programs"] == 2 and summary["captured"], summary
+    assert summary["pool_bytes"] > 0
+    # new params: the programs are dropped, and the next call reads them
+    gpu.params = get_model(gpu.cfg).init(1, card)
+    assert gpu.programs["programs"] == 0
+    got = gpu(**calls[0])["logits"]
+    with torch.inference_mode():
+        want = gpu.model.forward(gpu.params, {
+            k: torch.as_tensor(v, device=card)
+            for k, v in calls[0].items()})[0]
+    assert torch.equal(got, want) and gpu.programs["captured"]

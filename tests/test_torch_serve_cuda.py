@@ -237,3 +237,43 @@ def test_prefill_program_replay_equals_its_eager_call(card):
         assert torch.equal(got_cache[k], cache[k]), k
     assert int(cache["pos"][0]) == 9
     sched.shutdown()
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-780m",
+                                  "whisper-base"])
+def test_whole_prefill_replays_and_gives_the_cpu_tokens(card, arch):
+    """Neither chunks nor length buckets: one captured whole-prompt
+    program a prompt length, several slots admitted in one step, the
+    CPU's tokens; a replay bit-equal to ``model.prefill`` on a fresh
+    cache."""
+    lengths = (7, 7, 12, 5, 12)
+    tokens = {}
+    for device in ("cpu", card):
+        sched = repro_torch.serve(_exe(arch, device), SchedulerOptions(
+            slots=3, max_len=64, fold=False), engine_worker="manual")
+        rng = np.random.default_rng(8)
+        for uid, n in enumerate(lengths):
+            sched.submit(Request(uid=uid, prompt=rng.integers(
+                0, 256, n).astype(np.int32), max_new_tokens=6))
+        sched.run()
+        tokens[device] = dict(sched.generated)
+        assert sched.summary()["engines"]["whole_prefill"] == {
+            "captured": device == card, "programs": 3}
+        sched.shutdown()
+    assert tokens[card] == tokens["cpu"]
+    prog = sched.whole_prefill_programs()[1]
+    model, cfg = prog.model, prog.model.cfg
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (1, prog.length)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    with torch.inference_mode():
+        got, cache = prog(batch)
+        got_cache = _snapshot(cache)
+        fresh = model.init_cache(1, 64, card)
+        want, fresh = model.prefill(prog.params, {
+            k: v.to(card) for k, v in batch.items()}, fresh)
+    assert torch.equal(got, want[:, -1:])
+    for k in fresh:
+        assert torch.equal(got_cache[k], fresh[k]), k
