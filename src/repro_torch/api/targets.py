@@ -52,6 +52,7 @@ from ..core.program import CapturedProgram, GraphPool
 from ..core.selection import KernelChoice, check_kernel_device, select_kernels
 from ..core.simple import SimpleNN
 from ..frontends.container import load_model, save_model
+from ..runtime.spans import span
 from .cache import cache_key, open_cache
 from .executable import Executable, pack
 from .options import QUANT_PRECISIONS, CompileOptions
@@ -605,14 +606,15 @@ class JitExecutable(GraphExecutable):
         return out
 
     def __call__(self, *pos, **inputs):
-        args = self._gather_inputs(pos, inputs)
-        bucket = self._pick_bucket(args[0].shape[0])
-        out = self._run(self.ensure_compiled(bucket), args, bucket)
-        # Passes may rename output tensors (e.g. a fused terminal
-        # activation); the public contract keys outputs by the
-        # signature's names, identically across targets.
-        return {pub: out[opt] for pub, opt in
-                zip(self.source.output_names, self.graph.outputs)}
+        with span("call"):
+            args = self._gather_inputs(pos, inputs)
+            bucket = self._pick_bucket(args[0].shape[0])
+            out = self._run(self.ensure_compiled(bucket), args, bucket)
+            # Passes may rename output tensors (e.g. a fused terminal
+            # activation); the public contract keys outputs by the
+            # signature's names, identically across targets.
+            return {pub: out[opt] for pub, opt in
+                    zip(self.source.output_names, self.graph.outputs)}
 
     # -- introspection -------------------------------------------------
     def cache_info(self) -> dict:

@@ -75,6 +75,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
+from ..runtime.spans import span
 from .lowering import LoweredGraph
 
 P = TypeVar("P")
@@ -200,18 +201,21 @@ class CapturedProgram:
                 pool.done = torch.cuda.Event()
             else:
                 stream.wait_event(pool.done)
-            for name, t in env.items():
-                static = self.static_inputs[name]
-                if t is static:
-                    continue
-                if cut:
-                    static[:rows].copy_(t)
-                    static[rows:].zero_()
-                else:
-                    static.copy_(t)
-            self.graph.replay()
-            out = {k: (v[:rows] if cut else v).clone()
-                   for k, v in self.static_outputs.items()}
+            with span("input"):
+                for name, t in env.items():
+                    static = self.static_inputs[name]
+                    if t is static:
+                        continue
+                    if cut:
+                        static[:rows].copy_(t)
+                        static[rows:].zero_()
+                    else:
+                        static.copy_(t)
+            with span("replay"):
+                self.graph.replay()
+            with span("output"):
+                out = {k: (v[:rows] if cut else v).clone()
+                       for k, v in self.static_outputs.items()}
             pool.done.record(stream)
             return out
 
@@ -323,7 +327,8 @@ def replay(pool: GraphPool, graph: "torch.cuda.CUDAGraph", device,
             stream.wait_event(pool.done)
         if copy_in is not None:
             copy_in()
-        graph.replay()
+        with span("replay"):
+            graph.replay()
         out = copy_out() if copy_out is not None else None
         pool.done.record(stream)
     return out

@@ -83,6 +83,7 @@ from ..inference.fold_norms import fold_norms
 from ..models import common as C
 from ..runtime.buckets import Bucket, BucketPolicy
 from ..runtime.engine_cache import EngineCache
+from ..runtime.spans import span
 from .metrics import RequestMetrics, SchedulerMetrics
 from .options import SchedulerOptions
 from .prefix import PrefixCache, common_prefix_len
@@ -702,21 +703,24 @@ class Scheduler:
                 self.metrics.started_at = m.admitted_at
 
             prompt = np.asarray(req.prompt, np.int32)[None, :]
-            if self._prefill_engine is not None:
-                # the bucket's program: its cache is the programs' shared
-                # one, spliced into the slot by _activate before the next
-                plen = prompt.shape[1]
-                entry, bucket, _ = self._prefill_engine.get(1, plen)
-                padded = np.zeros((1, bucket.length), np.int32)
-                padded[:, :plen] = prompt
-                logits, one = entry(
-                    self._prefill_batch(padded, req.inputs, "cpu"), plen)
-            else:
-                # the length's program: its cache is the whole-prompt
-                # programs' shared one, spliced into the slot by
-                # _activate before the next
-                logits, one = self._whole_program(prompt.shape[1])(
-                    self._prefill_batch(prompt, req.inputs, "cpu"))
+            with span("prefill", req.uid):
+                if self._prefill_engine is not None:
+                    # the bucket's program: its cache is the programs'
+                    # shared one, spliced into the slot by _activate
+                    # before the next
+                    plen = prompt.shape[1]
+                    entry, bucket, _ = self._prefill_engine.get(1, plen)
+                    padded = np.zeros((1, bucket.length), np.int32)
+                    padded[:, :plen] = prompt
+                    logits, one = entry(
+                        self._prefill_batch(padded, req.inputs, "cpu"),
+                        plen)
+                else:
+                    # the length's program: its cache is the whole-prompt
+                    # programs' shared one, spliced into the slot by
+                    # _activate before the next
+                    logits, one = self._whole_program(prompt.shape[1])(
+                        self._prefill_batch(prompt, req.inputs, "cpu"))
             self._activate(slot, req, logits[:, -1], one)
 
     def _admit_chunked(self) -> None:
@@ -780,13 +784,15 @@ class Scheduler:
         finished = []
         for task in self._prefilling:
             n = min(chunk_len, len(task.prompt) - task.offset)
-            chunk = np.zeros((1, chunk_len), np.int32)
-            chunk[0, :n] = task.prompt[task.offset:task.offset + n]
-            entry, _, _ = self._chunk_engine.get(1, n)
-            # the program stages the task's own cache through its static
-            # one; the logits are a copy, kept until the task activates
-            task.logits, task.cache = entry(chunk, task.cache, task.offset,
-                                            n)
+            with span("chunk", task.req.uid):
+                chunk = np.zeros((1, chunk_len), np.int32)
+                chunk[0, :n] = task.prompt[task.offset:task.offset + n]
+                entry, _, _ = self._chunk_engine.get(1, n)
+                # the program stages the task's own cache through its
+                # static one; the logits are a copy, kept until the task
+                # activates
+                task.logits, task.cache = entry(chunk, task.cache,
+                                                task.offset, n)
             task.offset += n
             self.metrics.prefill_chunks += 1
             if (task.snapshot_key is not None
@@ -808,14 +814,15 @@ class Scheduler:
         logits, splice the single-row cache into ``slot`` and record
         first-token metrics (including the SLO verdict).  Where ranks
         store different slots, the slot's ranks sample it and share it."""
-        if self._rows_split():
-            tok = (self.sampler(logits, req.temperature, uid=req.uid,
-                                index=0)
-                   if self.slot_manager.owns(slot) else None)
-            tok = self._share_first_token(slot, tok)
-        else:
-            tok = self.sampler(logits, req.temperature, uid=req.uid,
-                               index=0)
+        with span("sample", req.uid):
+            if self._rows_split():
+                tok = (self.sampler(logits, req.temperature, uid=req.uid,
+                                    index=0)
+                       if self.slot_manager.owns(slot) else None)
+                tok = self._share_first_token(slot, tok)
+            else:
+                tok = self.sampler(logits, req.temperature, uid=req.uid,
+                                   index=0)
         # clamp so prompt + generated tokens can never outrun the
         # per-slot cache capacity
         plen = int(np.asarray(req.prompt).shape[-1])
@@ -877,33 +884,36 @@ class Scheduler:
         """One scheduler iteration: admit into free slots, one batched
         decode step, sample + evict.  Returns the number of slots still
         active afterwards."""
-        with torch.inference_mode():
+        with torch.inference_mode(), span("step"):
             return self._step()
 
     def _step(self) -> int:
         self._check_mesh()          # no-op unless mesh-parallel serving
-        self._admit_free_slots()
+        with span("admit"):
+            self._admit_free_slots()
         self._advance_prefills()    # no-op unless chunked prefill is on
         active = self.slot_manager.active_slots()
         if not active:
             return 0
-        if self._decode_engine is not None:
-            logits = self._bucketed_decode(len(active))
-            active = self.slot_manager.active_slots()  # post-compaction
-        else:
-            logits = self._run_step(self._decode)
+        with span("decode"):
+            if self._decode_engine is not None:
+                logits = self._bucketed_decode(len(active))
+                active = self.slot_manager.active_slots()  # post-compaction
+            else:
+                logits = self._run_step(self._decode)
         self.metrics.decode_steps += 1
         self.metrics.decode_slot_steps += len(active)
         sm = self.slot_manager
         toks = {}
-        for slot in active:
-            if not sm.owns(slot):
-                continue
-            st = sm.state(slot)
-            row = slot - sm.row0
-            toks[slot] = self.sampler(
-                logits[row:row + 1], st.temperature, uid=st.uid,
-                index=self.request_metrics[st.uid].new_tokens)
+        with span("sample"):
+            for slot in active:
+                if not sm.owns(slot):
+                    continue
+                st = sm.state(slot)
+                row = slot - sm.row0
+                toks[slot] = self.sampler(
+                    logits[row:row + 1], st.temperature, uid=st.uid,
+                    index=self.request_metrics[st.uid].new_tokens)
         toks = self._exchange(toks, active)
         for slot in active:
             st = sm.state(slot)
